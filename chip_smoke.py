@@ -9,8 +9,10 @@ port's main path (``repro_torch.launch.simulate``) at full width —
 and checks it against the port's dense per-gate oracle on the card, then
 runs ``qft(22)`` with ``--check`` against the host complex128 oracle.
 
-Prints the card's name and power limit, one JSON line of kernel figures,
-and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
+Prints the card's name and power limit, the ``shm_apply`` member-count /
+window sweep on the widest group as a diagnostic line, one JSON line of
+kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
+bounds), and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 exit code is then non-zero and no result is printed. Needs CUDA.
 """
 
@@ -29,6 +31,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-4  # kernel vs plain version, O(1) amplitudes in float32
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 on CUDA cores (data sheet)
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores (data sheet)
+TF32_PASSES = 3  # fused_apply's 3xTF32 split: three TF32 products per fp32 one
+KARATSUBA_OPS = 6  # fused_apply's real operations per complex multiply-add (3 products)
 REPLACES = {
     "fused_apply": "src/repro/kernels/fusion.py:58",
     "shm_apply": "src/repro/kernels/shm.py:134",
@@ -54,20 +59,6 @@ def log(msg: str) -> None:
 
 def gib(b: float) -> str:
     return f"{b / 2**30:.2f} GiB"
-
-
-def time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return float(np.median(times))
 
 
 def random_state(n: int, gen: torch.Generator) -> torch.Tensor:
@@ -99,7 +90,7 @@ def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> float:
     S = 1 << (n - L)
     worst = 0.0
     x = random_state(n, gen)
-    for k in (1, 2, 5, 7):
+    for k in (1, 2, 3, 5, 6, 7):
         bits = [3, 4, 9, 10, 11, 20, 6][:k] if k == 7 else [L - 1 - 3 * j for j in range(k)]
         for V in (1, 2):
             u, vidx = random_unitaries(V, k, gen), variant_index(S, V)
@@ -115,56 +106,61 @@ def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> float:
         members = []
         for q in range(12):
             kind = "mat" if q % 3 != 2 else "diag"
-            kg = (1 + q % 2) if kind == "mat" else 3
+            kg = {4: 3, 7: 4}.get(q, 1 + q % 2) if kind == "mat" else 3
             bits = tuple(int(b) for b in rng.choice(window, size=kg, replace=False))
             op = random_unitaries(2, kg, gen) if kind == "mat" else random_phases(2, kg, gen)
             members.append((kind, bits, op, variant_index(S, 2)))
         err = max_err(ops.shm_apply(x.clone(), window, members, L),
                       ref.shm_apply_ref(x.clone(), window, members, L))
         torch.cuda.synchronize()
-        log(f"  shm_apply a={a} window={lo}..{lo + a - 1} 12 members: "
+        log(f"  shm_apply a={a} window={lo}..{lo + a - 1} 12 members (1- to 4-bit): "
             f"max |kernel - plain| = {err:.3e}")
         require(err < ATOL, f"shm_apply a={a} disagrees with its plain version")
         worst = max(worst, err)
     return worst
 
 
-def main_path_ops(engine):
-    """The widest fused op and the widest shm group of the compiled program."""
-    tops = [op for prog in engine.cc.programs for op in prog.ops]
-    fused = max((op for op in tops if op.kind == "fused"), key=lambda op: len(op.local_bits))
-    shm = max((op for op in tops if op.kind == "shm"),
-              key=lambda op: (len(op.local_bits), len(op.gates)))
-    return fused, shm
-
-
-def figures(ops, ref, engine, gen, sweep_err, launches):
-    """Time each kernel, its plain version and (for fused_apply) one
-    torch.matmul on the main path's real ops, and work out its bound."""
+def figures(ops, ref, probe, engine, gen, sweep_err, launches):
+    """Time each kernel, its plain version and (for fused_apply, at every
+    width k the plan launches) one torch.matmul on the main path's real ops,
+    and work out the bounds: ``bound_ms`` for the route the kernel takes
+    (the 3xTF32 Karatsuba product on the tensor cores for fused_apply, fp32
+    on CUDA cores for shm_apply), ``bound_fp32_ms`` for the 4-product fp32
+    form on CUDA cores."""
     n, L = engine.n, engine.L
-    fused_op, shm_op = main_path_ops(engine)
+    fused_ops, shm_op = probe.main_path_ops(engine)
     state_bytes = 8 << n
     x = random_state(n, gen)
     out = []
 
-    u = engine.consts[fused_op.uid]
-    vidx = engine.backend.kernel_vidx(fused_op)
-    bits = fused_op.local_bits
-    k = len(bits)
-    err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
-                  ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
-    require(err < ATOL,
-            "fused_apply disagrees with its plain version on the main path's op")
-    ms = time_ms(lambda: ops.fused_apply(x, u, vidx, bits, L))
-    plain_ms = time_ms(lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3)
-    xt = x.view(-1, 1 << k)  # the product on already-transposed rows
-    ut = u[0].transpose(0, 1).contiguous()
-    library_ms = time_ms(lambda: torch.matmul(xt, ut))
-    nbytes = 2 * state_bytes + u.numel() * 8 + vidx.numel() * 4
-    nops = 8 * (1 << k) * (1 << n)
-    out.append(entry("fused_apply", launches["fused"], max(err, sweep_err), ms, plain_ms,
-                     nbytes, nops, library_ms,
-                     f"k={k} bits={list(bits)} V={u.shape[0]} n={n}"))
+    by_k = []
+    for op in fused_ops:
+        k = len(op.local_bits)
+        if any(row["k"] == k for row in by_k):
+            continue
+        u, vidx, bits = engine.consts[op.uid], engine.backend.kernel_vidx(op), op.local_bits
+        err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
+                      ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
+        require(err < ATOL,
+                f"fused_apply disagrees with its plain version on the main path's k={k} op")
+        ms = probe.time_ms(lambda: ops.fused_apply(x, u, vidx, bits, L))
+        plain_ms = probe.time_ms(lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3)
+        xt = x.view(-1, 1 << k)  # the product on already-transposed rows
+        ut = u[0].transpose(0, 1).contiguous()
+        library_ms = probe.time_ms(lambda: torch.matmul(xt, ut))
+        nbytes = 2 * state_bytes + u.numel() * 8 + vidx.numel() * 4
+        cmacs = (1 << k) * (1 << n)
+        row = entry("fused_apply", sum(len(o.local_bits) == k for o in fused_ops), err, ms,
+                    plain_ms, nbytes, TF32_PASSES * KARATSUBA_OPS * cmacs, TF32_OPS_PER_S,
+                    8 * cmacs, library_ms, f"k={k} bits={list(bits)} V={u.shape[0]} n={n}")
+        by_k.append(dict(row, k=k))
+    widest = dict(by_k[0], launches=launches["fused"], max_abs_err=max(
+        [sweep_err] + [row["max_abs_err"] for row in by_k]))
+    del widest["k"]
+    widest["by_k"] = [{key: row[key] for key in ("k", "launches", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_fp32_ms", "max_abs_err")}
+                      for row in by_k]
+    out.append(widest)
 
     members = engine.backend.shm_members(shm_op)
     window = shm_op.local_bits
@@ -172,29 +168,38 @@ def figures(ops, ref, engine, gen, sweep_err, launches):
                   ref.shm_apply_ref(x.clone(), window, members, L))
     require(err < ATOL,
             "shm_apply disagrees with its plain version on the main path's group")
-    ms = time_ms(lambda: ops.shm_apply(x, window, members, L))
-    plain_ms = time_ms(lambda: ref.shm_apply_ref(x, window, members, L), reps=3)
+    ms = probe.time_ms(lambda: ops.shm_apply(x, window, members, L))
+    plain_ms = probe.time_ms(lambda: ref.shm_apply_ref(x, window, members, L), reps=3)
     nbytes = 2 * state_bytes + sum(op.numel() * 8 + v.numel() * 4 for _, _, op, v in members)
     nops = sum((8 << len(b)) if kind == "mat" else 6 for kind, b, _, _ in members) * (1 << n)
     kinds = [kind for kind, _, _, _ in members]
     out.append(entry("shm_apply", launches["shm"], max(err, sweep_err), ms, plain_ms,
-                     nbytes, nops, None,
+                     nbytes, nops, FP32_OPS_PER_S, nops, None,
                      f"a={len(window)} window={list(window)} members={len(members)} "
                      f"({kinds.count('mat')} mat, {kinds.count('diag')} diag) n={n}"))
+    sweep = probe.shm_sweep(ops, window, members, L, x)
+    log("  shm_apply sweep (members: 0 = a copy; place: the group's window or bits "
+        "0..a-1): " + json.dumps([{k: r[k] for k in ("place", "members", "ms")} for r in sweep]))
     return out
 
 
-def entry(name, launches, err, ms, plain_ms, nbytes, nops, library_ms, shape):
+def entry(name, launches, err, ms, plain_ms, nbytes, nops, ops_per_s, fp32_ops, library_ms,
+          shape):
+    """One kernel's figures: ``bound_ms`` counts ``nops`` at ``ops_per_s``
+    (the kernel's route), ``bound_fp32_ms`` the product's ``fp32_ops`` on
+    CUDA cores; both against the bytes at the memory rate."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
+    bound_fp32 = max(t_bytes, fp32_ops / FP32_OPS_PER_S * 1e3)
     log(f"  {name} [{shape}]: {ms:.3f} ms (plain {plain_ms:.3f} ms"
         + (f", torch.matmul {library_ms:.3f} ms" if library_ms is not None else "")
         + f"); bound {max(t_bytes, t_ops):.3f} ms ({nbytes / 1e9:.2f} GB, "
-        f"{nops / 1e12:.3f} TFLOP fp32)")
+        f"{nops / 1e12:.3f} TFLOP at {ops_per_s / 1e12:.0f} TFLOP/s), fp32 bound "
+        f"{bound_fp32:.3f} ms")
     return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, "shape": shape}
+            "bound_fp32_ms": bound_fp32, "library_ms": library_ms, "shape": shape}
 
 
 def trace_run(engine, untraced_s: float) -> None:
@@ -228,7 +233,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, ops, probe, ref
     from repro_torch.launch import simulate
     from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
 
@@ -243,10 +248,8 @@ def main() -> None:
     t0 = time.time()
     ops.load()
     log(f"  built and loaded in {time.time() - t0:.1f}s")
-    for name in build.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    for line in probe.ptxas_lines(build):
+        log(f"  {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("== kernels vs plain versions (n=30, L=28)")
@@ -291,7 +294,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     log("== kernel figures on the main path's ops")
-    kernels = figures(ops, ref, run.engine, gen, sweep_err, launches)
+    kernels = figures(ops, ref, probe, run.engine, gen, sweep_err, launches)
     del run
     torch.cuda.empty_cache()
 

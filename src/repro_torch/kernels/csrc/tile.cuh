@@ -7,9 +7,9 @@
 //   base(id) + (bit i of j placed at pos[i], for every i).
 // Because `pos` is ascending, consecutive j walk the tile in address order,
 // so loads and stores are as contiguous as the bit set allows. Two small
-// tables in shared memory (the low 7 and the high t-7 bits of j) turn the
-// bit scatter into two lookups and an add. All addresses are 64-bit: a
-// 2^30-amplitude state has float offsets up to 2^31.
+// tables (the low 7 and the high t-7 bits of j) turn the bit scatter into
+// two lookups and an add. All addresses are 64-bit: a 2^30-amplitude state
+// has float offsets up to 2^31.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,51 +46,6 @@ __device__ __forceinline__ void build_tables(long long* lo, long long* hi, const
     for (int i = kLoBits; i < t; ++i)
       if ((e >> (i - kLoBits)) & 1) o |= 1LL << pos[i];
     hi[e] = o;
-  }
-}
-
-__device__ __forceinline__ long long offset(const long long* lo, const long long* hi, int j) {
-  return lo[j & ((1 << kLoBits) - 1)] + hi[j >> kLoBits];
-}
-
-// Whole-tile copies between the state and shared memory. Each thread keeps
-// kInFlight loads outstanding, so a block with few warps still covers the
-// memory latency.
-constexpr int kInFlight = 8;
-
-__device__ __forceinline__ void load(float2* dst, const float2* __restrict__ state, long long base,
-                                     const long long* lo, const long long* hi, int t) {
-  const int n = 1 << t;
-  for (int j0 = threadIdx.x; j0 < n; j0 += kInFlight * blockDim.x) {
-    float2 v[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int j = j0 + u * blockDim.x;
-      if (j < n) v[u] = state[base + offset(lo, hi, j)];
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int j = j0 + u * blockDim.x;
-      if (j < n) dst[j] = v[u];
-    }
-  }
-}
-
-__device__ __forceinline__ void store(float2* __restrict__ state, const float2* src, long long base,
-                                      const long long* lo, const long long* hi, int t) {
-  const int n = 1 << t;
-  for (int j0 = threadIdx.x; j0 < n; j0 += kInFlight * blockDim.x) {
-    float2 v[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int j = j0 + u * blockDim.x;
-      if (j < n) v[u] = src[j];
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int j = j0 + u * blockDim.x;
-      if (j < n) state[base + offset(lo, hi, j)] = v[u];
-    }
   }
 }
 

@@ -11,8 +11,8 @@ plain version (:mod:`repro_torch.kernels.ref`); a state on a CUDA device
 launches the kernel on PyTorch's current stream, or raises — there is no
 fallback. Both update the state in place and return it. The kernels
 address index bits themselves, so the tile layouts below (which bits a
-thread block stages in shared memory) are plain Python that the CPU tests
-reach.
+thread block stages) and the shm kernel's program (its phases of register
+bits) are plain Python that the CPU tests reach.
 
 :data:`KERNEL_CALLS` counts the wrappers' dispatches, one per call, so a
 run can show that its path went through the kernels.
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,16 +33,20 @@ from .ref import Member
 
 KERNEL_CALLS = {"fused": 0, "shm": 0}
 
-# must match csrc/fused_apply.cu (Shape<K>) and csrc/shm_apply.cu
+# must match csrc/fused_apply.cu and csrc/shm_apply.cu
 FUSED_MAX_BITS = 7
-FUSED_THREADS = 256
-FUSED_GROUPS_PER_THREAD = 8
+FUSED_MIN_MATRIX_BITS = 4  # smaller unitaries run as I (x) U on 4 matrix bits
+FUSED_TILE_AMPS = 1 << 12
 SHM_MAX_WINDOW_BITS = 13
-SHM_MAX_TILE_BITS = 14
+SHM_TILE_BITS = 13
+SHM_REG_BITS = 5  # a thread holds 2^5 amplitudes
+SHM_REG_MATRIX_BITS = 2  # matrices up to this size are applied from registers
 SHM_MAX_MATRIX_BITS = 4
 SHM_MAX_DIAG_BITS = 16
-SHM_DESC_WORDS = 24
-SHM_MIN_TILE_BITS = 10
+SHM_DESC_WORDS = 12
+SHM_MAX_STEPS = 1024
+# shm step kinds (csrc/shm_apply.cu: enum Kind)
+STEP_MAT1, STEP_MAT2, STEP_DIAG, STEP_WRITE, STEP_SMEM_MAT, STEP_READ = range(6)
 
 
 def reset_kernel_counters() -> None:
@@ -63,8 +67,9 @@ def kernel_call_counts() -> Dict[str, int]:
 class TileLayout:
     """A block's tile: the state bits ``pos`` (ascending) vary inside it,
     the other bits are fixed per tile. For the fused kernel, ``tb[j]`` is
-    the tile bit of matrix index bit ``j`` and ``gb`` the tile bits that
-    number the groups inside a tile."""
+    the tile bit of matrix index bit ``j`` (``j >= k``: a bit of the
+    identity in I (x) U) and ``gb`` the tile bits that number the groups
+    inside a tile."""
 
     n: int
     L: int
@@ -82,35 +87,169 @@ class TileLayout:
 
 
 def fused_groups_per_tile(k: int) -> int:
-    K = 1 << k
-    rows_per_thread = min(4, K)
-    return FUSED_THREADS // (K // rows_per_thread) * FUSED_GROUPS_PER_THREAD
+    """Groups of a tile of 2^12 amplitudes, at most 128 (csrc: Shape::NG)."""
+    return FUSED_TILE_AMPS >> max(k, 5)
 
 
 def fused_layout(n: int, L: int, bits: Sequence[int]) -> TileLayout:
-    """The target bits plus the lowest other local bits, enough for the
-    kernel's groups per tile (fewer when the shard is smaller)."""
+    """The target bits (below 4 of them, plus the lowest other local bits up
+    to 4 matrix bits) and the lowest remaining local bits as group bits,
+    enough for the kernel's groups per tile (fewer when the shard is
+    smaller)."""
     taken = set(bits)
     others = [b for b in range(L) if b not in taken]
-    nb = min(fused_groups_per_tile(len(bits)).bit_length() - 1, len(others))
-    gbits = others[:nb]
-    pos = tuple(sorted(list(bits) + gbits))
+    extra = others[:max(0, FUSED_MIN_MATRIX_BITS - len(bits))]
+    if len(bits) + len(extra) < FUSED_MIN_MATRIX_BITS:
+        raise ValueError(f"fused_apply needs at least {FUSED_MIN_MATRIX_BITS} local bits, L={L}")
+    targets = list(bits) + extra
+    rest = others[len(extra):]
+    nb = min(fused_groups_per_tile(len(bits)).bit_length() - 1, len(rest))
+    gbits = rest[:nb]
+    pos = tuple(sorted(targets + gbits))
     where = {b: i for i, b in enumerate(pos)}
-    return TileLayout(n=n, L=L, pos=pos, tb=tuple(where[b] for b in bits),
+    return TileLayout(n=n, L=L, pos=pos, tb=tuple(where[b] for b in targets),
                       gb=tuple(where[b] for b in gbits))
 
 
 def shm_layout(n: int, L: int, window: Sequence[int]) -> TileLayout:
-    """The window bits plus the lowest other local bits: those of bits 0-2
-    the window leaves out (so tiles move whole 32-byte sectors), and more
-    until a tile holds 2^SHM_MIN_TILE_BITS amplitudes, within
-    SHM_MAX_TILE_BITS."""
+    """The window bits plus the lowest other local bits, up to
+    SHM_TILE_BITS tile bits (so tiles move whole 32-byte sectors where the
+    window leaves room)."""
     w = sorted(window)
     taken = set(w)
     others = [b for b in range(L) if b not in taken]
-    want = max(sum(1 for b in range(min(3, L)) if b not in taken), SHM_MIN_TILE_BITS - len(w))
-    extra = others[:max(0, min(want, SHM_MAX_TILE_BITS - len(w), len(others)))]
+    extra = others[:max(0, min(SHM_TILE_BITS, L) - len(w))]
     return TileLayout(n=n, L=L, pos=tuple(sorted(w + extra)))
+
+
+# ----------------------------------------------------------------------
+# the shm kernel's program: phases of register bits
+# ----------------------------------------------------------------------
+#
+# A layout is a tuple of the t tile bits: entries 0..4 are the register
+# bits (bit q of a thread's register index), entries 5.. the thread bits
+# (bit b of the thread index). A thread holds the 32 amplitudes whose tile
+# index has its thread bits fixed.
+
+
+def shm_io_layout(t: int) -> Tuple[int, ...]:
+    """The layout the kernel reads and writes the state in: the top 5 tile
+    bits in registers, the thread bits the tile's lowest (address order)."""
+    r = SHM_REG_BITS
+    return tuple(range(t - r, t)) + tuple(range(t - r))
+
+
+def _phase_layout(t: int, regs: Sequence[int]) -> Tuple[int, ...]:
+    """The layout with register bits ``regs``. The first four thread (lane)
+    bits are the lowest others whose residues mod 4 differ, below 12: with
+    the kernel's XOR swizzle a half-warp then reaches all 32 banks."""
+    io = shm_io_layout(t)
+    if set(regs) == set(io[:SHM_REG_BITS]):
+        return io
+    rest = [b for b in range(t) if b not in regs]
+    lanes: List[int] = []
+    for b in rest:
+        if len(lanes) < 4 and b < 12 and all(b % 4 != c % 4 for c in lanes):
+            lanes.append(b)
+    return tuple(sorted(regs)) + tuple(lanes) + tuple(b for b in rest if b not in lanes)
+
+
+def _blockers(mem) -> List[List[int]]:
+    """For each member, the earlier members it must follow: those sharing a
+    bit with it, unless both are diagonal (members on disjoint bits commute,
+    and so do diagonals)."""
+    out = []
+    for i, (kind, tb, _, _) in enumerate(mem):
+        diag = kind == "diag" or not tb
+        out.append([j for j in range(i)
+                    if set(tb) & set(mem[j][1])
+                    and not (diag and (mem[j][0] == "diag" or not mem[j][1]))])
+    return out
+
+
+def _next_regs(mem, blockers, done, t: int) -> List[int]:
+    """Register bits for the next phase: the bits of the pending register
+    matrices, in member order, that can run in it (everything they must
+    follow is done, or in this phase, or a diagonal that can then run),
+    as many as fit; then the I/O register bits (so the last phase may need
+    no exchange back), then the highest others."""
+    regs: List[int] = []
+    passed = set(i for i, d in enumerate(done) if d)
+    for i, (kind, tb, _, _) in enumerate(mem):
+        if i in passed or not all(j in passed for j in blockers[i]):
+            continue
+        if kind == "diag" or not tb:
+            passed.add(i)
+            continue
+        if len(tb) > SHM_REG_MATRIX_BITS:
+            continue
+        new = [b for b in tb if b not in regs]
+        if len(regs) + len(new) <= SHM_REG_BITS:
+            regs += new
+            passed.add(i)
+    for b in list(shm_io_layout(t)[SHM_REG_BITS - 1::-1]) + list(range(t - 1, -1, -1)):
+        if len(regs) == SHM_REG_BITS:
+            break
+        if b not in regs:
+            regs.append(b)
+    return regs
+
+
+def shm_schedule(lay: TileLayout, members: Sequence[Member]) -> List[tuple]:
+    """The kernel's program for one group on tile layout ``lay``, a list of
+    steps (operand bits as tile bits):
+
+    * ``("mat", layout, bits, op, vidx)``: a 1- or 2-bit matrix from registers;
+    * ``("diag", layout, bits, op, vidx)``: a diagonal (or a 0-bit matrix);
+    * ``("write", layout)`` / ``("read", layout)``: registers to the tile
+      buffer and back, an exchange between phases;
+    * ``("smem_mat", bits, op, vidx)``: a 3- or 4-bit matrix on the tile
+      buffer, between a write and a read.
+
+    Members run in an order that keeps every pair that does not commute
+    (a shared bit, not both diagonal) as given: a list schedule that takes
+    ready diagonals at once, then ready register matrices inside the
+    current register bits, then ready 3- and 4-bit matrices in shared
+    memory, and else exchanges to the register bits that let the most
+    pending matrices run. It starts and ends in :func:`shm_io_layout`."""
+    t = lay.t
+    where = {b: i for i, b in enumerate(lay.pos)}
+    mem = [(kind, tuple(where[b] for b in bits), op, vidx) for kind, bits, op, vidx in members]
+    blockers = _blockers(mem)
+    done = [False] * len(mem)
+    io = shm_io_layout(t)
+    cur, steps = io, []
+
+    def ready(i):
+        return not done[i] and all(done[j] for j in blockers[i])
+
+    def take(i, step):
+        steps.append(step)
+        done[i] = True
+
+    while not all(done):
+        i = next((i for i, (kind, tb, _, _) in enumerate(mem)
+                  if ready(i) and (kind == "diag" or not tb)), None)
+        if i is not None:
+            take(i, ("diag", cur, mem[i][1], mem[i][2], mem[i][3]))
+            continue
+        i = next((i for i, (kind, tb, _, _) in enumerate(mem) if ready(i) and kind == "mat"
+                  and len(tb) <= SHM_REG_MATRIX_BITS and set(tb) <= set(cur[:SHM_REG_BITS])), None)
+        if i is not None:
+            take(i, ("mat", cur, mem[i][1], mem[i][2], mem[i][3]))
+            continue
+        steps.append(("write", cur))
+        while True:
+            i = next((i for i, (kind, tb, _, _) in enumerate(mem)
+                      if ready(i) and kind == "mat" and len(tb) > SHM_REG_MATRIX_BITS), None)
+            if i is None:
+                break
+            take(i, ("smem_mat",) + mem[i][1:])
+        cur = _phase_layout(t, _next_regs(mem, blockers, done, t))
+        steps.append(("read", cur))
+    if cur != io:
+        steps += [("write", cur), ("read", io)]
+    return steps
 
 
 # ----------------------------------------------------------------------
@@ -171,7 +310,7 @@ def load() -> Dict[str, ctypes.CDLL]:
 
         paths = build()
         fused = ctypes.CDLL(str(paths["fused_apply"]))
-        fused.fused_apply.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _IP, _IP, _IP, _P]
+        fused.fused_apply.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _IP, _IP, _IP, _P]
         fused.fused_apply.restype = _I
         fused.fused_groups_per_tile.argtypes = [_I]
         fused.fused_groups_per_tile.restype = _I
@@ -181,13 +320,15 @@ def load() -> Dict[str, ctypes.CDLL]:
         shm.shm_apply.argtypes = [_P, _P, _LL, _I, _I, _I, _IP, _P]
         shm.shm_apply.restype = _I
         shm.shm_max_matrix_bits.restype = _I
+        shm.shm_register_bits.restype = _I
         shm.shm_error_string.argtypes = [_I]
         shm.shm_error_string.restype = ctypes.c_char_p
         for k in range(1, FUSED_MAX_BITS + 1):
             if fused.fused_groups_per_tile(k) != fused_groups_per_tile(k):
                 raise RuntimeError("fused_apply.cu and ops.py disagree on the tile shape")
-        if shm.shm_max_matrix_bits() != SHM_MAX_MATRIX_BITS:
-            raise RuntimeError("shm_apply.cu and ops.py disagree on the matrix size")
+        if (shm.shm_max_matrix_bits() != SHM_MAX_MATRIX_BITS
+                or shm.shm_register_bits() != SHM_REG_BITS):
+            raise RuntimeError("shm_apply.cu and ops.py disagree on the matrix or register size")
         _LIBS.update(fused=fused, shm=shm)
     return _LIBS
 
@@ -231,31 +372,55 @@ def fused_apply(
         ref.fused_apply_ref(state, u, vidx, bits, L)
         KERNEL_CALLS["fused"] += 1
         return state
-    lib = load()["fused"]
     lay = fused_layout(n, L, bits)
+    lib = load()["fused"]
     with torch.cuda.device(state.device):
         rc = lib.fused_apply(
             state.data_ptr(), u.data_ptr(), vidx.data_ptr(), lay.n_tiles, L,
-            lay.t, len(bits), len(lay.gb), _ints(lay.pos), _ints(lay.tb),
+            lay.t, len(bits), len(lay.tb), len(lay.gb), _ints(lay.pos), _ints(lay.tb),
             _ints(lay.gb), _stream(state.device))
     _raise_on(rc, lib.fused_error_string, "fused_apply")
     KERNEL_CALLS["fused"] += 1
     return state
 
 
+def _pack(values: Sequence[int]) -> List[int]:
+    """Sixteen 16-bit fields in four words (field f: bits 16 (f % 4) of
+    word f // 4)."""
+    words = [0] * 4
+    for f, v in enumerate(values):
+        words[f // 4] |= int(v) << (16 * (f % 4))
+    return words
+
+
 def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
-    """The kernel's descriptor table: one row of SHM_DESC_WORDS int64 per
-    member (see csrc/shm_apply.cu)."""
-    where = {b: i for i, b in enumerate(lay.pos)}
-    desc = np.zeros((len(members), SHM_DESC_WORDS), dtype=np.int64)
-    for i, (kind, bits, op, vidx) in enumerate(members):
-        desc[i, 0] = 0 if kind == "mat" else 1
-        desc[i, 1] = len(bits)
-        desc[i, 2:2 + len(bits)] = [where[b] for b in bits]
-        desc[i, 18] = op.data_ptr()
-        desc[i, 19] = op[0].numel()
-        desc[i, 20] = vidx.data_ptr()
-    return desc
+    """The kernel's step table: one row of SHM_DESC_WORDS int64 per step of
+    :func:`shm_schedule` (see csrc/shm_apply.cu)."""
+    rows = []
+    for step in shm_schedule(lay, members):
+        kind = step[0]
+        row = [0] * SHM_DESC_WORDS
+        if kind in ("write", "read"):
+            row[0] = STEP_WRITE if kind == "write" else STEP_READ
+            row[2:6] = _pack(step[1])
+            rows.append(row)
+            continue
+        if kind == "smem_mat":
+            tb, op, vidx = step[1:]
+            row[0], fields = STEP_SMEM_MAT, tb
+        else:
+            _, layout, tb, op, vidx = step
+            if kind == "diag":
+                row[0] = STEP_DIAG
+                fields = [1 << tb.index(b) if b in tb else 0 for b in layout]
+            else:
+                row[0] = STEP_MAT1 if len(tb) == 1 else STEP_MAT2
+                fields = [layout.index(b) for b in tb]
+        row[1] = len(tb)
+        row[2:6] = _pack(fields)
+        row[6], row[7], row[8] = op.data_ptr(), op[0].numel(), vidx.data_ptr()
+        rows.append(row)
+    return np.array(rows, dtype=np.uint64).reshape(-1, SHM_DESC_WORDS).view(np.int64)
 
 
 def shm_apply(
@@ -289,12 +454,18 @@ def shm_apply(
         ref.shm_apply_ref(state, window, checked, L)
         KERNEL_CALLS["shm"] += 1
         return state
-    lib = load()["shm"]
     lay = shm_layout(n, L, window)
+    if lay.t < SHM_REG_BITS:
+        raise ValueError(f"shm_apply needs at least {SHM_REG_BITS} local bits, L={L}")
+    table = shm_descriptors(lay, checked)
+    if len(table) > SHM_MAX_STEPS:
+        raise ValueError(f"the group's program has {len(table)} steps, "
+                         f"more than the kernel's {SHM_MAX_STEPS}")
+    lib = load()["shm"]
     with torch.cuda.device(state.device):
-        desc = torch.from_numpy(shm_descriptors(lay, checked)).to(state.device)
+        desc = torch.from_numpy(table).to(state.device)
         rc = lib.shm_apply(state.data_ptr(), desc.data_ptr(), lay.n_tiles, L, lay.t,
-                           len(checked), _ints(lay.pos), _stream(state.device))
+                           len(table), _ints(lay.pos), _stream(state.device))
     _raise_on(rc, lib.shm_error_string, "shm_apply")
     KERNEL_CALLS["shm"] += 1
     return state

@@ -77,3 +77,85 @@ def test_shm_kernel_on_card(cuda, window):
     got = ops.shm_apply(state.to(cuda), window,
                         [(k, b, o.to(cuda), v.to(cuda)) for k, b, o, v in mem], L)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [1, 2])
+@pytest.mark.parametrize("bits", [[11], [2, 13], [12, 0, 7], [1, 9, 4, 13], [13, 3, 8, 0, 10],
+                                  [5, 12, 1, 9, 3, 11], [13, 0, 6, 2, 10, 4, 8]])
+def test_fused_kernel_every_width(cuda, bits, V):
+    """k = 1..7 on scattered bits, one and two variants: the tensor-core
+    kernel (I (x) U below k = 3) against its plain version."""
+    rng = np.random.default_rng(10 * len(bits) + V)
+    n, L = 16, 14
+    state = _t(_cplx(rng, 1 << n))
+    u = _t(_unitary(rng, len(bits), V=V))
+    vidx = _t(np.array([0, V - 1, V - 1, 0], dtype=np.int32))
+    want = ref.fused_apply_ref(state.clone(), u, vidx, bits, L)
+    got = ops.fused_apply(state.to(cuda), u.to(cuda), vidx.to(cuda), bits, L)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+def _mat(rng, bits, V, vidx):
+    return ("mat", tuple(bits), _t(_unitary(rng, len(bits), V)), vidx)
+
+
+def _diag(rng, bits, V, vidx):
+    op = np.exp(1j * rng.uniform(0, 2 * np.pi, size=(V, 1 << len(bits)))).astype(np.complex64)
+    return ("diag", tuple(bits), _t(op), vidx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mat3", "mat4", "diag_over_256", "window13", "window12_high"])
+def test_shm_kernel_edge_cases(cuda, case):
+    """3- and 4-bit matrices (applied in shared memory between phases), a
+    diagonal of more than 256 entries, a 13-bit window (the whole tile) and
+    a 12-bit window of high bits (the tile adds bit 0 only)."""
+    rng = np.random.default_rng(len(case))
+    n, L = 16, 14
+    vidx = _t(np.array([1, 0, 1, 1], dtype=np.int32))
+    if case in ("mat3", "mat4"):
+        window = [0, 3, 5, 8, 9, 12]
+        kg = int(case[-1])
+        mem = [_mat(rng, [5], 2, vidx), _mat(rng, rng.choice(window, kg, replace=False), 2, vidx),
+               _mat(rng, [12, 0], 2, vidx), _mat(rng, rng.choice(window, kg, replace=False), 2, vidx),
+               _diag(rng, [3, 9], 2, vidx), _mat(rng, [8], 2, vidx)]
+    elif case == "diag_over_256":
+        window = list(range(2, 13))
+        mem = [_mat(rng, [4], 2, vidx), _diag(rng, window, 2, vidx), _mat(rng, [11, 2], 2, vidx),
+               _diag(rng, window[::-1][:10], 2, vidx), _mat(rng, [7], 2, vidx)]
+    else:
+        window = list(range(1, 14)) if case == "window13" else list(range(2, 14))
+        mem = [_diag(rng, window, 2, vidx)]
+        mem += [_mat(rng, [b], 2, vidx) for b in window]
+        mem += [_mat(rng, [window[0], window[-1]], 2, vidx), _diag(rng, window[:9], 2, vidx)]
+        mem += [_mat(rng, [b], 2, vidx) for b in window[::-1]]
+    state = _t(_cplx(rng, 1 << n))
+    want = ref.shm_apply_ref(state.clone(), window, mem, L)
+    got = ops.shm_apply(state.to(cuda), window,
+                        [(k, b, o.to(cuda), v.to(cuda)) for k, b, o, v in mem], L)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [4, 7])
+def test_kernels_on_small_shards(cuda, L):
+    """Shards smaller than a tile: fused tiles with fewer groups than the
+    kernel's warps cover, shm blocks of fewer than 32 threads."""
+    rng = np.random.default_rng(L)
+    n = L + 2
+    state = _t(_cplx(rng, 1 << n))
+    vidx = _t(np.array([0, 1, 1, 0], dtype=np.int32))
+    bits = [L - 1, 0][: 1 + (L > 4)]
+    u = _t(_unitary(rng, len(bits), V=2))
+    want = ref.fused_apply_ref(state.clone(), u, vidx, bits, L)
+    got = ops.fused_apply(state.to(cuda), u.to(cuda), vidx.to(cuda), bits, L)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+    if L >= ops.SHM_REG_BITS:
+        window = list(range(L))
+        mem = [_mat(rng, [0], 2, vidx), _diag(rng, window, 2, vidx), _mat(rng, [L - 1, 2], 2, vidx),
+               _mat(rng, [1, 3, 5], 2, vidx), _mat(rng, [6], 2, vidx)]
+        want = ref.shm_apply_ref(state.clone(), window, mem, L)
+        got = ops.shm_apply(state.to(cuda), window,
+                            [(k, b, o.to(cuda), v.to(cuda)) for k, b, o, v in mem], L)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)

@@ -120,39 +120,38 @@ def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> float:
     return worst
 
 
-def figures(ops, ref, probe, engine, gen, sweep_err, launches):
+def figures(ops, ref, probe, engine, gen, sweep_err, launches, launches_by_k):
     """Time each kernel, its plain version and (for fused_apply, at every
-    width k the plan launches) one torch.matmul on the main path's real ops,
-    and work out the bounds: ``bound_ms`` for the route the kernel takes
-    (the 3xTF32 Karatsuba product on the tensor cores for fused_apply, fp32
-    on CUDA cores for shm_apply), ``bound_fp32_ms`` for the 4-product fp32
-    form on CUDA cores."""
+    width k the plan launches, through ``probe.fused_rows``) one
+    torch.matmul on the main path's real ops, and work out the bounds:
+    ``bound_ms`` for the route the kernel takes (the 3xTF32 Karatsuba
+    product on the tensor cores for fused_apply, fp32 on CUDA cores for
+    shm_apply), ``bound_fp32_ms`` for the 4-product fp32 form on CUDA
+    cores. ``launches`` / ``launches_by_k``: the counts of the main path's
+    run."""
     n, L = engine.n, engine.L
-    fused_ops, shm_op = probe.main_path_ops(engine)
+    _, shm_op = probe.main_path_ops(engine)
     state_bytes = 8 << n
     x = random_state(n, gen)
     out = []
 
-    by_k = []
-    for op in fused_ops:
-        k = len(op.local_bits)
-        if any(row["k"] == k for row in by_k):
-            continue
-        u, vidx, bits = engine.consts[op.uid], engine.backend.kernel_vidx(op), op.local_bits
+    def against_plain(u, vidx, bits):
         err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
                       ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
-        require(err < ATOL,
-                f"fused_apply disagrees with its plain version on the main path's k={k} op")
-        ms = probe.time_ms(lambda: ops.fused_apply(x, u, vidx, bits, L))
-        plain_ms = probe.time_ms(lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3)
-        xt = x.view(-1, 1 << k)  # the product on already-transposed rows
-        ut = u[0].transpose(0, 1).contiguous()
-        library_ms = probe.time_ms(lambda: torch.matmul(xt, ut))
-        nbytes = 2 * state_bytes + u.numel() * 8 + vidx.numel() * 4
+        require(err < ATOL, f"fused_apply disagrees with its plain version on the main "
+                            f"path's k={len(bits)} op")
+        return {"max_abs_err": err, "plain_ms": probe.time_ms(
+            lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3),
+            "nbytes": 2 * state_bytes + u.numel() * 8 + vidx.numel() * 4}
+
+    by_k = []
+    for r in probe.fused_rows(ops, engine, x, against_plain):
+        k = r["k"]
         cmacs = (1 << k) * (1 << n)
-        row = entry("fused_apply", sum(len(o.local_bits) == k for o in fused_ops), err, ms,
-                    plain_ms, nbytes, TF32_PASSES * KARATSUBA_OPS * cmacs, TF32_OPS_PER_S,
-                    8 * cmacs, library_ms, f"k={k} bits={list(bits)} V={u.shape[0]} n={n}")
+        row = entry("fused_apply", launches_by_k.get(k, 0), r["max_abs_err"], r["ms"],
+                    r["plain_ms"], r["nbytes"], TF32_PASSES * KARATSUBA_OPS * cmacs,
+                    TF32_OPS_PER_S, 8 * cmacs, r["matmul_ms"],
+                    f"k={k} bits={r['bits']} V={r['V']} n={n}")
         by_k.append(dict(row, k=k))
     widest = dict(by_k[0], launches=launches["fused"], max_abs_err=max(
         [sweep_err] + [row["max_abs_err"] for row in by_k]))
@@ -262,11 +261,18 @@ def main() -> None:
     run = simulate.main(MAIN_PATH)
     torch.cuda.synchronize()
     launches = ops.kernel_call_counts()
+    launches_by_k = ops.fused_call_counts_by_k()
     peak = torch.cuda.max_memory_allocated()
     counts = run.engine.op_counts()
     want = {"fused": counts.get("fused", 0), "shm": counts.get("shm", 0)}
-    log(f"  kernel launches {launches}; compiled program {counts}")
+    want_by_k = {}
+    for op in probe.main_path_ops(run.engine)[0]:
+        want_by_k[len(op.local_bits)] = want_by_k.get(len(op.local_bits), 0) + 1
+    log(f"  kernel launches {launches}, fused_apply by k {launches_by_k}; "
+        f"compiled program {counts}, fused ops by k {want_by_k}")
     require(launches == want, f"kernel launches {launches} != compiled ops {want}")
+    require(launches_by_k == want_by_k,
+            f"fused_apply launches by k {launches_by_k} != compiled fused ops by k {want_by_k}")
     require(want["fused"] > 0 and want["shm"] > 0, "the main path must run both kernels")
     res = run.result
     amps = 1 << run.engine.n
@@ -294,7 +300,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     log("== kernel figures on the main path's ops")
-    kernels = figures(ops, ref, probe, run.engine, gen, sweep_err, launches)
+    kernels = figures(ops, ref, probe, run.engine, gen, sweep_err, launches, launches_by_k)
     del run
     torch.cuda.empty_cache()
 

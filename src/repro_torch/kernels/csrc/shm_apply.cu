@@ -42,9 +42,13 @@
 //   a thread: two blocks share an SM, so one block's copies overlap the
 //   other's member work;
 // * the step table (kind, packed bit fields, operand and variant-index
-//   pointers) is copied to shared memory per block with each operand
-//   pointer resolved for the tile's shard: one compiled kernel serves every
-//   group of every circuit, and nothing is compiled per circuit.
+//   pointers) is copied to shared memory per block, kChunkSteps steps at a
+//   time, with each operand pointer resolved for the tile's shard: one
+//   compiled kernel serves every group of every circuit, nothing is
+//   compiled per circuit, and a program of any length runs in a block's
+//   fixed share of shared memory (a chunk is 12 KiB; the next one is
+//   staged between two barriers, which a program of kChunkSteps steps or
+//   fewer never meets).
 
 #include <cuda_runtime.h>
 
@@ -58,6 +62,7 @@ constexpr int kMaxTileBits = 13;
 constexpr int kMaxThreads = 1 << (kMaxTileBits - kRegBits);
 constexpr int kMaxMatBits = 4;
 constexpr int kStagedOperand = 1 << (2 * kMaxMatBits);  // complex entries of a 4-bit matrix
+constexpr int kChunkSteps = 128;  // steps of the table in shared memory at a time
 // A step is one row of kDescWords int64: [0] kind, [1] operand bits,
 // [2..5] sixteen 16-bit fields (field f: bits 16 (f % 4) of word 2 + f / 4),
 // [6] operand pointer, [7] complex entries per variant, [8] int32
@@ -91,6 +96,29 @@ __host__ __device__ constexpr int gray_flip(int g) {
   int n = 0;
   while (!((g >> n) & 1)) ++n;
   return n;
+}
+
+// Steps [s0, s0 + m) of the table into sd, m = min(kChunkSteps, n_steps -
+// s0), one row per thread in turn; resolve_steps then points each operand
+// at the shard's variant. A thread resolves the rows it copied, so no
+// barrier is needed between the two.
+__device__ __forceinline__ void copy_steps(long long* sd, const long long* __restrict__ desc,
+                                           int s0, int m) {
+  for (int s = threadIdx.x; s < m; s += blockDim.x)
+#pragma unroll
+    for (int w = 0; w < kDescWords; ++w)
+      sd[s * kDescWords + w] = desc[(long long)(s0 + s) * kDescWords + w];
+}
+
+__device__ __forceinline__ void resolve_steps(long long* sd, int m, long long shard) {
+  for (int s = threadIdx.x; s < m; s += blockDim.x) {
+    long long* d = sd + s * kDescWords;
+    if (d[0] != kWrite && d[0] != kRead) {
+      const int* vidx = reinterpret_cast<const int*>(d[8]);
+      d[6] = reinterpret_cast<long long>(reinterpret_cast<const float2*>(d[6]) +
+                                         (long long)vidx[shard] * d[7]);
+    }
+  }
 }
 
 // Tile offset of the thread's fixed bits in layout d (layout bits 5..t-1).
@@ -249,13 +277,14 @@ shm_apply_kernel(float2* __restrict__ state, const long long* __restrict__ desc,
   float2* buf = reinterpret_cast<float2*>(smem);        // the tile, 2^t amplitudes, swizzled
   float2* opbuf = buf + (1 << a.t);                      // a staged 3- or 4-bit matrix
   long long* goff = reinterpret_cast<long long*>(opbuf + kStagedOperand);  // state offset per register index
-  long long* sd = goff + kRegs;                          // the step table
+  long long* sd = goff + kRegs;                          // a chunk of the step table
   const int tid = threadIdx.x;
   const int t = a.t;
 
   const long long base = tile::insert_zero_bits(blockIdx.x, a.pos, t);
   const long long shard = base >> a.L;
-  for (int e = tid; e < a.n_steps * kDescWords; e += blockDim.x) sd[e] = desc[e];
+  const int m0 = min(a.n_steps, kChunkSteps);
+  copy_steps(sd, desc, 0, m0);
   for (int i = tid; i < kRegs; i += blockDim.x) {  // I/O layout: register bit q is tile bit t - 5 + q
     long long o = 0;
     for (int q = 0; q < kRegBits; ++q)
@@ -269,18 +298,19 @@ shm_apply_kernel(float2* __restrict__ state, const long long* __restrict__ desc,
   float2 x[kRegs];
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) x[i] = state[gt + goff[i]];
-  for (int s = tid; s < a.n_steps; s += blockDim.x) {  // this shard's operand of each step
-    long long* d = sd + s * kDescWords;
-    if (d[0] != kWrite && d[0] != kRead) {
-      const int* vidx = reinterpret_cast<const int*>(d[8]);
-      d[6] = reinterpret_cast<long long>(reinterpret_cast<const float2*>(d[6]) +
-                                         (long long)vidx[shard] * d[7]);
-    }
-  }
+  resolve_steps(sd, m0, shard);  // while the loads are in flight
   __syncthreads();
 
   for (int s = 0; s < a.n_steps; ++s) {
-    const long long* d = sd + s * kDescWords;
+    const int c = s % kChunkSteps;
+    if (c == 0 && s > 0) {  // the next chunk, once every thread is done with this one
+      __syncthreads();
+      const int m = min(a.n_steps - s, kChunkSteps);
+      copy_steps(sd, desc, s, m);
+      resolve_steps(sd, m, shard);
+      __syncthreads();
+    }
+    const long long* d = sd + c * kDescWords;
     const float2* op = reinterpret_cast<const float2*>(d[6]);
     switch (int(d[0])) {
       case kMat1:
@@ -339,8 +369,9 @@ int shm_apply(void* state, const void* desc, long long n_tiles, int L, int t, in
   a.t = t;
   a.n_steps = n_steps;
   for (int i = 0; i < t; ++i) a.pos[i] = pos[i];
+  const size_t chunk = size_t(n_steps < kChunkSteps ? n_steps : kChunkSteps);
   const size_t smem = sizeof(float2) * ((size_t(1) << t) + kStagedOperand) +
-                      sizeof(long long) * (kRegs + size_t(n_steps) * kDescWords);
+                      sizeof(long long) * (kRegs + chunk * kDescWords);
   cudaError_t e = cudaFuncSetAttribute(shm_apply_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -353,6 +384,8 @@ int shm_apply(void* state, const void* desc, long long n_tiles, int L, int t, in
 int shm_max_matrix_bits() { return kMaxMatBits; }
 
 int shm_register_bits() { return kRegBits; }
+
+int shm_table_chunk() { return kChunkSteps; }
 
 const char* shm_error_string(int code) { return cudaGetErrorString(cudaError_t(code)); }
 

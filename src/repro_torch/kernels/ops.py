@@ -15,12 +15,15 @@ thread block stages) and the shm kernel's program (its phases of register
 bits) are plain Python that the CPU tests reach.
 
 :data:`KERNEL_CALLS` counts the wrappers' dispatches, one per call, so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels; :data:`FUSED_CALLS_BY_K`
+splits the ``fused_apply`` ones by the number of target bits k.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -32,6 +35,7 @@ from . import ref
 from .ref import Member
 
 KERNEL_CALLS = {"fused": 0, "shm": 0}
+FUSED_CALLS_BY_K: Dict[int, int] = {}
 
 # must match csrc/fused_apply.cu and csrc/shm_apply.cu
 FUSED_MAX_BITS = 7
@@ -44,7 +48,7 @@ SHM_REG_MATRIX_BITS = 2  # matrices up to this size are applied from registers
 SHM_MAX_MATRIX_BITS = 4
 SHM_MAX_DIAG_BITS = 16
 SHM_DESC_WORDS = 12
-SHM_MAX_STEPS = 1024
+SHM_TABLE_CHUNK = 128  # steps of the table a block holds in shared memory at a time
 # shm step kinds (csrc/shm_apply.cu: enum Kind)
 STEP_MAT1, STEP_MAT2, STEP_DIAG, STEP_WRITE, STEP_SMEM_MAT, STEP_READ = range(6)
 
@@ -52,10 +56,20 @@ STEP_MAT1, STEP_MAT2, STEP_DIAG, STEP_WRITE, STEP_SMEM_MAT, STEP_READ = range(6)
 def reset_kernel_counters() -> None:
     for k in KERNEL_CALLS:
         KERNEL_CALLS[k] = 0
+    FUSED_CALLS_BY_K.clear()
 
 
 def kernel_call_counts() -> Dict[str, int]:
     return dict(KERNEL_CALLS)
+
+
+def fused_call_counts_by_k() -> Dict[int, int]:
+    return dict(FUSED_CALLS_BY_K)
+
+
+def _count_fused(k: int) -> None:
+    KERNEL_CALLS["fused"] += 1
+    FUSED_CALLS_BY_K[k] = FUSED_CALLS_BY_K.get(k, 0) + 1
 
 
 # ----------------------------------------------------------------------
@@ -154,31 +168,52 @@ def _phase_layout(t: int, regs: Sequence[int]) -> Tuple[int, ...]:
     return tuple(sorted(regs)) + tuple(lanes) + tuple(b for b in rest if b not in lanes)
 
 
+def _is_diag(member) -> bool:
+    return member[0] == "diag" or not member[1]
+
+
 def _blockers(mem) -> List[List[int]]:
-    """For each member, the earlier members it must follow: those sharing a
-    bit with it, unless both are diagonal (members on disjoint bits commute,
-    and so do diagonals)."""
+    """For each member, the earlier members it must directly follow. Two
+    members must keep their order when they share a bit and are not both
+    diagonal (members on disjoint bits commute, and so do diagonals). On
+    each of its bits a member follows the last matrix before it, and a
+    matrix also follows the diagonals since then; every other pair that
+    must keep its order does so through these."""
+    last_mat: Dict[int, int] = {}
+    diags_since: Dict[int, List[int]] = {}
     out = []
-    for i, (kind, tb, _, _) in enumerate(mem):
-        diag = kind == "diag" or not tb
-        out.append([j for j in range(i)
-                    if set(tb) & set(mem[j][1])
-                    and not (diag and (mem[j][0] == "diag" or not mem[j][1]))])
+    for i, m in enumerate(mem):
+        diag, before = _is_diag(m), set()
+        for b in m[1]:
+            if b in last_mat:
+                before.add(last_mat[b])
+            if not diag:
+                before.update(diags_since.get(b, ()))
+        for b in m[1]:
+            if diag:
+                diags_since.setdefault(b, []).append(i)
+            else:
+                last_mat[b], diags_since[b] = i, []
+        out.append(sorted(before))
     return out
 
 
-def _next_regs(mem, blockers, done, t: int) -> List[int]:
+def _next_regs(mem, blockers, done, pending, t: int) -> List[int]:
     """Register bits for the next phase: the bits of the pending register
     matrices, in member order, that can run in it (everything they must
     follow is done, or in this phase, or a diagonal that can then run),
     as many as fit; then the I/O register bits (so the last phase may need
-    no exchange back), then the highest others."""
+    no exchange back), then the highest others. ``pending``: the members
+    not done, in order."""
     regs: List[int] = []
-    passed = set(i for i, d in enumerate(done) if d)
-    for i, (kind, tb, _, _) in enumerate(mem):
-        if i in passed or not all(j in passed for j in blockers[i]):
+    passed = set()
+    for i in pending:
+        if len(regs) == SHM_REG_BITS:
+            break
+        if not all(done[j] or j in passed for j in blockers[i]):
             continue
-        if kind == "diag" or not tb:
+        kind, tb = mem[i][:2]
+        if _is_diag(mem[i]):
             passed.add(i)
             continue
         if len(tb) > SHM_REG_MATRIX_BITS:
@@ -211,41 +246,55 @@ def shm_schedule(lay: TileLayout, members: Sequence[Member]) -> List[tuple]:
     ready diagonals at once, then ready register matrices inside the
     current register bits, then ready 3- and 4-bit matrices in shared
     memory, and else exchanges to the register bits that let the most
-    pending matrices run. It starts and ends in :func:`shm_io_layout`."""
+    pending matrices run. It starts and ends in :func:`shm_io_layout`.
+    Ready members are kept in sorted lists by the step they take, so a
+    program costs about its length times the number of ready members."""
     t = lay.t
     where = {b: i for i, b in enumerate(lay.pos)}
     mem = [(kind, tuple(where[b] for b in bits), op, vidx) for kind, bits, op, vidx in members]
     blockers = _blockers(mem)
+    waiting = [len(b) for b in blockers]
+    unblocks: List[List[int]] = [[] for _ in mem]
+    for i, before in enumerate(blockers):
+        for j in before:
+            unblocks[j].append(i)
+    klass = ["diag" if _is_diag(m) else "mat" if len(m[1]) <= SHM_REG_MATRIX_BITS else "smem_mat"
+             for m in mem]
+    ready: Dict[str, List[int]] = {"diag": [], "mat": [], "smem_mat": []}
+    for i in range(len(mem)):
+        if not waiting[i]:
+            ready[klass[i]].append(i)
     done = [False] * len(mem)
+    pending = list(range(len(mem)))
     io = shm_io_layout(t)
-    cur, steps = io, []
-
-    def ready(i):
-        return not done[i] and all(done[j] for j in blockers[i])
+    cur, steps, left = io, [], len(mem)
 
     def take(i, step):
+        nonlocal left
         steps.append(step)
-        done[i] = True
+        done[i], left = True, left - 1
+        ready[klass[i]].remove(i)
+        for j in unblocks[i]:
+            waiting[j] -= 1
+            if not waiting[j]:
+                bisect.insort(ready[klass[j]], j)
 
-    while not all(done):
-        i = next((i for i, (kind, tb, _, _) in enumerate(mem)
-                  if ready(i) and (kind == "diag" or not tb)), None)
-        if i is not None:
+    while left:
+        if ready["diag"]:
+            i = ready["diag"][0]
             take(i, ("diag", cur, mem[i][1], mem[i][2], mem[i][3]))
             continue
-        i = next((i for i, (kind, tb, _, _) in enumerate(mem) if ready(i) and kind == "mat"
-                  and len(tb) <= SHM_REG_MATRIX_BITS and set(tb) <= set(cur[:SHM_REG_BITS])), None)
+        regs = set(cur[:SHM_REG_BITS])
+        i = next((i for i in ready["mat"] if set(mem[i][1]) <= regs), None)
         if i is not None:
             take(i, ("mat", cur, mem[i][1], mem[i][2], mem[i][3]))
             continue
         steps.append(("write", cur))
-        while True:
-            i = next((i for i, (kind, tb, _, _) in enumerate(mem)
-                      if ready(i) and kind == "mat" and len(tb) > SHM_REG_MATRIX_BITS), None)
-            if i is None:
-                break
+        while ready["smem_mat"]:
+            i = ready["smem_mat"][0]
             take(i, ("smem_mat",) + mem[i][1:])
-        cur = _phase_layout(t, _next_regs(mem, blockers, done, t))
+        pending = [i for i in pending if not done[i]]
+        cur = _phase_layout(t, _next_regs(mem, blockers, done, pending, t))
         steps.append(("read", cur))
     if cur != io:
         steps += [("write", cur), ("read", io)]
@@ -321,14 +370,17 @@ def load() -> Dict[str, ctypes.CDLL]:
         shm.shm_apply.restype = _I
         shm.shm_max_matrix_bits.restype = _I
         shm.shm_register_bits.restype = _I
+        shm.shm_table_chunk.restype = _I
         shm.shm_error_string.argtypes = [_I]
         shm.shm_error_string.restype = ctypes.c_char_p
         for k in range(1, FUSED_MAX_BITS + 1):
             if fused.fused_groups_per_tile(k) != fused_groups_per_tile(k):
                 raise RuntimeError("fused_apply.cu and ops.py disagree on the tile shape")
         if (shm.shm_max_matrix_bits() != SHM_MAX_MATRIX_BITS
-                or shm.shm_register_bits() != SHM_REG_BITS):
-            raise RuntimeError("shm_apply.cu and ops.py disagree on the matrix or register size")
+                or shm.shm_register_bits() != SHM_REG_BITS
+                or shm.shm_table_chunk() != SHM_TABLE_CHUNK):
+            raise RuntimeError("shm_apply.cu and ops.py disagree on the matrix or register size "
+                               "or the table chunk")
         _LIBS.update(fused=fused, shm=shm)
     return _LIBS
 
@@ -370,7 +422,7 @@ def fused_apply(
     _check_operand("vidx", vidx, state, torch.int32, (S,))
     if state.device.type == "cpu":
         ref.fused_apply_ref(state, u, vidx, bits, L)
-        KERNEL_CALLS["fused"] += 1
+        _count_fused(len(bits))
         return state
     lay = fused_layout(n, L, bits)
     lib = load()["fused"]
@@ -380,7 +432,7 @@ def fused_apply(
             lay.t, len(bits), len(lay.tb), len(lay.gb), _ints(lay.pos), _ints(lay.tb),
             _ints(lay.gb), _stream(state.device))
     _raise_on(rc, lib.fused_error_string, "fused_apply")
-    KERNEL_CALLS["fused"] += 1
+    _count_fused(len(bits))
     return state
 
 
@@ -395,7 +447,8 @@ def _pack(values: Sequence[int]) -> List[int]:
 
 def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
     """The kernel's step table: one row of SHM_DESC_WORDS int64 per step of
-    :func:`shm_schedule` (see csrc/shm_apply.cu)."""
+    :func:`shm_schedule` (see csrc/shm_apply.cu). It holds the operands'
+    addresses, not their values."""
     rows = []
     for step in shm_schedule(lay, members):
         kind = step[0]
@@ -421,6 +474,28 @@ def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
         row[6], row[7], row[8] = op.data_ptr(), op[0].numel(), vidx.data_ptr()
         rows.append(row)
     return np.array(rows, dtype=np.uint64).reshape(-1, SHM_DESC_WORDS).view(np.int64)
+
+
+_TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_TABLES_KEPT = 256
+
+
+def _device_table(lay: TileLayout, members: Sequence[Member], device) -> torch.Tensor:
+    """The step table of a group on ``device``, built once: the engine runs
+    the same groups on the same operands every run. The key holds all the
+    table depends on (the operands by address and size), so a table found
+    under it is the table :func:`shm_descriptors` would build."""
+    key = (device, lay, tuple((kind, bits, op.data_ptr(), op[0].numel(), vidx.data_ptr())
+                              for kind, bits, op, vidx in members))
+    desc = _TABLES.get(key)
+    if desc is None:
+        desc = torch.from_numpy(shm_descriptors(lay, members)).to(device)
+        _TABLES[key] = desc
+        if len(_TABLES) > _TABLES_KEPT:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+    return desc
 
 
 def shm_apply(
@@ -457,15 +532,11 @@ def shm_apply(
     lay = shm_layout(n, L, window)
     if lay.t < SHM_REG_BITS:
         raise ValueError(f"shm_apply needs at least {SHM_REG_BITS} local bits, L={L}")
-    table = shm_descriptors(lay, checked)
-    if len(table) > SHM_MAX_STEPS:
-        raise ValueError(f"the group's program has {len(table)} steps, "
-                         f"more than the kernel's {SHM_MAX_STEPS}")
     lib = load()["shm"]
     with torch.cuda.device(state.device):
-        desc = torch.from_numpy(table).to(state.device)
+        desc = _device_table(lay, checked, state.device)
         rc = lib.shm_apply(state.data_ptr(), desc.data_ptr(), lay.n_tiles, L, lay.t,
-                           len(table), _ints(lay.pos), _stream(state.device))
+                           len(desc), _ints(lay.pos), _stream(state.device))
     _raise_on(rc, lib.shm_error_string, "shm_apply")
     KERNEL_CALLS["shm"] += 1
     return state

@@ -2,8 +2,8 @@
 
     python -m repro_torch.kernels.probe [--n 30] [--L 28] [--R 2]
 
-Plans ``ising(n)`` (the main path's circuit), compiles it on the card and,
-without running it, times on a random complex64 state of 2^n amplitudes:
+Plans ``ising(n)`` (the main path's circuit), compiles it on the card and
+times its kernels on a random complex64 state of 2^n amplitudes:
 
 * every ``fused`` width k of the plan: ``fused_apply`` beside one
   ``torch.matmul`` of the same product on rows that already hold the
@@ -13,6 +13,10 @@ without running it, times on a random complex64 state of 2^n amplitudes:
   members moved to the lowest bits 0..a-1: copy time against member time,
   high-bit against low-bit addressing.
 
+Before those it runs the circuit itself: six ``run_packed`` calls, wall
+time each (the first one builds what the engine and the wrappers keep
+between runs).
+
 Prints what ``ptxas`` reported for each kernel, then one line per figure.
 ``chip_smoke.py`` prints the same sweep as a diagnostic line. Needs CUDA.
 """
@@ -21,7 +25,8 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Dict, List, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,24 +65,34 @@ def main_path_ops(engine):
     return fused, shm
 
 
-def fused_rows(ops, engine, x: torch.Tensor) -> List[Dict]:
-    """``fused_apply`` and one ``torch.matmul`` at each width k of the plan
-    (the first op of each width)."""
+def fused_rows(ops, engine, x: torch.Tensor,
+               check: Optional[Callable[..., Dict]] = None) -> List[Dict]:
+    """``fused_apply`` and one ``torch.matmul`` in full fp32 (TF32 off) at
+    each width k of the plan, on the first op of each width. ``check(u,
+    vidx, bits)``, where given, runs before the timings and its dict joins
+    the row."""
     L = engine.L
     fused, _ = main_path_ops(engine)
     rows, seen = [], set()
-    for op in fused:
-        k = len(op.local_bits)
-        if k in seen:
-            continue
-        seen.add(k)
-        u, vidx = engine.consts[op.uid], engine.backend.kernel_vidx(op)
-        ms = time_ms(lambda: ops.fused_apply(x, u, vidx, op.local_bits, L))
-        xt = x.view(-1, 1 << k)
-        ut = u[0].transpose(0, 1).contiguous()
-        mm = time_ms(lambda: torch.matmul(xt, ut))
-        rows.append({"k": k, "bits": list(op.local_bits), "V": int(u.shape[0]),
-                     "ms": ms, "matmul_ms": mm})
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for op in fused:
+            k = len(op.local_bits)
+            if k in seen:
+                continue
+            seen.add(k)
+            u, vidx, bits = engine.consts[op.uid], engine.backend.kernel_vidx(op), op.local_bits
+            row = {"k": k, "bits": list(bits), "V": int(u.shape[0])}
+            if check is not None:
+                row.update(check(u, vidx, bits))
+            row["ms"] = time_ms(lambda: ops.fused_apply(x, u, vidx, bits, L))
+            xt = x.view(-1, 1 << k)
+            ut = u[0].transpose(0, 1).contiguous()
+            row["matmul_ms"] = time_ms(lambda: torch.matmul(xt, ut))
+            rows.append(row)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return rows
 
 
@@ -105,6 +120,19 @@ def shm_sweep(ops, window: Sequence[int], members, L: int, x: torch.Tensor,
     return rows
 
 
+def run_seconds(engine, runs: int = 6) -> List[float]:
+    """Wall seconds of each of ``runs`` calls of ``engine.run_packed()``."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = engine.run_packed()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        del state
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=30)
@@ -118,16 +146,16 @@ def main(argv=None) -> None:
     from ..sim.engine import ExecutionEngine
     from . import build, ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     ops.load()
     for line in ptxas_lines(build):
         print(line)
     circ = FAMILIES["ising"](args.n)
     plan = partition(circ, args.L, args.R, 0)
     engine = ExecutionEngine(circ, plan, device="cuda")
+    print(f"plan: {engine.op_counts()}")
+    print("run_packed " + json.dumps({"seconds": run_seconds(engine)}))
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(1 << args.n, dtype=torch.complex64, device="cuda", generator=gen)
-    print(f"plan: {engine.op_counts()}")
     for row in fused_rows(ops, engine, x):
         print("fused " + json.dumps(row))
     _, shm = main_path_ops(engine)

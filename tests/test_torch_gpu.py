@@ -138,6 +138,29 @@ def test_shm_kernel_edge_cases(cuda, case):
 
 
 @pytest.mark.gpu
+def test_shm_kernel_long_group(cuda):
+    """A group whose program is about 1500 steps, many chunks of the
+    table the kernel stages in shared memory, against the plain version."""
+    rng = np.random.default_rng(1500)
+    n, L = 16, 14
+    window = list(range(1, 14))
+    vidx = _t(np.array([1, 0, 1, 1], dtype=np.int32))
+    mem = []
+    for q in range(1300):
+        b = [int(x) for x in rng.choice(window, size=4, replace=False)]
+        mem.append(_mat(rng, b[:1], 2, vidx) if q % 5 < 3 else
+                   _mat(rng, b[:2], 2, vidx) if q % 5 == 3 else
+                   _diag(rng, b[:2], 2, vidx) if q % 10 == 4 else _mat(rng, b[:3 + q % 2], 2, vidx))
+    steps = len(ops.shm_descriptors(ops.shm_layout(n, L, window), mem))
+    assert 1400 <= steps and steps > 10 * ops.SHM_TABLE_CHUNK
+    state = _t(_cplx(rng, 1 << n))
+    want = ref.shm_apply_ref(state.clone(), window, mem, L)
+    got = ops.shm_apply(state.to(cuda), window,
+                        [(k, b, o.to(cuda), v.to(cuda)) for k, b, o, v in mem], L)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("L", [4, 7])
 def test_kernels_on_small_shards(cuda, L):
     """Shards smaller than a tile: fused tiles with fewer groups than the

@@ -589,3 +589,124 @@ def test_shm_exchanges_free_of_bank_conflicts(window):
         for h in range(0, slots.shape[0], 16):
             for r in range(1 << R):
                 assert len(set(slots[h:h + 16, r].tolist())) == 16
+
+
+# ----------------------------------------------------------------------
+# long groups, the scheduler's order, counters and the table cache
+# ----------------------------------------------------------------------
+
+
+def _long_group(rng, window, n_members, S):
+    """Mostly one- and two-bit matrices with some diagonals and 3-4-bit
+    matrices, V=2: a program many table chunks long."""
+    vidx = _t(rng.integers(0, 2, size=S).astype(np.int32))
+    mem = []
+    for _ in range(n_members):
+        roll = rng.random()
+        if roll < 0.85:
+            kg = 1 if roll < 0.6 else 2 if roll < 0.8 else 3 if roll < 0.83 else 4
+            bits = tuple(int(b) for b in rng.choice(window, size=kg, replace=False))
+            mem.append(("mat", bits, _t(_unitary(rng, kg, 2)), vidx))
+        else:
+            bits = tuple(int(b) for b in rng.choice(window, size=2, replace=False))
+            op = np.exp(1j * rng.uniform(0, 2 * np.pi, size=(2, 4))).astype(np.complex64)
+            mem.append(("diag", bits, _t(op), vidx))
+    return mem
+
+
+def test_shm_long_group_emulation():
+    """A group of 1300 members: its program runs past ten chunks of the
+    kernel's table, and the emulated program still reproduces shm_apply_ref."""
+    rng = np.random.default_rng(7)
+    n, L = 14, 13
+    window = list(range(L))
+    mem = _long_group(rng, window, 1300, 1 << (n - L))
+    lay = ops.shm_layout(n, L, window)
+    assert len(ops.shm_descriptors(lay, mem)) > 10 * ops.SHM_TABLE_CHUNK
+    state = _cplx(rng, 1 << n)
+    got = _emulate_shm(state, window, mem, L)
+    want = ref.shm_apply_ref(_t(state), window, mem, L).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _must_precede(a, b):
+    """Whether member a must stay before a later member b: a shared bit,
+    and not both diagonal (the rule the schedule keeps)."""
+    both_diag = all(m[0] == "diag" or not m[1] for m in (a, b))
+    return bool(set(a[1]) & set(b[1])) and not both_diag
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_shm_schedule_keeps_every_noncommuting_pair(seed):
+    """Each member steps once, and every pair that does not commute keeps
+    its order, checked pair by pair (the scheduler follows only each
+    member's direct predecessors)."""
+    rng = np.random.default_rng(300 + seed)
+    L = 14
+    window = sorted(int(b) for b in rng.choice(L, size=int(rng.integers(5, 14)), replace=False))
+    mem = _random_group(rng, window, 150, V=1, S=1) + _long_group(rng, window, 150, 1)
+    lay = ops.shm_layout(L, L, window)
+    where = {b: i for i, b in enumerate(lay.pos)}
+    order = []
+    for step in ops.shm_schedule(lay, mem):
+        if step[0] in ("write", "read"):
+            continue
+        op, bits = step[-2], step[-3]
+        i = next(i for i, m in enumerate(mem) if m[2] is op and i not in order
+                 and tuple(where[b] for b in m[1]) == bits)
+        order.append(i)
+    assert sorted(order) == list(range(len(mem)))
+    rank = {i: r for r, i in enumerate(order)}
+    for j in range(len(mem)):
+        for i in range(j):
+            if _must_precede(mem[i], mem[j]):
+                assert rank[i] < rank[j], (i, j)
+
+
+def test_shm_schedule_of_a_long_group_is_quick():
+    """3000 members schedule in well under a second's worth of steps: the
+    scheduler takes ready members from sorted lists, not by rescanning the
+    group (a rescan per step took seconds at 1600 members)."""
+    import time
+
+    rng = np.random.default_rng(11)
+    L = 14
+    window = list(range(1, 14))
+    mem = _long_group(rng, window, 3000, 1)
+    t0 = time.perf_counter()
+    steps = ops.shm_schedule(ops.shm_layout(L, L, window), mem)
+    assert sum(s[0] not in ("write", "read") for s in steps) == len(mem)
+    assert time.perf_counter() - t0 < 5.0
+
+
+@pytest.mark.parametrize("ks", [[1, 3, 3], [7, 6, 6, 7, 6]])
+def test_fused_calls_counted_by_width(ks):
+    """The wrapper counts each call once in total and once under its k."""
+    rng = np.random.default_rng(len(ks))
+    n, L = 9, 8
+    vidx = _t(np.array([0, 0], dtype=np.int32))
+    state = _t(_cplx(rng, 1 << n))
+    ops.reset_kernel_counters()
+    for k in ks:
+        ops.fused_apply(state, _t(_unitary(rng, k)), vidx, list(range(L - k, L)), L)
+    assert ops.kernel_call_counts() == {"fused": len(ks), "shm": 0}
+    assert ops.fused_call_counts_by_k() == {k: ks.count(k) for k in set(ks)}
+    ops.reset_kernel_counters()
+    assert ops.fused_call_counts_by_k() == {}
+
+
+def test_shm_device_table_built_once_per_group():
+    """The table of a group is built once and found again for the same
+    operands; other operands (another address) get their own table."""
+    rng = np.random.default_rng(5)
+    L = 14
+    window = list(range(2, 14))
+    mem = _random_group(rng, window, 12, V=2, S=1)
+    lay = ops.shm_layout(L, L, window)
+    cpu = torch.device("cpu")
+    first = ops._device_table(lay, mem, cpu)
+    assert ops._device_table(lay, list(mem), cpu) is first
+    np.testing.assert_array_equal(first.numpy(), ops.shm_descriptors(lay, mem))
+    other = [mem[0][:2] + (mem[0][2].clone(), mem[0][3])] + mem[1:]
+    table = ops._device_table(lay, other, cpu)
+    assert table is not first and table[:, 6].tolist() != first[:, 6].tolist()

@@ -7,7 +7,13 @@ holds each against its plain PyTorch version on the card, drives the
 port's main path (``repro_torch.launch.simulate``) at full width —
 ``ising(30)`` with L=28, R=2: a 2^30-amplitude complex64 state, 8 GiB —
 and checks it against the port's dense per-gate oracle on the card, then
-runs ``qft(22)`` with ``--check`` against the host complex128 oracle.
+runs ``qft(22)`` with ``--check`` against the host complex128 oracle. Then
+the engine entry point: ``isingparam(30)`` through ``--engine --bind``
+(cold build) and a warm rebind through the compile cache; a sweep of 16
+bindings of ``isingparam(28)`` as one ``[16, 2^28]`` state (2^32
+amplitudes); a batch of 3 basis states of ``qft(28)``. Each of those runs
+every kernel once per compiled op, whatever the number of states, and is
+held against the dense per-gate oracle on the card.
 
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
@@ -45,6 +51,13 @@ SOURCES = {
 MAIN_PATH = ["--circuit", "ising", "--n", "30", "--L", "28", "--R", "2", "--shots", "1024",
              "--marginal", "0,1,2", "--observable", "Z0 Z1 + 0.5*X2"]
 CHECKED_PATH = ["--circuit", "qft", "--n", "22", "--L", "20", "--R", "2", "--check"]
+ENGINE_PATH = ["--circuit", "isingparam", "--n", "30", "--L", "28", "--R", "2", "--engine",
+               "--bind", "J=0.35", "--bind", "h=0.8", "--marginal", "0,1,2",
+               "--observable", "Z0 Z1 + 0.5*X2"]
+REBIND = {"J": 0.9, "h": 0.2}
+SWEEP = {"n": 28, "L": 26, "R": 2, "P": 16}  # [16, 2^28] complex64: 2^32 amplitudes, 32 GiB
+BATCH = {"n": 28, "L": 26, "R": 2, "B": 3}  # qft(28), basis states 0, 1, 2
+FIDELITY_MIN = 1 - 1e-5
 
 
 def require(ok: bool, msg: str) -> None:
@@ -201,19 +214,18 @@ def entry(name, launches, err, ms, plain_ms, nbytes, nops, ops_per_s, fp32_ops, 
             "bound_fp32_ms": bound_fp32, "library_ms": library_ms, "shape": shape}
 
 
-def trace_run(engine, untraced_s: float) -> None:
-    """One more ``run_packed`` of the main path under torch.profiler: device
-    time by kernel, against the untraced run's wall time (the profiled wall
-    time includes the profiler's own start-up)."""
+def trace_run(run, untraced_s: float, what: str = "run_packed") -> None:
+    """One more call of ``run`` under torch.profiler: device time by kernel,
+    against the untraced call's wall time (the profiled wall time includes
+    the profiler's own start-up)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = engine.run_packed()
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
-    del out
     rows = []
     for ev in prof.key_averages():  # device-side events only: no double count
         dev_us = getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0))
@@ -221,11 +233,209 @@ def trace_run(engine, untraced_s: float) -> None:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    log(f"  traced run_packed: device time {busy_ms:.1f} ms = {busy_ms / (untraced_s * 1e3):.0%}"
+    log(f"  traced {what}: device time {busy_ms:.1f} ms = {busy_ms / (untraced_s * 1e3):.0%}"
         f" of the untraced run's {untraced_s * 1e3:.1f} ms (profiled wall {wall_ms:.1f} ms); "
         "by kernel:")
     for ms, count, key in rows[:10]:
         log(f"    {ms:9.2f} ms  x{count:<3d} {key[:100]}")
+
+
+def launches_match(ops, engine, what: str) -> dict:
+    """The kernel launches since the last reset equal the engine's compiled
+    ops (one launch per op, whatever the number of states), both kernels
+    ran, and the fused launches match the plan's fused ops by width."""
+    launches = ops.kernel_call_counts()
+    counts = engine.op_counts()
+    want = {"fused": counts.get("fused", 0), "shm": counts.get("shm", 0)}
+    want_by_k = {}
+    for prog in engine.cc.programs:
+        for op in prog.ops:
+            if op.kind == "fused":
+                want_by_k[len(op.local_bits)] = want_by_k.get(len(op.local_bits), 0) + 1
+    log(f"  {what}: kernel launches {launches}, fused by k {ops.fused_call_counts_by_k()}; "
+        f"compiled program {counts}")
+    require(launches == want, f"{what}: kernel launches {launches} != compiled ops {want}")
+    require(ops.fused_call_counts_by_k() == want_by_k,
+            f"{what}: fused launches by k != the plan's fused ops by k {want_by_k}")
+    require(want["fused"] > 0 and want["shm"] > 0, f"{what} must run both kernels")
+    return launches
+
+
+def engine_phase(simulate, ops, argv, card: str, device: str = "cuda") -> dict:
+    """The engine entry point at full width: ``--engine --bind`` through the
+    CLI (a cold build: plan, compile, upload), then ``engine_for`` on the
+    same structure with other angles: a cache hit that rebinds with no
+    solver call, no ``compile_plan``, no kernel build. Both bindings against
+    the dense per-gate oracle on the card."""
+    from repro_torch.core import kernelization, staging
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.kernels import build
+    from repro_torch.sim import compile as tcompile
+    from repro_torch.sim.engine import DEFAULT_CACHE, engine_for
+    from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
+
+    ops.reset_kernel_counters()
+    run = simulate.main(argv)
+    sync(device)
+    launches = launches_match(ops, run.engine, "engine path")
+    res = run.result
+    marg = res.marginals[(0, 1, 2)]
+    require(marg.shape == (8,) and bool(np.all(np.isfinite(marg))) and abs(marg.sum() - 1) < 1e-4,
+            "engine path: the marginal must be a finite distribution over 8 outcomes")
+    require(all(np.isfinite(v) for v in res.expectations.values()),
+            "engine path: expectations must be finite")
+    eng = run.engine
+    first = eng.bound_circuit
+    state = eng.finalize(run.state)
+    run.state = None
+    fid1 = fidelity(state, dense_simulate(first, device=device))
+    del state
+    log(f"  first binding: fidelity vs dense per-gate oracle {fid1:.9f}; cold build "
+        f"(plan + compile + upload) {run.build_seconds:.3f} s, first bind {run.bind_seconds:.3f} s, "
+        f"simulate {run.seconds:.3f} s ({card})")
+    require(fid1 >= FIDELITY_MIN, f"engine path fidelity {fid1} < {FIDELITY_MIN}")
+
+    counts = (dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
+              tcompile.COMPILE_CALLS["plan"], build.BUILD_CALLS["libraries"])
+    hits = DEFAULT_CACHE.hits
+    n = eng.n
+    bound = PARAM_FAMILIES["isingparam"](n).bind(REBIND)
+    sync(device)
+    t0 = time.time()
+    again = engine_for(bound, eng.L, eng.R, eng.G, device=device)
+    sync(device)
+    rebind_s = time.time() - t0
+    require(again is eng and DEFAULT_CACHE.hits == hits + 1,
+            "engine_for on the same structure must be a cache hit")
+    require((dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
+             tcompile.COMPILE_CALLS["plan"], build.BUILD_CALLS["libraries"]) == counts,
+            "a warm rebind must run no solver, no compile_plan and no kernel build")
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    state = eng.run()
+    sync(device)
+    run_s = time.time() - t0
+    launches_match(ops, eng, "rebound engine")
+    fid2 = fidelity(state, dense_simulate(bound, device=device))
+    del state
+    log(f"  rebinding {REBIND}: cache hit, warm rebind {rebind_s:.3f} s (cold build "
+        f"{run.build_seconds:.3f} s), run {run_s:.3f} s, fidelity {fid2:.9f}; solver, "
+        f"compile_plan and kernel-build counts unchanged ({card})")
+    require(fid2 >= FIDELITY_MIN, f"rebound fidelity {fid2} < {FIDELITY_MIN}")
+    return {"launches": launches, "build_s": run.build_seconds, "first_bind_s": run.bind_seconds,
+            "rebind_s": rebind_s, "simulate_s": run.seconds, "rebound_run_s": run_s,
+            "fidelity": [fid1, fid2]}
+
+
+def sweep_phase(ops, n: int, L: int, R: int, P: int, card: str, device: str = "cuda") -> dict:
+    """``isingparam(n)`` against P bindings in one ``run_sweep``: one launch
+    per compiled op for all P points (past int32 indices at n=28, P=16),
+    rows 0 and P-1 against the dense oracle, ``measure_sweep`` finite,
+    against P sequential ``run`` calls of the same engine."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.measure import measure_sweep
+    from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
+
+    sym = PARAM_FAMILIES["isingparam"](n)
+    t0 = time.time()
+    eng = engine_for(sym, L, R, 0, device=device)
+    build_s = time.time() - t0
+    rng = np.random.default_rng(13)
+    points = [{"J": float(j), "h": float(h)} for j, h in rng.uniform(-1.5, 1.5, size=(P, 2))]
+    # warm-up of both shapes: the binding pass's structural cache, index
+    # tensors, step tables
+    eng.run(params=points[0])
+    eng.run_sweep(None, points)
+    sync(device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    out = eng.run_sweep(None, points)
+    sync(device)
+    sweep_s = time.time() - t0
+    exec_s = eng.timing_snapshot()["run_sweep"]["last_us"] / 1e6
+    launches = launches_match(ops, eng, f"sweep of {P}")
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    require(out.shape == (P, 1 << n), f"sweep output {tuple(out.shape)}")
+    fids = []
+    for p in (0, P - 1):
+        fids.append(fidelity(out[p], dense_simulate(sym.bind(points[p]), device=device)))
+        require(fids[-1] >= FIDELITY_MIN, f"sweep row {p} fidelity {fids[-1]} < {FIDELITY_MIN}")
+    del out
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    runs = 0.0
+    for pt in points:
+        eng.run(params=pt)
+        runs += eng.timing_snapshot()["run"]["last_us"] / 1e6
+    sync(device)
+    seq_s = time.time() - t0
+    if device == "cuda":
+        trace_run(lambda: eng.run_sweep(None, points), exec_s, f"run_sweep of {P}")
+        trace_run(eng.run, runs / P, "one run of the sequence")
+    t0 = time.time()
+    results = measure_sweep(eng, points, marginals=[(0, 1, 2)], observables=["Z0 Z1 + 0.5*X2"])
+    measure_s = time.time() - t0
+    require(len(results) == P and all(
+        bool(np.all(np.isfinite(r.marginals[(0, 1, 2)])))
+        and all(np.isfinite(v) for v in r.expectations.values()) for r in results),
+        "measure_sweep marginals and expectations must be finite")
+    log(f"  isingparam({n}) L={L} R={R}, P={P}: {P << n} amplitudes; sweep {sweep_s:.3f} s = "
+        f"{sweep_s / P:.4f} s/point (stage loop {exec_s:.3f} s, the rest host binding); "
+        f"{P} sequential runs {seq_s:.3f} s = {seq_s / P:.4f} s/point (stage loops {runs:.3f} s); "
+        f"peak device memory {gib(peak)}; fidelity rows 0, {P - 1}: "
+        + ", ".join(f"{f:.9f}" for f in fids)
+        + f"; measure_sweep {measure_s:.1f} s; engine built in {build_s:.2f} s ({card})")
+    return {"launches": launches, "sweep_s": sweep_s, "sweep_exec_s": exec_s,
+            "sequential_s": seq_s, "sequential_exec_s": runs, "peak_bytes": peak,
+            "fidelity": fids}
+
+
+def batch_phase(ops, n: int, L: int, R: int, B: int, card: str, device: str = "cuda") -> dict:
+    """``qft(n)`` on B basis states in one ``run_batch`` (B need not be a
+    power of two): one launch per compiled op, each row against the dense
+    oracle."""
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
+
+    circ = FAMILIES["qft"](n)
+    t0 = time.time()
+    eng = engine_for(circ, L, R, 0, device=device)
+    build_s = time.time() - t0
+    psi0s = torch.zeros(B, 1 << n, dtype=torch.complex64, device=device)
+    psi0s[torch.arange(B), torch.arange(B)] = 1.0
+    eng.run_batch(psi0s)  # warm-up of both shapes: index tensors, step tables
+    eng.run(psi0s[0])
+    sync(device)
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    out = eng.run_batch(psi0s)
+    sync(device)
+    batch_s = time.time() - t0
+    launches = launches_match(ops, eng, f"batch of {B}")
+    t0 = time.time()
+    eng.run(psi0s[0])
+    sync(device)
+    single_s = time.time() - t0
+    fids = []
+    for b in range(B):
+        fids.append(fidelity(out[b], dense_simulate(circ, psi0=psi0s[b], device=device)))
+        require(fids[-1] >= FIDELITY_MIN, f"batch row {b} fidelity {fids[-1]} < {FIDELITY_MIN}")
+    log(f"  qft({n}) L={L} R={R}, B={B}: run_batch {batch_s:.3f} s = {batch_s / B:.4f} s/state "
+        f"(one state alone {single_s:.4f} s); "
+        "fidelity " + ", ".join(f"{f:.9f}" for f in fids)
+        + f"; engine built in {build_s:.2f} s ({card})")
+    return {"launches": launches, "batch_s": batch_s, "single_s": single_s, "fidelity": fids}
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def main() -> None:
@@ -260,20 +470,9 @@ def main() -> None:
     ops.reset_kernel_counters()
     run = simulate.main(MAIN_PATH)
     torch.cuda.synchronize()
-    launches = ops.kernel_call_counts()
+    launches = launches_match(ops, run.engine, "main path")
     launches_by_k = ops.fused_call_counts_by_k()
     peak = torch.cuda.max_memory_allocated()
-    counts = run.engine.op_counts()
-    want = {"fused": counts.get("fused", 0), "shm": counts.get("shm", 0)}
-    want_by_k = {}
-    for op in probe.main_path_ops(run.engine)[0]:
-        want_by_k[len(op.local_bits)] = want_by_k.get(len(op.local_bits), 0) + 1
-    log(f"  kernel launches {launches}, fused_apply by k {launches_by_k}; "
-        f"compiled program {counts}, fused ops by k {want_by_k}")
-    require(launches == want, f"kernel launches {launches} != compiled ops {want}")
-    require(launches_by_k == want_by_k,
-            f"fused_apply launches by k {launches_by_k} != compiled fused ops by k {want_by_k}")
-    require(want["fused"] > 0 and want["shm"] > 0, "the main path must run both kernels")
     res = run.result
     amps = 1 << run.engine.n
     require(res.samples.shape == (1024,) and bool(np.all((res.samples >= 0) & (res.samples < amps))),
@@ -296,7 +495,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     log("== trace of the main path's stage loop")
-    trace_run(run.engine, run.seconds)
+    trace_run(run.engine.run_packed, run.seconds)
     torch.cuda.empty_cache()
 
     log("== kernel figures on the main path's ops")
@@ -307,6 +506,21 @@ def main() -> None:
     log("== checked path: " + " ".join(CHECKED_PATH))
     checked = simulate.main(CHECKED_PATH)
     require(round(checked.fidelity, 6) == 1.0, f"qft(22) fidelity {checked.fidelity}")
+    del checked
+    torch.cuda.empty_cache()
+
+    log("== engine path: " + " ".join(ENGINE_PATH))
+    paths = {"ising30": launches}
+    paths["isingparam30_engine"] = engine_phase(simulate, ops, ENGINE_PATH, card)["launches"]
+    torch.cuda.empty_cache()
+    log("== sweep: isingparam({n}) L={L} R={R}, P={P} bindings".format(**SWEEP))
+    paths["isingparam28_sweep16"] = sweep_phase(ops, **SWEEP, card=card)["launches"]
+    torch.cuda.empty_cache()
+    log("== batch: qft({n}) L={L} R={R}, B={B} basis states".format(**BATCH))
+    paths["qft28_batch3"] = batch_phase(ops, **BATCH, card=card)["launches"]
+    for k in kernels:
+        key = "fused" if k["name"] == "fused_apply" else "shm"
+        k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
 
     log(f"== done in {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

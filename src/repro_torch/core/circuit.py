@@ -1,8 +1,7 @@
 """Quantum circuit IR.
 
 (Copied from ``repro/core/circuit.py`` so this package imports nothing of the
-JAX package; only imports differ, and ``is_equivalent_order`` is left
-out because the pre-staging optimizer it relies on is not ported.)
+JAX package; only imports differ.)
 
 A :class:`Circuit` is a sequence of :class:`Gate`\\ s over ``n_qubits`` logical
 qubits. Gate qubit order convention: ``gate.qubits[j]`` is the circuit qubit
@@ -296,7 +295,8 @@ class Circuit:
 
         This is the conservative check (sufficient for equivalence, used by
         the staging correctness tests). Reorderings of *commuting* same-qubit
-        pairs — e.g. two diagonal gates sharing a qubit — are rejected here.
+        pairs — e.g. two diagonal gates sharing a qubit — are rejected here;
+        use :meth:`is_equivalent_order` to accept them.
         """
         if sorted(order) != list(range(self.n_gates)):
             return False
@@ -306,6 +306,33 @@ class Circuit:
             for a, b in zip(ids, ids[1:]):
                 if pos[a] > pos[b]:
                     return False
+        return True
+
+    def is_equivalent_order(self, order: Sequence[int]) -> bool:
+        """True iff executing gates in ``order`` (a permutation of gate ids)
+        provably yields the same unitary: every same-qubit pair either keeps
+        its relative order or commutes under
+        :func:`repro.core.optimize.gates_commute` (diagonal/diagonal,
+        control-commuting, same-rotation-family cases).
+
+        Any such order is reachable from the original by adjacent
+        transpositions of commuting gates (trace-monoid equivalence), so the
+        product is unchanged. Strictly weaker than
+        :meth:`is_topologically_equivalent` — every topologically-equivalent
+        order is accepted, plus commuting reorderings.
+        """
+        from .optimize import gates_commute  # local: optimize imports circuit
+
+        if sorted(order) != list(range(self.n_gates)):
+            return False
+        pos = {gid: i for i, gid in enumerate(order)}
+        for q in range(self.n_qubits):
+            ids = [g.gid for g in self.gates if q in g.qubits]
+            for i, a in enumerate(ids):
+                for b in ids[i + 1:]:
+                    if pos[a] > pos[b] and not gates_commute(
+                            self.gates[a], self.gates[b]):
+                        return False
         return True
 
     # -------------------------------------------------------------- (de)ser

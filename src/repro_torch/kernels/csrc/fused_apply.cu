@@ -57,7 +57,7 @@ constexpr int kPad = 4;             // complex entries of padding per row of U a
 constexpr int kMinMatBits = 4;      // smaller unitaries are embedded as I (x) U
 
 struct FusedArgs {
-  long long n_tiles;         // 2^(n - t)
+  long long n_tiles;         // S * 2^(L - t) for S shards
   int L;                     // local bits: shard of an index = index >> L
   int t;                     // tile bits
   int k;                     // target bits of U

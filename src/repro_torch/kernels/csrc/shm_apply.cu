@@ -359,7 +359,7 @@ extern "C" {
 // state: complex64 [S * 2^L]; desc: device int64 [n_steps, 12] (see
 // kDescWords), the program ops.py::shm_schedule makes; pos: host array of
 // the t tile bits, ascending. One block of 2^(t-5) threads per tile,
-// n_tiles = 2^(n - t). Returns a cudaError_t.
+// n_tiles = S * 2^(L - t) for S shards. Returns a cudaError_t.
 int shm_apply(void* state, const void* desc, long long n_tiles, int L, int t, int n_steps,
               const int* pos, void* stream) {
   if (t < kRegBits || t > kMaxTileBits || n_steps < 0 || n_tiles > 0x7fffffffLL)

@@ -30,7 +30,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..sim.apply import n_bits_of
 from . import ref
 from .ref import Member
 
@@ -83,7 +82,10 @@ class TileLayout:
     the other bits are fixed per tile. For the fused kernel, ``tb[j]`` is
     the tile bit of matrix index bit ``j`` (``j >= k``: a bit of the
     identity in I (x) U) and ``gb`` the tile bits that number the groups
-    inside a tile."""
+    inside a tile. Every tile bit is a local bit (below ``L``), so the
+    layout is the same for every shard; ``n`` only sets :attr:`n_tiles`
+    (the wrappers build it for one shard, ``n = L``, and launch
+    ``S * n_tiles`` tiles for ``S`` shards)."""
 
     n: int
     L: int
@@ -306,17 +308,19 @@ def shm_schedule(lay: TileLayout, members: Sequence[Member]) -> List[tuple]:
 # ----------------------------------------------------------------------
 
 
-def _check_state(state: torch.Tensor, L: int) -> Tuple[int, int]:
+def _check_state(state: torch.Tensor, L: int) -> int:
+    """The number of shards of 2^L amplitudes in ``state``: any count, so
+    a batch of B states of 2^n amplitudes is B * 2^(n-L) shards."""
     if not isinstance(state, torch.Tensor) or state.dtype != torch.complex64:
         raise TypeError("state must be a complex64 tensor")
     if state.dim() != 1 or not state.is_contiguous():
         raise ValueError("state must be a flat contiguous tensor")
-    n = n_bits_of(state.numel())
-    if not 0 < L <= n:
-        raise ValueError(f"L={L} out of range for a 2^{n} state")
+    if L <= 0 or state.numel() == 0 or state.numel() % (1 << L):
+        raise ValueError(f"a state of {state.numel()} amplitudes is no whole number of "
+                         f"2^{L}-amplitude shards")
     if state.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {state.device}")
-    return n, 1 << (n - L)
+    return state.numel() >> L
 
 
 def _check_operand(name: str, t: torch.Tensor, state: torch.Tensor, dtype, shape) -> None:
@@ -412,8 +416,9 @@ def fused_apply(
     the matrix index binds to ``bits[j]``; 1 <= k <= 7). ``u``: complex64
     ``[V, 2^k, 2^k]``; ``vidx``: int32 ``[S]`` with values below ``V`` (not
     checked here: that would stop the host for every launch; the engine
-    derives them from the op's dep bits)."""
-    n, S = _check_state(state, L)
+    derives them from the op's dep bits). ``S`` is any count: a batch of
+    states, or of sweep points, is one launch over all their shards."""
+    S = _check_state(state, L)
     bits = _check_bits(bits, L, FUSED_MAX_BITS)
     if not bits:
         raise ValueError("fused_apply needs at least one target bit")
@@ -424,11 +429,11 @@ def fused_apply(
         ref.fused_apply_ref(state, u, vidx, bits, L)
         _count_fused(len(bits))
         return state
-    lay = fused_layout(n, L, bits)
+    lay = fused_layout(L, L, bits)
     lib = load()["fused"]
     with torch.cuda.device(state.device):
         rc = lib.fused_apply(
-            state.data_ptr(), u.data_ptr(), vidx.data_ptr(), lay.n_tiles, L,
+            state.data_ptr(), u.data_ptr(), vidx.data_ptr(), S * lay.n_tiles, L,
             lay.t, len(bits), len(lay.tb), len(lay.gb), _ints(lay.pos), _ints(lay.tb),
             _ints(lay.gb), _stream(state.device))
     _raise_on(rc, lib.fused_error_string, "fused_apply")
@@ -445,12 +450,23 @@ def _pack(values: Sequence[int]) -> List[int]:
     return words
 
 
-def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
-    """The kernel's step table: one row of SHM_DESC_WORDS int64 per step of
-    :func:`shm_schedule` (see csrc/shm_apply.cu). It holds the operands'
-    addresses, not their values."""
-    rows = []
-    for step in shm_schedule(lay, members):
+_TEMPLATES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_TEMPLATES_KEPT = 256
+
+
+def _step_template(lay: TileLayout, shape: Tuple[Tuple[str, Tuple[int, ...]], ...]):
+    """The step table of a group whose members have the ``(kind, bits)`` of
+    ``shape``, with the operand words left 0, plus the rows that take an
+    operand and the member each takes. The program depends on nothing else,
+    so it is scheduled once per layout and shape: a rebind, or a sweep,
+    only fills in the operands."""
+    key = (lay.pos, shape)
+    hit = _TEMPLATES.get(key)
+    if hit is not None:
+        _TEMPLATES.move_to_end(key)
+        return hit
+    rows, at, who = [], [], []
+    for step in shm_schedule(lay, [(kind, bits, i, i) for i, (kind, bits) in enumerate(shape)]):
         kind = step[0]
         row = [0] * SHM_DESC_WORDS
         if kind in ("write", "read"):
@@ -459,10 +475,10 @@ def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
             rows.append(row)
             continue
         if kind == "smem_mat":
-            tb, op, vidx = step[1:]
+            tb, member = step[1], step[2]
             row[0], fields = STEP_SMEM_MAT, tb
         else:
-            _, layout, tb, op, vidx = step
+            _, layout, tb, member, _ = step
             if kind == "diag":
                 row[0] = STEP_DIAG
                 fields = [1 << tb.index(b) if b in tb else 0 for b in layout]
@@ -471,9 +487,29 @@ def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
                 fields = [layout.index(b) for b in tb]
         row[1] = len(tb)
         row[2:6] = _pack(fields)
-        row[6], row[7], row[8] = op.data_ptr(), op[0].numel(), vidx.data_ptr()
+        at.append(len(rows))
+        who.append(member)
         rows.append(row)
-    return np.array(rows, dtype=np.uint64).reshape(-1, SHM_DESC_WORDS).view(np.int64)
+    table = np.array(rows, dtype=np.uint64).reshape(-1, SHM_DESC_WORDS).view(np.int64)
+    hit = (table, np.array(at, dtype=np.int64), np.array(who, dtype=np.int64))
+    _TEMPLATES[key] = hit
+    if len(_TEMPLATES) > _TEMPLATES_KEPT:
+        _TEMPLATES.popitem(last=False)
+    return hit
+
+
+def shm_descriptors(lay: TileLayout, members: Sequence[Member]) -> np.ndarray:
+    """The kernel's step table: one row of SHM_DESC_WORDS int64 per step of
+    :func:`shm_schedule` (see csrc/shm_apply.cu). It holds the operands'
+    addresses, not their values: words 6-8 of a step are its operand's
+    address, the size of one variant and the variant index's address."""
+    table, at, who = _step_template(lay, tuple((kind, tuple(bits)) for kind, bits, _, _ in members))
+    desc = table.copy()
+    if len(at):
+        words = np.array([(op.data_ptr(), op[0].numel(), vidx.data_ptr())
+                          for _, _, op, vidx in members], dtype=np.uint64).view(np.int64)
+        desc[at, 6:9] = words[who]
+    return desc
 
 
 _TABLES: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
@@ -507,7 +543,7 @@ def shm_apply(
     ``"mat"`` member has ``op`` complex64 ``[V, 2^kg, 2^kg]`` (kg <= 4), a
     ``"diag"`` member ``op`` complex64 ``[V, 2^kd]``; ``vidx`` int32 ``[S]``
     picks the variant of each shard."""
-    n, S = _check_state(state, L)
+    S = _check_state(state, L)
     window = _check_bits(sorted(window), L, SHM_MAX_WINDOW_BITS)
     if not members:
         raise ValueError("shm_apply needs at least one member")
@@ -529,13 +565,13 @@ def shm_apply(
         ref.shm_apply_ref(state, window, checked, L)
         KERNEL_CALLS["shm"] += 1
         return state
-    lay = shm_layout(n, L, window)
+    lay = shm_layout(L, L, window)
     if lay.t < SHM_REG_BITS:
         raise ValueError(f"shm_apply needs at least {SHM_REG_BITS} local bits, L={L}")
     lib = load()["shm"]
     with torch.cuda.device(state.device):
         desc = _device_table(lay, checked, state.device)
-        rc = lib.shm_apply(state.data_ptr(), desc.data_ptr(), lay.n_tiles, L, lay.t,
+        rc = lib.shm_apply(state.data_ptr(), desc.data_ptr(), S * lay.n_tiles, L, lay.t,
                            len(desc), _ints(lay.pos), _stream(state.device))
     _raise_on(rc, lib.shm_error_string, "shm_apply")
     KERNEL_CALLS["shm"] += 1

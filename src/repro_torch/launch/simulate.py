@@ -1,7 +1,7 @@
 """End-to-end quantum circuit simulation on one device (the CLI).
 
-The default single-state path of ``repro/launch/simulate.py``: generate a
-circuit, partition it (ILP staging + DP kernelization), compile the plan,
+The paths of ``repro/launch/simulate.py`` that run on one device: generate
+a circuit, partition it (ILP staging + DP kernelization), compile the plan,
 run the staged engine, then measure. Runs on CUDA unless ``--device cpu``.
 
 Examples:
@@ -11,23 +11,39 @@ Examples:
       --L 28 --R 2 --shots 1024 --marginal 0,1,2 --observable "Z0 Z1 + 0.5*X2"
   PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 10 \\
       --L 8 --R 2 --check --device cpu
+
+Engine path (compile cache, parameter binding, batches, sweeps):
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit isingparam \\
+      --n 12 --L 10 --R 2 --engine --bind J=0.35 --bind h=0.8 --check
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit isingparam \\
+      --n 12 --L 10 --R 2 --sweep points.json --check
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 12 \\
+      --L 10 --R 2 --batch 3 --check
+(points.json: a JSON list of {name: value} objects, {"points": [...]}, or
+{"name": [v0, v1, ...]} columns of equal length.)
+
+Not in the port yet, and refused: ``--autotune``, ``--vqe``, ``--storage``
+and the ``offload``/``pergate``/``shardmap`` executors.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..core.generators import FAMILIES
+from ..core.generators import FAMILIES, PARAM_FAMILIES
 from ..core.partition import SimulationPlan, partition
 from ..device import resolve_device
-from ..sim.engine import ExecutionEngine
-from ..sim.measure import TorchMeasurer, measure_to_result
+from ..sim.engine import DEFAULT_CACHE, ExecutionEngine, engine_for
+from ..sim.measure import (
+    TorchMeasurer, measure_batch, measure_sweep, measure_to_result,
+)
 from ..sim.result import SimulationResult
 from ..sim.statevector import fidelity, simulate_np
 
@@ -38,15 +54,22 @@ CHECK_MAX_QUBITS = 24  # --check builds a host complex128 state
 class SimulateRun:
     """What one run of the CLI produced: the engine (its compiled program and
     device), the plan, the state it ended with (the packed final-stage
-    layout when it measured, logical order otherwise), the measurement
-    result, the simulation's wall time, and the --check fidelity."""
+    layout when it measured, logical order otherwise; ``[B, 2^n]`` for a
+    batch or a sweep), the measurement result(s), the simulation's wall
+    time, the --check fidelity of each state, and on the engine path the
+    seconds to get the engine (plan, compile and upload on a cache miss)
+    and to bind the --bind parameters."""
 
     engine: ExecutionEngine
     plan: SimulationPlan
-    state: torch.Tensor
+    state: Optional[torch.Tensor]
     result: Optional[SimulationResult]
     seconds: float
     fidelity: Optional[float] = None
+    results: List[SimulationResult] = field(default_factory=list)
+    fidelities: List[float] = field(default_factory=list)
+    build_seconds: Optional[float] = None
+    bind_seconds: Optional[float] = None
 
 
 def _sync(device: torch.device) -> None:
@@ -54,15 +77,70 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _parse_bind(specs):
+    out = {}
+    for spec in specs:
+        if "=" not in spec:
+            raise SystemExit(f"--bind expects name=value, got {spec!r}")
+        name, _, val = spec.partition("=")
+        out[name.strip()] = float(val)
+    return out
+
+
+def _load_sweep(path):
+    """JSON sweep file -> list of {name: value} points."""
+    with open(path) as f:
+        d = json.load(f)
+    if isinstance(d, dict) and "points" in d:
+        d = d["points"]
+    if isinstance(d, list):
+        return [dict(p) for p in d]
+    # columns form: {name: [v0, v1, ...]}
+    lengths = {len(v) for v in d.values()}
+    if len(lengths) != 1:
+        raise SystemExit("--sweep columns must have equal length")
+    P = lengths.pop()
+    return [{k: float(v[p]) for k, v in d.items()} for p in range(P)]
+
+
+def _print_results(results) -> None:
+    for i, res in enumerate(results):
+        bits = []
+        if res.shots:
+            bits.append("top " + ", ".join(f"{s}:{c}" for s, c in res.top(3)))
+        bits += [f"<{k}>={v:+.4f}" for k, v in res.expectations.items()]
+        print(f"  [{i}] " + "; ".join(bits))
+
+
 def main(argv=None) -> SimulateRun:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--circuit", default="qft", choices=sorted(FAMILIES))
+    ap.add_argument("--circuit", default="qft", choices=sorted(FAMILIES) + sorted(PARAM_FAMILIES))
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--L", type=int, default=0, help="local qubits (0: n-R-G)")
     ap.add_argument("--R", type=int, default=0)
     ap.add_argument("--G", type=int, default=0)
+    ap.add_argument("--executor", default="cuda", choices=["cuda", "dense"],
+                    help="cuda: the planned path through the hand-written kernels "
+                         "(on --device); dense: the per-gate oracle behind the engine "
+                         "API (implies --engine)")
     ap.add_argument("--staging", default="ilp", choices=["ilp", "greedy"])
     ap.add_argument("--kernelizer", default="dp", choices=["dp", "ordered", "greedy"])
+    ap.add_argument("--opt", dest="opt", action="store_true",
+                    help="run the pre-staging circuit optimizer before planning; "
+                         "--check compares with the circuit as written")
+    ap.add_argument("--no-opt", dest="opt", action="store_false",
+                    help="no pre-staging optimizer (default)")
+    ap.set_defaults(opt=False)
+    ap.add_argument("--engine", action="store_true",
+                    help="go through the compile cache (repro_torch.sim.engine.engine_for)")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="run B basis initial states in one pass of the engine "
+                         "(implies --engine)")
+    ap.add_argument("--bind", action="append", default=[], metavar="NAME=VAL",
+                    help="bind one circuit parameter (repeatable); required for "
+                         "parameterized families unless --sweep is given")
+    ap.add_argument("--sweep", default=None, metavar="FILE.json",
+                    help="run a parameter sweep in one pass (implies --engine)")
     ap.add_argument("--check", action="store_true",
                     help=f"fidelity vs the complex128 dense reference (n <= {CHECK_MAX_QUBITS})")
     ap.add_argument("--shots", type=int, default=0, help="sample N bitstrings")
@@ -77,22 +155,131 @@ def main(argv=None) -> SimulateRun:
     device = resolve_device(args.device)
     n = args.n
     L = args.L or (n - args.R - args.G)
-    circ = FAMILIES[args.circuit](n)
-    print(f"{args.circuit}(n={n}): {circ.n_gates} gates; L/R/G = {L}/{args.R}/{args.G}"
-          f"; device {device}")
+    if args.check and n > CHECK_MAX_QUBITS:
+        ap.error(f"--check needs n <= {CHECK_MAX_QUBITS}")
+    if args.batch < 1:
+        ap.error("--batch must be at least 1")
     measuring = bool(args.shots or args.marginal or args.observable)
+    if args.check and measuring and (args.batch > 1 or args.sweep is not None):
+        ap.error("--check with --batch or --sweep compares states: leave out the measurements")
+    circ = (FAMILIES.get(args.circuit) or PARAM_FAMILIES[args.circuit])(n)
+    print(f"{args.circuit}(n={n}): {circ.n_gates} gates; L/R/G = {L}/{args.R}/{args.G}"
+          f"; device {device}"
+          + (f"; {len(circ.param_names)} free params" if not circ.is_bound else ""))
     marginals = [tuple(int(q) for q in spec.split(",")) for spec in args.marginal]
+    binds = _parse_bind(args.bind)
+    if not circ.is_bound and not binds and args.sweep is None:
+        ap.error(f"circuit has free parameters {circ.param_names}; "
+                 "pass --bind NAME=VAL or --sweep FILE.json")
+    use_engine = (args.engine or args.batch > 1 or args.executor == "dense"
+                  or args.sweep is not None)
+    if not use_engine and (binds or not circ.is_bound):
+        # the engine path binds after the cache lookup, so its key stays
+        # parameter-blind; here the circuit is bound up front
+        circ = circ.bind(binds)
+        binds = {}
+    # --check compares with the circuit as written, never the optimizer's
+    # rewrite of it
+    ref_circ = circ
 
-    plan = partition(circ, L, args.R, args.G, staging_method=args.staging,
-                     kernelize_method=args.kernelizer)
-    print(f"partition: {plan.n_stages} stages, kernel cost {plan.total_kernel_cost:,.0f} us"
-          f" (preprocess {plan.preprocess_time_s:.2f}s)")
+    build_s = bind_s = None
     t0 = time.time()
-    ex = ExecutionEngine(circ, plan, device=device)
-    counts = ex.op_counts()
-    print(f"compiled in {time.time() - t0:.2f}s: "
-          + ", ".join(f"{v} {k}" for k, v in sorted(counts.items())))
+    if use_engine:
+        ex = engine_for(circ, L, args.R, args.G, backend=args.executor,
+                        staging_method=args.staging, kernelize_method=args.kernelizer,
+                        optimize=args.opt, device=device)
+        plan = ex.plan
+        build_s = time.time() - t0
+        print(f"engine[{ex.backend.name}] ready in {build_s:.2f}s; "
+              f"cache: {len(DEFAULT_CACHE)} entries, {DEFAULT_CACHE.hits} hits"
+              f"/{DEFAULT_CACHE.misses} misses")
+        opt_prov = ex.provenance.get("optimize")
+        if opt_prov:
+            print(f"optimizer: {opt_prov['gates_before']} -> {opt_prov['gates_after']} gates "
+                  f"(-{opt_prov['gates_removed']}; passes: {opt_prov['pass_counts']})")
+        if binds:
+            t0 = time.time()
+            ex.bind(binds)
+            _sync(device)
+            bind_s = time.time() - t0
+            print(f"bound {len(binds)} params in {bind_s:.3f}s "
+                  "(tensor swap: no staging, kernelization or stage compile)")
+    else:
+        if args.opt:
+            from ..core.optimize import optimize_circuit
 
+            ores = optimize_circuit(circ)
+            print(f"optimizer: {ores.source.n_gates} -> {ores.circuit.n_gates} gates "
+                  f"(-{ores.gates_removed}; passes: {ores.pass_counts()})")
+            circ = ores.circuit
+        plan = partition(circ, L, args.R, args.G, staging_method=args.staging,
+                         kernelize_method=args.kernelizer)
+        t0 = time.time()
+        ex = ExecutionEngine(circ, plan, device=device)
+        print(f"compiled in {time.time() - t0:.2f}s")
+    print(f"partition: {plan.n_stages} stages, kernel cost {plan.total_kernel_cost:,.0f} us"
+          f" (preprocess {plan.preprocess_time_s:.2f}s); program: "
+          + ", ".join(f"{v} {k}" for k, v in sorted(ex.op_counts().items())))
+
+    def reference(bound, psi0=None):
+        return simulate_np(bound if bound.is_bound else bound.bind(binds), psi0)
+
+    # ----------------------------------------------------- parameter sweep
+    if args.sweep is not None:
+        points = _load_sweep(args.sweep)
+        P = len(points)
+        _sync(device)
+        t0 = time.time()
+        run = SimulateRun(engine=ex, plan=plan, state=None, result=None, seconds=0.0,
+                          build_seconds=build_s, bind_seconds=bind_s)
+        if measuring:
+            run.results = measure_sweep(ex, points, shots=args.shots, seed=args.seed,
+                                        marginals=marginals, observables=args.observable)
+            run.seconds = time.time() - t0
+            print(f"sweep of {P} bindings simulated+measured in {run.seconds:.3f}s "
+                  f"({run.seconds / P:.3f}s/point)")
+            _print_results(run.results)
+            return run
+        run.state = ex.run_sweep(None, points)
+        _sync(device)
+        run.seconds = time.time() - t0
+        print(f"sweep of {P} bindings in {run.seconds:.3f}s ({run.seconds / P:.3f}s/point, "
+              "one structural compile)")
+        if args.check:
+            for p, pt in enumerate(points):
+                run.fidelities.append(fidelity(run.state[p], simulate_np(ref_circ.bind(pt))))
+                print(f"  fidelity[{p}] vs dense reference: {run.fidelities[-1]:.6f}")
+        return run
+
+    # ------------------------------------------------------- batched path
+    if args.batch > 1:
+        B = args.batch
+        psi0s = np.zeros((B, 2**n), dtype=np.complex64)
+        psi0s[np.arange(B), np.arange(B) % (2**n)] = 1.0
+        _sync(device)
+        t0 = time.time()
+        run = SimulateRun(engine=ex, plan=plan, state=None, result=None, seconds=0.0,
+                          build_seconds=build_s, bind_seconds=bind_s)
+        if measuring:
+            run.results = measure_batch(ex, psi0s, shots=args.shots, seed=args.seed,
+                                        marginals=marginals, observables=args.observable)
+            run.seconds = time.time() - t0
+            print(f"batch of {B} simulated+measured in {run.seconds:.3f}s "
+                  f"({run.seconds / B:.3f}s/state)")
+            _print_results(run.results)
+            return run
+        run.state = ex.run_batch(psi0s)
+        _sync(device)
+        run.seconds = time.time() - t0
+        print(f"batch of {B} simulated in {run.seconds:.3f}s ({run.seconds / B:.3f}s/state, "
+              f"{B * circ.n_gates / run.seconds:,.0f} gates/s)")
+        if args.check:
+            for b in range(B):
+                run.fidelities.append(fidelity(run.state[b], reference(ref_circ, psi0s[b])))
+                print(f"  fidelity[{b}] vs dense reference: {run.fidelities[-1]:.6f}")
+        return run
+
+    # ------------------------------------------------------ single state
     _sync(device)
     t0 = time.time()
     out = ex.run_packed() if measuring else ex.run()
@@ -105,7 +292,7 @@ def main(argv=None) -> SimulateRun:
     if measuring:
         t0 = time.time()
         res = measure_to_result(
-            TorchMeasurer(out, ex.measurement_frame), backend=f"torch-{device.type}",
+            TorchMeasurer(out, ex.measurement_frame), backend=f"{ex.backend.name}-{device.type}",
             shots=args.shots, seed=args.seed, marginals=marginals,
             observables=args.observable,
         )
@@ -119,12 +306,12 @@ def main(argv=None) -> SimulateRun:
         for name, val in res.expectations.items():
             print(f"  <{name}> = {val:+.6f}")
 
-    run = SimulateRun(engine=ex, plan=plan, state=out, result=res, seconds=dt)
+    run = SimulateRun(engine=ex, plan=plan, state=out, result=res, seconds=dt,
+                      build_seconds=build_s, bind_seconds=bind_s)
     if args.check:
-        if n > CHECK_MAX_QUBITS:
-            ap.error(f"--check needs n <= {CHECK_MAX_QUBITS}")
         logical = ex.finalize(out) if measuring else out
-        run.fidelity = fidelity(logical, simulate_np(circ))
+        run.fidelity = fidelity(logical, reference(ref_circ))
+        run.fidelities.append(run.fidelity)
         print(f"fidelity vs dense reference: {run.fidelity:.6f}")
     return run
 

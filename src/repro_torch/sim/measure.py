@@ -14,10 +14,12 @@ physical layout (``run_packed`` skips the final remap), and a
 * **Pauli expectations** — basis changes ``H`` (X) and ``H·S†`` (Y) on the
   device, then a signed reduction.
 
-:class:`PauliSum`, :class:`Frame`, the :class:`Measurer` base class and the
-complex128 oracles :func:`expectation_np` / :func:`marginal_np` are copied
-from the reference unchanged; :class:`TorchMeasurer` replaces its
-``ShardedMeasurer``.
+:class:`PauliSum`, :class:`Frame`, the :class:`Measurer` base class,
+:class:`DenseMeasurer` (the host oracle path) and the complex128 oracles
+:func:`expectation_np` / :func:`marginal_np` are copied from the reference;
+:class:`TorchMeasurer` replaces its ``ShardedMeasurer``. Batches and sweeps
+(:func:`measure_batch`, :func:`measure_sweep`) measure element ``b`` / point
+``p`` with seed ``seed + b`` / ``seed + p``, as the reference does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core import gates as G
+from ..core.circuit import Circuit
 from .apply import apply_matrix_bits, sum_bits
 from .result import SimulationResult
 
@@ -437,6 +440,69 @@ def _abs2(x: torch.Tensor) -> torch.Tensor:
     return x.real ** 2 + x.imag ** 2
 
 
+class DenseMeasurer(Measurer):
+    """Host numpy measurer over a flat state (the oracle path; the ``ref``
+    backend of :func:`simulate_and_measure`). Shard masses are summed as
+    :class:`TorchMeasurer` sums them, so both build the same sampling CDF
+    for the same state."""
+
+    def __init__(self, state: np.ndarray, frame: Optional[Frame] = None):
+        state = np.asarray(state).reshape(-1)
+        n = int(round(np.log2(state.size)))
+        super().__init__(frame if frame is not None else Frame.identity(n))
+        assert self.frame.n == n
+        self.state = state
+
+    @classmethod
+    def with_frame(cls, psi_logical: np.ndarray, frame: Frame) -> "DenseMeasurer":
+        """Re-store a *logical-order* dense state in ``frame``'s physical
+        order, so this measurer is comparable to a planned backend measuring
+        in that frame (same shard CDFs, same shots for a seed)."""
+        psi_logical = np.asarray(psi_logical).reshape(-1)
+        idx = frame.phys_to_logical(np.arange(psi_logical.size, dtype=np.int64))
+        return cls(psi_logical[idx], frame)
+
+    def _row(self, shard_id: int) -> np.ndarray:
+        L = self.frame.L
+        return self.state[shard_id << L:(shard_id + 1) << L]
+
+    def _shard_masses(self) -> np.ndarray:
+        return np.array([
+            float(_abs2(torch.from_numpy(np.ascontiguousarray(self._row(s)))).sum(
+                dtype=torch.float64))
+            for s in range(self.frame.n_shards)
+        ], dtype=np.float64)
+
+    def _local_probs(self, shard_id: int) -> np.ndarray:
+        return _probs64(self._row(shard_id))
+
+    def _marginal_phys(self, keep_bits: Tuple[int, ...]) -> np.ndarray:
+        n = self.frame.n
+        p2 = _probs64(self.state).reshape((2,) * n)
+        drop = tuple(sorted(n - 1 - b for b in range(n) if b not in keep_bits))
+        return p2.sum(axis=drop).reshape(-1)
+
+    def _expect_term_phys(self, sign_bits, xy) -> float:
+        n = self.frame.n
+        v = self.state.astype(np.complex128).reshape((2,) * n)
+        for b, mat in xy:
+            ax = n - 1 - b
+            v = np.moveaxis(np.tensordot(mat, v, axes=([1], [ax])), 0, ax)
+        p2 = v.real**2 + v.imag**2
+        for b in sign_bits:
+            a = n - 1 - b
+            p2 = p2 * np.array([1.0, -1.0]).reshape((1,) * a + (2,) + (1,) * (n - 1 - a))
+        return float(p2.sum())
+
+
+def measurer_for(state, frame: Frame) -> Measurer:
+    """The measurer for a state: a tensor (on any device) is measured where
+    it lies, a numpy array on the host."""
+    if isinstance(state, torch.Tensor):
+        return TorchMeasurer(state, frame)
+    return DenseMeasurer(state, frame)
+
+
 # ======================================================================
 # Entry point
 # ======================================================================
@@ -469,3 +535,110 @@ def measure_to_result(
         ps = PauliSum.coerce(obs)
         result.expectations[str(ps)] = measurer.expectation(ps)
     return result
+
+
+_BACKENDS = ("ref", "cuda")
+
+
+def simulate_and_measure(
+    circuit: Circuit,
+    *,
+    backend: str = "ref",
+    L: Optional[int] = None,
+    R: int = 0,
+    G: int = 0,
+    plan=None,
+    shots: int = 0,
+    seed: int = 0,
+    marginals: Sequence[Sequence[int]] = (),
+    observables: Union[str, PauliSum, Sequence] = (),
+    use_kernels: bool = True,
+    psi0=None,
+    params=None,
+    device=None,
+    **plan_kw,
+) -> SimulationResult:
+    """Simulate ``circuit`` and consume the state through measurement only.
+
+    Backends: ``'ref'`` (the dense per-gate oracle on ``device``, measured
+    on the host) and ``'cuda'`` (the planned engine on ``device``, measured
+    in the final stage's layout: the final remap is skipped). ``params``
+    binds a parameterized circuit first. ``device`` defaults to CUDA."""
+    import time
+
+    from .statevector import simulate
+
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; pick from {_BACKENDS}")
+    if params is not None or not circuit.is_bound:
+        circuit = circuit.bind(params if params is not None else {})
+    n = circuit.n_qubits
+    t0 = time.time()
+    meta: Dict[str, float] = {}
+    if backend == "ref":
+        psi = simulate(circuit, psi0=psi0, device=device)
+        measurer: Measurer = DenseMeasurer(psi.cpu().numpy())
+    else:
+        from ..core.partition import partition
+        from .engine import ExecutionEngine
+
+        if plan is None:
+            plan = partition(circuit, L if L is not None else n - R - G, R, G, **plan_kw)
+        ex = ExecutionEngine(circuit, plan, use_kernels=use_kernels, device=device)
+        measurer = measurer_for(ex.run_packed(psi0), ex.measurement_frame)
+        meta["n_stages"] = plan.n_stages
+    meta["simulate_s"] = time.time() - t0
+    t0 = time.time()
+    result = measure_to_result(measurer, backend=backend, shots=shots, seed=seed,
+                               marginals=marginals, observables=observables)
+    meta["measure_s"] = time.time() - t0
+    result.meta = meta
+    return result
+
+
+def measure_batch(
+    engine,
+    psi0s,
+    *,
+    shots: int = 0,
+    seed: int = 0,
+    marginals: Sequence[Sequence[int]] = (),
+    observables: Union[str, PauliSum, Sequence] = (),
+) -> List[SimulationResult]:
+    """Run a batch of initial states through an engine's batch path
+    (``run_batch(..., apply_final=False)``: the states stay in the final
+    stage's layout) and measure every element in the shared frame. Element
+    ``b`` samples with ``seed + b``."""
+    states = engine.run_batch(psi0s, apply_final=False)
+    return _measure_state_batch(states, states.shape[0], engine.measurement_frame,
+                                engine.backend.name, shots, seed, marginals, observables)
+
+
+def _measure_state_batch(states, B, frame, backend_name, shots, seed,
+                         marginals, observables) -> List[SimulationResult]:
+    results: List[SimulationResult] = []
+    for b in range(B):
+        res = measure_to_result(
+            measurer_for(states[b], frame), backend=backend_name, shots=shots,
+            seed=seed + b, marginals=marginals, observables=observables)
+        res.meta = {"batch_index": b, "batch_size": B}
+        results.append(res)
+    return results
+
+
+def measure_sweep(
+    engine,
+    params_batch,
+    *,
+    psi0=None,
+    shots: int = 0,
+    seed: int = 0,
+    marginals: Sequence[Sequence[int]] = (),
+    observables: Union[str, PauliSum, Sequence] = (),
+) -> List[SimulationResult]:
+    """Parameter-sweep counterpart of :func:`measure_batch`: ONE initial
+    state against a batch of bindings through the engine's sweep path, then
+    every point measured; point ``p`` samples with ``seed + p``."""
+    states = engine.run_sweep(psi0, params_batch, apply_final=False)
+    return _measure_state_batch(states, states.shape[0], engine.measurement_frame,
+                                engine.backend.name, shots, seed, marginals, observables)

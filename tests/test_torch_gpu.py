@@ -182,3 +182,104 @@ def test_kernels_on_small_shards(cuda, L):
         got = ops.shm_apply(state.to(cuda), window,
                             [(k, b, o.to(cuda), v.to(cuda)) for k, b, o, v in mem], L)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=ATOL)
+
+
+def _operand(rng, kind, k, V):
+    if kind == "mat":
+        return _unitary(rng, k, V)
+    return np.exp(1j * rng.uniform(0, 2 * np.pi, size=(V, 1 << k))).astype(np.complex64)
+
+
+def _each_row(state, rows, apply):
+    """``apply(row, r)`` on each of the ``rows`` states of ``state`` alone,
+    each from its own copy."""
+    out = state.clone().view(rows, -1)
+    for r in range(rows):
+        row = out[r].clone()
+        apply(row, r)
+        out[r] = row
+    return out.view(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["batch3", "sweep3x2"])
+def test_kernels_on_batches_and_sweeps(cuda, shape):
+    """One launch over the shards of 3 states (a batch whose size is not a
+    power of two), or of 3 sweep points whose operand tables stack to
+    ``[P * V, ...]`` with ``vidx[p * S + s] = p * V + v(s)``: against the
+    plain versions, and against the kernel on each state alone (the same
+    arithmetic on each tile, so exactly equal)."""
+    rng = np.random.default_rng(3)
+    n, L, P, V = 16, 14, 3, 2
+    v_of = np.array([0, 1, 1, 0], dtype=np.int32)
+    sweep = shape.startswith("sweep")
+    T = P if sweep else 1  # tables stacked in the operands
+    state = _t(_cplx(rng, P << n))
+    vidx = ((np.arange(P)[:, None] * V if sweep else np.zeros((P, 1), np.int32))
+            + v_of[None, :]).reshape(-1).astype(np.int32)
+    bits = [12, 3, 7]
+    u = _unitary(rng, len(bits), T * V)
+    window = list(range(2, 13))
+    shapes = [(kind, bits_) for kind, bits_, _ in _members(rng, window, 9)]
+    ops_ = [_operand(rng, kind, len(b), T * V) for kind, b in shapes]
+
+    def table(a, r):  # the V variants row r reads
+        return a[r * V:(r + 1) * V] if sweep else a
+
+    dv, dv_of = _t(vidx).to(cuda), _t(v_of).to(cuda)
+    want = ref.fused_apply_ref(state.clone(), _t(u), _t(vidx), bits, L)
+    got = ops.fused_apply(state.to(cuda, copy=True), _t(u).to(cuda), dv, bits, L).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+    alone = _each_row(state.to(cuda, copy=True), P, lambda x, r: ops.fused_apply(
+        x, _t(table(u, r)).to(cuda), dv_of, bits, L))
+    assert torch.equal(alone.cpu(), got)
+
+    mem = [(k, b, _t(op)) for (k, b), op in zip(shapes, ops_)]
+    want = ref.shm_apply_ref(state.clone(), window, [(k, b, op, _t(vidx)) for k, b, op in mem], L)
+    got = ops.shm_apply(state.to(cuda, copy=True), window,
+                        [(k, b, op.to(cuda), dv) for k, b, op in mem], L).cpu()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL)
+    alone = _each_row(state.to(cuda, copy=True), P, lambda x, r: ops.shm_apply(
+        x, window, [(k, b, _t(table(op.numpy(), r)).to(cuda), dv_of) for k, b, op in mem], L))
+    assert torch.equal(alone.cpu(), got)
+
+
+@pytest.mark.gpu
+def test_kernels_beyond_int32_amplitudes(cuda):
+    """A ``[4, 2^30]`` batch (2^32 amplitudes, 32 GiB): one launch of each
+    kernel over its 16 shards against the same kernel on each row alone,
+    from an 8 GiB copy of that row. The plain versions' temporaries would
+    not fit; the single-row launch is held to its plain version at n=30 by
+    ``chip_smoke.py``. Both launches do the same arithmetic on each tile,
+    so they agree exactly."""
+    if torch.cuda.get_device_properties(cuda).total_memory < (48 << 30):
+        pytest.skip("needs 48 GiB of device memory")
+    B, n, L = 4, 30, 28
+    S = 1 << (n - L)
+    gen = torch.Generator(device=cuda)
+
+    def row(b):
+        gen.manual_seed(100 + b)
+        return torch.randn(1 << n, dtype=torch.complex64, device=cuda, generator=gen)
+
+    rng = np.random.default_rng(4)
+    u = _t(_unitary(rng, 6, 2)).to(cuda)
+    v_of = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda)
+    window = [1, 2] + list(range(18, 28))
+    mem = [(k, b, _t(op).to(cuda)) for k, b, op in _members(rng, window, 12, 2)]
+    bits = [27, 3, 9, 20, 0, 14]
+    x = torch.empty(B << n, dtype=torch.complex64, device=cuda)
+    for b in range(B):
+        x[b << n:(b + 1) << n] = row(b)
+    assert x.numel() > 2**31
+    ops.fused_apply(x, u, v_of.repeat(B), bits, L)
+    ops.shm_apply(x, window, [(k, bb, op, v_of.repeat(B)) for k, bb, op in mem], L)
+    torch.cuda.synchronize()
+    for b in range(B):
+        y = row(b)
+        ops.fused_apply(y, u, v_of, bits, L)
+        ops.shm_apply(y, window, [(k, bb, op, v_of) for k, bb, op in mem], L)
+        torch.cuda.synchronize()
+        assert torch.equal(x[b << n:(b + 1) << n], y), f"row {b}"
+        del y
+    assert S * B == 16

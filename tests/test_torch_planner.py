@@ -68,3 +68,48 @@ def test_cost_model_constants_match():
     for name in ("PASS_US", "MXU_US_PER_2K", "LAUNCH_US", "SHM_GATE_US", "SHM_DIAG_GATE_US",
                  "MAX_FUSION_QUBITS", "MAX_SHM_QUBITS", "IO_QUBITS", "FUSION", "SHM"):
         assert getattr(port_cm, name) == getattr(ref_cm, name), name
+
+
+def _optimizer_case(case):
+    from repro.core.circuit import Circuit
+    from repro.core.gates import Param
+    from repro.core.generators import random_circuit, redundant
+
+    if case == "redundant":
+        return redundant(10)
+    if case == "symbolic":  # Param folds and reorders, binding-independent
+        c = Circuit(5)
+        for q in range(5):
+            c.add("rz", q, params=[Param(f"a{q}")])
+            c.add("rz", q, params=[Param(f"a{q}") * 0.5 + 0.25])
+            c.add("h", q)
+            c.add("h", q)
+        for q in range(4):
+            c.add("cx", q, q + 1)
+            c.add("cx", q, q + 1)
+            c.add("rzz", q, q + 1, params=[Param("b")])
+        return c
+    return random_circuit(8, 60, seed=int(case[-1]))
+
+
+@pytest.mark.parametrize("case", ["redundant", "symbolic", "random0", "random1", "random2"])
+def test_optimizer_rewrites_match(case):
+    """The port's copy of the pre-staging optimizer makes the reference's
+    rewrite: the same gate list, pass counts, provenance and fingerprint."""
+    from repro.core import optimize as ref_opt
+    from repro_torch.core import optimize as port_opt
+    from repro_torch.core.circuit import Circuit as PCircuit
+
+    ref_c = _optimizer_case(case)
+    port_c = PCircuit.from_json(ref_c.to_json())
+    for config in (True, ("cancel", "merge"), ("reorder", "cancel")):
+        want = ref_opt.optimize_circuit(ref_c, config)
+        got = port_opt.optimize_circuit(port_c, config)
+        assert got.circuit.to_json() == want.circuit.to_json()
+        assert got.to_dict() == want.to_dict() and got.provenance == want.provenance
+        assert port_opt.optimize_fingerprint(config) == ref_opt.optimize_fingerprint(config)
+    if case == "redundant":
+        assert got.gates_removed > 0
+    order = list(range(port_c.n_gates))
+    assert port_c.is_equivalent_order(order[::-1]) == ref_c.is_equivalent_order(order[::-1])
+    assert port_opt.optimize_fingerprint(False) == ref_opt.optimize_fingerprint(False)

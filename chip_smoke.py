@@ -13,7 +13,9 @@ the engine entry point: ``isingparam(30)`` through ``--engine --bind``
 bindings of ``isingparam(28)`` as one ``[16, 2^28]`` state (2^32
 amplitudes); a batch of 3 basis states of ``qft(28)``. Each of those runs
 every kernel once per compiled op, whatever the number of states, and is
-held against the dense per-gate oracle on the card.
+held against the dense per-gate oracle on the card; every kernel op of each
+of them is held against its plain version as that path launches it (its
+shard count, operand tables and variant indices).
 
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
@@ -97,13 +99,14 @@ def variant_index(S: int, V: int) -> torch.Tensor:
     return torch.tensor([(s * 7 + 1) % V for s in range(S)], dtype=torch.int32, device="cuda")
 
 
-def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> float:
+def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> dict:
     """Every kernel against its plain version at the main path's state size,
-    on target bits and windows away from the lowest bits."""
+    on target bits and windows away from the lowest bits. Returns the worst
+    error by kernel."""
     S = 1 << (n - L)
-    worst = 0.0
+    worst = {"fused": 0.0, "shm": 0.0}
     x = random_state(n, gen)
-    for k in (1, 2, 3, 5, 6, 7):
+    for k in (1, 2, 3, 4, 5, 6, 7):
         bits = [3, 4, 9, 10, 11, 20, 6][:k] if k == 7 else [L - 1 - 3 * j for j in range(k)]
         for V in (1, 2):
             u, vidx = random_unitaries(V, k, gen), variant_index(S, V)
@@ -112,7 +115,7 @@ def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> float:
             torch.cuda.synchronize()
             log(f"  fused_apply k={k} V={V} bits={bits}: max |kernel - plain| = {err:.3e}")
             require(err < ATOL, f"fused_apply k={k} V={V} disagrees with its plain version")
-            worst = max(worst, err)
+            worst["fused"] = max(worst["fused"], err)
     rng = np.random.default_rng(0)
     for a, lo in ((9, 6), (10, 11), (13, 6)):
         window = list(range(lo, lo + a))
@@ -129,7 +132,7 @@ def kernel_sweep(ops, ref, n: int, L: int, gen: torch.Generator) -> float:
         log(f"  shm_apply a={a} window={lo}..{lo + a - 1} 12 members (1- to 4-bit): "
             f"max |kernel - plain| = {err:.3e}")
         require(err < ATOL, f"shm_apply a={a} disagrees with its plain version")
-        worst = max(worst, err)
+        worst["shm"] = max(worst["shm"], err)
     return worst
 
 
@@ -147,31 +150,11 @@ def figures(ops, ref, probe, engine, gen, sweep_err, launches, launches_by_k):
     state_bytes = 8 << n
     x = random_state(n, gen)
     out = []
-
-    def against_plain(u, vidx, bits):
-        err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
-                      ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
-        require(err < ATOL, f"fused_apply disagrees with its plain version on the main "
-                            f"path's k={len(bits)} op")
-        return {"max_abs_err": err, "plain_ms": probe.time_ms(
-            lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3),
-            "nbytes": 2 * state_bytes + u.numel() * 8 + vidx.numel() * 4}
-
-    by_k = []
-    for r in probe.fused_rows(ops, engine, x, against_plain):
-        k = r["k"]
-        cmacs = (1 << k) * (1 << n)
-        row = entry("fused_apply", launches_by_k.get(k, 0), r["max_abs_err"], r["ms"],
-                    r["plain_ms"], r["nbytes"], TF32_PASSES * KARATSUBA_OPS * cmacs,
-                    TF32_OPS_PER_S, 8 * cmacs, r["matmul_ms"],
-                    f"k={k} bits={r['bits']} V={r['V']} n={n}")
-        by_k.append(dict(row, k=k))
+    by_k = fused_by_k(ops, ref, probe, engine, x, "main path", launches_by_k)
     widest = dict(by_k[0], launches=launches["fused"], max_abs_err=max(
-        [sweep_err] + [row["max_abs_err"] for row in by_k]))
-    del widest["k"]
-    widest["by_k"] = [{key: row[key] for key in ("k", "launches", "ms", "plain_ms", "library_ms",
-                                                 "bound_ms", "bound_fp32_ms", "max_abs_err")}
-                      for row in by_k]
+        [sweep_err["fused"]] + [row["max_abs_err"] for row in by_k]))
+    del widest["k"], widest["path"]
+    widest["by_k"] = [by_k_row(row) for row in by_k]
     out.append(widest)
 
     members = engine.backend.shm_members(shm_op)
@@ -185,14 +168,148 @@ def figures(ops, ref, probe, engine, gen, sweep_err, launches, launches_by_k):
     nbytes = 2 * state_bytes + sum(op.numel() * 8 + v.numel() * 4 for _, _, op, v in members)
     nops = sum((8 << len(b)) if kind == "mat" else 6 for kind, b, _, _ in members) * (1 << n)
     kinds = [kind for kind, _, _, _ in members]
-    out.append(entry("shm_apply", launches["shm"], max(err, sweep_err), ms, plain_ms,
+    out.append(entry("shm_apply", launches["shm"], max(err, sweep_err["shm"]), ms, plain_ms,
                      nbytes, nops, FP32_OPS_PER_S, nops, None,
                      f"a={len(window)} window={list(window)} members={len(members)} "
                      f"({kinds.count('mat')} mat, {kinds.count('diag')} diag) n={n}"))
     sweep = probe.shm_sweep(ops, window, members, L, x)
     log("  shm_apply sweep (members: 0 = a copy; place: the group's window or bits "
         "0..a-1): " + json.dumps([{k: r[k] for k in ("place", "members", "ms")} for r in sweep]))
+    worst = hold_ops(ops, ref, engine, engine.backend.pass_of(), x, "main path")
+    for k, key in zip(out, ("fused", "shm")):
+        k["max_abs_err"] = max(k["max_abs_err"], worst[key])
     return out
+
+
+def fused_by_k(ops, ref, probe, engine, x, what: str, launches_by_k: dict,
+               skip=()) -> list:
+    """``fused_apply`` at each width k the plan of ``engine`` launches (not
+    in ``skip``), on its first op of that width: against its plain version,
+    timed beside the plain version and one torch.matmul, with its bounds."""
+    n, L = engine.n, engine.L
+
+    def against_plain(u, vidx, bits):
+        err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
+                      ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
+        require(err < ATOL, f"fused_apply disagrees with its plain version on the {what}'s "
+                            f"k={len(bits)} op")
+        return {"max_abs_err": err, "plain_ms": probe.time_ms(
+            lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3),
+            "nbytes": 2 * (8 << n) + u.numel() * 8 + vidx.numel() * 4}
+
+    rows = []
+    for r in probe.fused_rows(ops, engine, x, against_plain, skip=skip):
+        k = r["k"]
+        cmacs = (1 << k) * (1 << n)
+        row = entry("fused_apply", launches_by_k.get(k, 0), r["max_abs_err"], r["ms"],
+                    r["plain_ms"], r["nbytes"], TF32_PASSES * KARATSUBA_OPS * cmacs,
+                    TF32_OPS_PER_S, 8 * cmacs, r["matmul_ms"],
+                    f"{what}: k={k} bits={r['bits']} V={r['V']} n={n}")
+        rows.append(dict(row, k=k, path=what))
+    return rows
+
+
+def by_k_row(row: dict) -> dict:
+    return {key: row[key] for key in ("k", "path", "launches", "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_fp32_ms", "max_abs_err")}
+
+
+def hold_ops(ops, ref, eng, ps, x: torch.Tensor, what: str) -> dict:
+    """Every kernel op of ``eng``'s program, launched as the pass ``ps``
+    launches it (its shard count, operand tables and variant indices),
+    against its plain version on the state ``x``. Returns the worst error
+    by kernel."""
+    be, L = eng.backend, eng.L
+    worst, count = {"fused": 0.0, "shm": 0.0}, {"fused": 0, "shm": 0}
+    for prog in eng.cc.programs:
+        for op in prog.ops:
+            if op.kind == "fused":
+                u, vidx, bits = ps.consts[op.uid], be.kernel_vidx(op, ps), op.local_bits
+                err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
+                              ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
+            elif op.kind == "shm":
+                members = be.shm_members(op, ps)
+                err = max_err(ops.shm_apply(x.clone(), op.local_bits, members, L),
+                              ref.shm_apply_ref(x.clone(), op.local_bits, members, L))
+            else:
+                continue
+            sync(x.device.type)
+            require(err < ATOL, f"{what}: {op.kind} op {op.uid} (bits {list(op.local_bits)}) "
+                                "disagrees with its plain version")
+            worst[op.kind] = max(worst[op.kind], err)
+            count[op.kind] += 1
+    log(f"  {what}: every kernel op against its plain version at {x.numel() >> L} shards of "
+        f"2^{L}: {count['fused']} fused_apply (max err {worst['fused']:.3e}), "
+        f"{count['shm']} shm_apply (max err {worst['shm']:.3e})")
+    return worst
+
+
+def hold_sweep_ops(ops, ref, eng, ps, seed: int, what: str) -> dict:
+    """Every kernel op of a sweep, launched once over all P points' shards
+    with the stacked tables (the sweep's own launch, past int32 indices),
+    against the same kernel launched on each point's row alone with its
+    slice of the variant index; the row launches of points 0 and P-1
+    against the plain version. The plain versions' temporaries would not
+    fit beside the whole sweep's state. Returns the worst error by kernel
+    against the plain version."""
+    be, L, n, P, S = eng.backend, eng.L, eng.n, ps.rows, eng.backend.S
+    device = eng.device
+
+    def row_state(p: int) -> torch.Tensor:
+        g = torch.Generator(device=device).manual_seed(seed + p)
+        return torch.randn(1 << n, dtype=torch.complex64, device=device, generator=g)
+
+    x = torch.empty(P << n, dtype=torch.complex64, device=device)
+    rows = x.view(P, -1)
+    worst_row, worst = 0.0, {"fused": 0.0, "shm": 0.0}
+    count = {"fused": 0, "shm": 0}
+    for prog in eng.cc.programs:
+        for op in prog.ops:
+            if op.kind == "fused":
+                u, vidx, bits = ps.consts[op.uid], be.kernel_vidx(op, ps), op.local_bits
+
+                def launch(st, p=None):
+                    v = vidx if p is None else vidx[p * S:(p + 1) * S]
+                    return ops.fused_apply(st, u, v, bits, L)
+
+                def plain(st, p):
+                    return ref.fused_apply_ref(st, u, vidx[p * S:(p + 1) * S], bits, L)
+            elif op.kind == "shm":
+                members, window = be.shm_members(op, ps), op.local_bits
+
+                def row_members(p):
+                    return [(kind, b, t, v[p * S:(p + 1) * S]) for kind, b, t, v in members]
+
+                def launch(st, p=None):
+                    return ops.shm_apply(st, window, members if p is None else row_members(p), L)
+
+                def plain(st, p):
+                    return ref.shm_apply_ref(st, window, row_members(p), L)
+            else:
+                continue
+            for p in range(P):
+                rows[p] = row_state(p)
+            launch(x)
+            for p in range(P):
+                alone = launch(row_state(p), p)
+                err = max_err(rows[p], alone)
+                require(err < ATOL, f"{what}: {op.kind} op {op.uid}: the sweep's launch and "
+                                    f"the launch on row {p} alone disagree")
+                worst_row = max(worst_row, err)
+                if p in (0, P - 1):
+                    err = max_err(alone, plain(row_state(p), p))
+                    require(err < ATOL, f"{what}: {op.kind} op {op.uid} on row {p} disagrees "
+                                        "with its plain version")
+                    worst[op.kind] = max(worst[op.kind], err)
+                del alone
+            sync(device.type)
+            count[op.kind] += 1
+    del x, rows
+    log(f"  {what}: every kernel op launched over all {P * S} shards of 2^{L} against the "
+        f"launch on each row alone ({count['fused']} fused_apply, {count['shm']} shm_apply; "
+        f"max |sweep - row| = {worst_row:.3e}); rows 0 and {P - 1} against the plain versions: "
+        f"max err fused {worst['fused']:.3e}, shm {worst['shm']:.3e}")
+    return worst
 
 
 def entry(name, launches, err, ms, plain_ms, nbytes, nops, ops_per_s, fp32_ops, library_ms,
@@ -258,19 +375,19 @@ def launches_match(ops, engine, what: str) -> dict:
     require(ops.fused_call_counts_by_k() == want_by_k,
             f"{what}: fused launches by k != the plan's fused ops by k {want_by_k}")
     require(want["fused"] > 0 and want["shm"] > 0, f"{what} must run both kernels")
-    return launches
+    return dict(launches, by_k=ops.fused_call_counts_by_k())
 
 
-def engine_phase(simulate, ops, argv, card: str, device: str = "cuda") -> dict:
+def engine_phase(simulate, ops, ref, argv, card: str, device: str = "cuda") -> dict:
     """The engine entry point at full width: ``--engine --bind`` through the
-    CLI (a cold build: plan, compile, upload), then ``engine_for`` on the
-    same structure with other angles: a cache hit that rebinds with no
-    solver call, no ``compile_plan``, no kernel build. Both bindings against
-    the dense per-gate oracle on the card."""
+    CLI (a cold build: plan, compile, upload; the first bind fills the
+    engine's structural cache), then ``engine_for`` on the same structure
+    with other angles: a cache hit that rebinds with no solver call, no
+    miss of the structural cache and, through the rebound run, no new shm
+    program. Both bindings against the dense per-gate oracle on the card,
+    every kernel op of the rebound engine against its plain version."""
     from repro_torch.core import kernelization, staging
     from repro_torch.core.generators import PARAM_FAMILIES
-    from repro_torch.kernels import build
-    from repro_torch.sim import compile as tcompile
     from repro_torch.sim.engine import DEFAULT_CACHE, engine_for
     from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
 
@@ -295,8 +412,11 @@ def engine_phase(simulate, ops, argv, card: str, device: str = "cuda") -> dict:
         f"simulate {run.seconds:.3f} s ({card})")
     require(fid1 >= FIDELITY_MIN, f"engine path fidelity {fid1} < {FIDELITY_MIN}")
 
-    counts = (dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
-              tcompile.COMPILE_CALLS["plan"], build.BUILD_CALLS["libraries"])
+    def warm_counts():
+        return (dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
+                set(eng._struct_cache), ops.SCHEDULE_CALLS["shm"])
+
+    counts = warm_counts()
     hits = DEFAULT_CACHE.hits
     n = eng.n
     bound = PARAM_FAMILIES["isingparam"](n).bind(REBIND)
@@ -305,33 +425,41 @@ def engine_phase(simulate, ops, argv, card: str, device: str = "cuda") -> dict:
     again = engine_for(bound, eng.L, eng.R, eng.G, device=device)
     sync(device)
     rebind_s = time.time() - t0
-    require(again is eng and DEFAULT_CACHE.hits == hits + 1,
-            "engine_for on the same structure must be a cache hit")
-    require((dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
-             tcompile.COMPILE_CALLS["plan"], build.BUILD_CALLS["libraries"]) == counts,
-            "a warm rebind must run no solver, no compile_plan and no kernel build")
+    require(again is eng and DEFAULT_CACHE.hits == hits + 1 and eng.bind_count == 2,
+            "engine_for on the same structure with other angles must be a cache hit "
+            "that rebinds")
     ops.reset_kernel_counters()
     t0 = time.time()
     state = eng.run()
     sync(device)
     run_s = time.time() - t0
     launches_match(ops, eng, "rebound engine")
+    require(warm_counts() == counts,
+            "a warm rebind and its run must run no solver, miss no entry of the structural "
+            "cache and schedule no shm program")
     fid2 = fidelity(state, dense_simulate(bound, device=device))
     del state
     log(f"  rebinding {REBIND}: cache hit, warm rebind {rebind_s:.3f} s (cold build "
-        f"{run.build_seconds:.3f} s), run {run_s:.3f} s, fidelity {fid2:.9f}; solver, "
-        f"compile_plan and kernel-build counts unchanged ({card})")
+        f"{run.build_seconds:.3f} s), run {run_s:.3f} s, fidelity {fid2:.9f}; no solver "
+        f"call, no structural-cache miss ({len(counts[2])} entries), no shm program "
+        f"scheduled ({card})")
     require(fid2 >= FIDELITY_MIN, f"rebound fidelity {fid2} < {FIDELITY_MIN}")
-    return {"launches": launches, "build_s": run.build_seconds, "first_bind_s": run.bind_seconds,
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(1 << n, dtype=torch.complex64, device=device, generator=gen)
+    worst = hold_ops(ops, ref, eng, eng.backend.pass_of(), x, "rebound engine")
+    return {"launches": launches, "engine": eng, "x": x, "worst": worst,
+            "build_s": run.build_seconds, "first_bind_s": run.bind_seconds,
             "rebind_s": rebind_s, "simulate_s": run.seconds, "rebound_run_s": run_s,
             "fidelity": [fid1, fid2]}
 
 
-def sweep_phase(ops, n: int, L: int, R: int, P: int, card: str, device: str = "cuda") -> dict:
+def sweep_phase(ops, ref, n: int, L: int, R: int, P: int, card: str,
+                device: str = "cuda") -> dict:
     """``isingparam(n)`` against P bindings in one ``run_sweep``: one launch
     per compiled op for all P points (past int32 indices at n=28, P=16),
-    rows 0 and P-1 against the dense oracle, ``measure_sweep`` finite,
-    against P sequential ``run`` calls of the same engine."""
+    every row against the dense oracle, ``measure_sweep`` finite, against P
+    sequential ``run`` calls of the same engine; then every kernel op at
+    the sweep's own shapes (:func:`hold_sweep_ops`)."""
     from repro_torch.core.generators import PARAM_FAMILIES
     from repro_torch.sim.engine import engine_for
     from repro_torch.sim.measure import measure_sweep
@@ -361,9 +489,11 @@ def sweep_phase(ops, n: int, L: int, R: int, P: int, card: str, device: str = "c
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     require(out.shape == (P, 1 << n), f"sweep output {tuple(out.shape)}")
     fids = []
-    for p in (0, P - 1):
+    t0 = time.time()
+    for p in range(P):
         fids.append(fidelity(out[p], dense_simulate(sym.bind(points[p]), device=device)))
         require(fids[-1] >= FIDELITY_MIN, f"sweep row {p} fidelity {fids[-1]} < {FIDELITY_MIN}")
+    oracle_s = time.time() - t0
     del out
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -387,18 +517,22 @@ def sweep_phase(ops, n: int, L: int, R: int, P: int, card: str, device: str = "c
     log(f"  isingparam({n}) L={L} R={R}, P={P}: {P << n} amplitudes; sweep {sweep_s:.3f} s = "
         f"{sweep_s / P:.4f} s/point (stage loop {exec_s:.3f} s, the rest host binding); "
         f"{P} sequential runs {seq_s:.3f} s = {seq_s / P:.4f} s/point (stage loops {runs:.3f} s); "
-        f"peak device memory {gib(peak)}; fidelity rows 0, {P - 1}: "
-        + ", ".join(f"{f:.9f}" for f in fids)
-        + f"; measure_sweep {measure_s:.1f} s; engine built in {build_s:.2f} s ({card})")
+        f"peak device memory {gib(peak)}; fidelity of rows 0..{P - 1} against the oracle "
+        f"({oracle_s:.1f} s): min {min(fids):.9f}, max {max(fids):.9f}; measure_sweep "
+        f"{measure_s:.1f} s; engine built in {build_s:.2f} s ({card})")
+    worst = hold_sweep_ops(ops, ref, eng, eng.backend.pass_of(P, eng.sweep_tables(points)),
+                           seed=17, what=f"sweep of {P}")
     return {"launches": launches, "sweep_s": sweep_s, "sweep_exec_s": exec_s,
             "sequential_s": seq_s, "sequential_exec_s": runs, "peak_bytes": peak,
-            "fidelity": fids}
+            "fidelity": fids, "worst": worst}
 
 
-def batch_phase(ops, n: int, L: int, R: int, B: int, card: str, device: str = "cuda") -> dict:
+def batch_phase(ops, ref, n: int, L: int, R: int, B: int, card: str,
+                device: str = "cuda") -> dict:
     """``qft(n)`` on B basis states in one ``run_batch`` (B need not be a
     power of two): one launch per compiled op, each row against the dense
-    oracle."""
+    oracle, every kernel op at the batch's shard count against its plain
+    version."""
     from repro_torch.core.generators import FAMILIES
     from repro_torch.sim.engine import engine_for
     from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
@@ -430,7 +564,12 @@ def batch_phase(ops, n: int, L: int, R: int, B: int, card: str, device: str = "c
         f"(one state alone {single_s:.4f} s); "
         "fidelity " + ", ".join(f"{f:.9f}" for f in fids)
         + f"; engine built in {build_s:.2f} s ({card})")
-    return {"launches": launches, "batch_s": batch_s, "single_s": single_s, "fidelity": fids}
+    del out, psi0s
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(B << n, dtype=torch.complex64, device=device, generator=gen)
+    worst = hold_ops(ops, ref, eng, eng.backend.pass_of(B), x, f"batch of {B}")
+    return {"launches": launches, "batch_s": batch_s, "single_s": single_s, "fidelity": fids,
+            "worst": worst}
 
 
 def sync(device: str) -> None:
@@ -510,17 +649,38 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     log("== engine path: " + " ".join(ENGINE_PATH))
-    paths = {"ising30": launches}
-    paths["isingparam30_engine"] = engine_phase(simulate, ops, ENGINE_PATH, card)["launches"]
+    paths = {"ising30": dict(launches, by_k=launches_by_k)}
+    worst = []
+    eng_run = engine_phase(simulate, ops, ref, ENGINE_PATH, card)
+    paths["isingparam30_engine"] = eng_run["launches"]
+    worst.append(eng_run["worst"])
+    fused = kernels[0]
+    new_rows = fused_by_k(ops, ref, probe, eng_run["engine"], eng_run["x"], "engine path",
+                          eng_run["launches"]["by_k"], skip=[row["k"] for row in fused["by_k"]])
+    fused["by_k"] += [by_k_row(row) for row in new_rows]
+    del eng_run, new_rows
     torch.cuda.empty_cache()
     log("== sweep: isingparam({n}) L={L} R={R}, P={P} bindings".format(**SWEEP))
-    paths["isingparam28_sweep16"] = sweep_phase(ops, **SWEEP, card=card)["launches"]
+    sweep = sweep_phase(ops, ref, **SWEEP, card=card)
+    paths["isingparam28_sweep16"] = sweep["launches"]
+    worst.append(sweep["worst"])
     torch.cuda.empty_cache()
     log("== batch: qft({n}) L={L} R={R}, B={B} basis states".format(**BATCH))
-    paths["qft28_batch3"] = batch_phase(ops, **BATCH, card=card)["launches"]
+    batch = batch_phase(ops, ref, **BATCH, card=card)
+    paths["qft28_batch3"] = batch["launches"]
+    worst.append(batch["worst"])
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [w[key] for w in worst])
+    for row in fused["by_k"]:
+        row["launches_by_path"] = {path: counts["by_k"].get(row["k"], 0)
+                                   for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        require(row["launches"] > 0, f"no path launched fused_apply at k={row['k']}")
+    launched_k = {k for counts in paths.values() for k in counts["by_k"]}
+    require(launched_k <= {row["k"] for row in fused["by_k"]},
+            f"a fused_apply width launched on a path has no row: {sorted(launched_k)}")
 
     log(f"== done in {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

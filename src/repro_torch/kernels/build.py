@@ -20,8 +20,6 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 SOURCES = ("fused_apply", "shm_apply")
-#: libraries this process has compiled (a warm engine compiles none)
-BUILD_CALLS = {"libraries": 0}
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 FLAGS = (
@@ -78,7 +76,6 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, todo[name])
-        BUILD_CALLS["libraries"] += 1
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths

@@ -17,6 +17,8 @@ bits) are plain Python that the CPU tests reach.
 :data:`KERNEL_CALLS` counts the wrappers' dispatches, one per call, so a
 run can show that its path went through the kernels; :data:`FUSED_CALLS_BY_K`
 splits the ``fused_apply`` ones by the number of target bits k.
+:data:`SCHEDULE_CALLS` counts the shm programs scheduled, so a warm rebind
+can show that it scheduled none.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from .ref import Member
 
 KERNEL_CALLS = {"fused": 0, "shm": 0}
 FUSED_CALLS_BY_K: Dict[int, int] = {}
+SCHEDULE_CALLS = {"shm": 0}
 
 # must match csrc/fused_apply.cu and csrc/shm_apply.cu
 FUSED_MAX_BITS = 7
@@ -251,6 +254,7 @@ def shm_schedule(lay: TileLayout, members: Sequence[Member]) -> List[tuple]:
     pending matrices run. It starts and ends in :func:`shm_io_layout`.
     Ready members are kept in sorted lists by the step they take, so a
     program costs about its length times the number of ready members."""
+    SCHEDULE_CALLS["shm"] += 1
     t = lay.t
     where = {b: i for i, b in enumerate(lay.pos)}
     mem = [(kind, tuple(where[b] for b in bits), op, vidx) for kind, bits, op, vidx in members]

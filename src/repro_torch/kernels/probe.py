@@ -66,14 +66,15 @@ def main_path_ops(engine):
 
 
 def fused_rows(ops, engine, x: torch.Tensor,
-               check: Optional[Callable[..., Dict]] = None) -> List[Dict]:
+               check: Optional[Callable[..., Dict]] = None,
+               skip: Sequence[int] = ()) -> List[Dict]:
     """``fused_apply`` and one ``torch.matmul`` in full fp32 (TF32 off) at
-    each width k of the plan, on the first op of each width. ``check(u,
-    vidx, bits)``, where given, runs before the timings and its dict joins
-    the row."""
+    each width k of the plan that is not in ``skip``, on the first op of
+    each width. ``check(u, vidx, bits)``, where given, runs before the
+    timings and its dict joins the row."""
     L = engine.L
     fused, _ = main_path_ops(engine)
-    rows, seen = [], set()
+    rows, seen = [], set(skip)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

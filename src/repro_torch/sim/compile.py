@@ -1,8 +1,7 @@
 """Stage compiler: SimulationPlan -> executable StageProgram list.
 
 (Copied from ``repro/sim/compile.py`` so this package imports nothing of the
-JAX package; only imports differ, and :data:`COMPILE_CALLS` counts the
-structural compiles apart from the binding passes.)
+JAX package; only imports differ.)
 
 Turns each planned stage into a sequence of data-parallel ops over the local
 shard, with all non-local (regional/global) qubit interaction reduced to:
@@ -218,23 +217,7 @@ def _remap_spec(
     return RemapSpec(src_bit_of=src, flip_bits=flip_bits)
 
 
-#: Stage-compiler passes of this process: ``"plan"`` counts
-#: :func:`compile_plan` calls (the structural compile an engine is built
-#: on), ``"bind"`` the tensor-building passes of :func:`bind_tensors` (one
-#: per rebind). A warm rebind adds to ``"bind"`` only.
-COMPILE_CALLS: Dict[str, int] = {"plan": 0, "bind": 0}
-
-
 def compile_plan(
-    circuit: Circuit, plan: SimulationPlan, dtype=np.complex64,
-    peephole: bool = True, struct_cache: Optional[Dict] = None,
-) -> CompiledCircuit:
-    """Compile ``plan`` into per-stage op programs (see :func:`_compile`)."""
-    COMPILE_CALLS["plan"] += 1
-    return _compile(circuit, plan, dtype, peephole, struct_cache)
-
-
-def _compile(
     circuit: Circuit, plan: SimulationPlan, dtype=np.complex64,
     peephole: bool = True, struct_cache: Optional[Dict] = None,
 ) -> CompiledCircuit:
@@ -873,9 +856,8 @@ def bind_tensors(
         raise UnboundParameterError(
             f"cannot bind tensors: unbound parameters {circuit.param_names}"
         )
-    COMPILE_CALLS["bind"] += 1
-    cc = _compile(circuit, plan, dtype=dtype, peephole=peephole,
-                  struct_cache=struct_cache)
+    cc = compile_plan(circuit, plan, dtype=dtype, peephole=peephole,
+                      struct_cache=struct_cache)
     if expect is not None and structural_signature(cc) != structural_signature(expect):
         raise ValueError(
             "parameter binding changed the structural op stream — the cached "

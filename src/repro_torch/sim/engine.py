@@ -240,14 +240,12 @@ class CudaBackend(Backend):
                     self._dep[o.uid] = idx
         # device index tensors, by what they index: structural, kept for good
         self._indices: Dict[tuple, torch.Tensor] = {}
-        # shm operands of the engine's registry, until the next bind
+        # shm operands of the engine's registry, until the next bind (a
+        # sweep's live in its own pass, and go with it)
         self._members: Dict[int, List] = {}
-        # the tables of the sweep that is running, if one is
-        self._sweep: Optional[_Pass] = None
 
     def on_rebind(self) -> None:
         self._members.clear()  # operands derived from tensor values
-        self._sweep = None
 
     def supports_fused_sweep(self) -> bool:
         return True
@@ -276,7 +274,7 @@ class CudaBackend(Backend):
     def vidx(self, op: Op, ps: Optional[_Pass] = None) -> Optional[torch.Tensor]:
         """Variant index of every shard of the pass (int32 ``[rows * S]``),
         or None when every shard uses variant 0."""
-        ps = ps or self._pass(1)
+        ps = ps or self.pass_of()
         v = self._variants(op, ps)
         if v is None:
             return None
@@ -285,7 +283,7 @@ class CudaBackend(Backend):
 
     def kernel_vidx(self, op: Op, ps: Optional[_Pass] = None) -> torch.Tensor:
         """Variant index as the fused kernel takes it (int32 ``[rows * S]``)."""
-        ps = ps or self._pass(1)
+        ps = ps or self.pass_of()
         idx = self.vidx(op, ps)
         if idx is not None:
             return idx
@@ -293,17 +291,23 @@ class CudaBackend(Backend):
                                   lambda: np.zeros(ps.rows * self.S, dtype=np.int32))
 
     # ---------------------------------------------------------- shm groups
-    def _pass(self, rows: int) -> _Pass:
-        return _Pass(rows, self.engine.consts, False, self._members)
+    def pass_of(self, rows: int = 1,
+                sweep_consts: Optional[Dict[int, torch.Tensor]] = None) -> _Pass:
+        """What a run of ``rows`` states reads: the engine's registry (one
+        state, or a batch), or the ``[rows * V, ...]`` tables of a sweep of
+        ``rows`` points (:meth:`ExecutionEngine.sweep_tables`)."""
+        if sweep_consts is None:
+            return _Pass(rows, self.engine.consts, False, self._members)
+        return _Pass(rows, sweep_consts, True)
 
     def shm_members(self, op: Op, ps: Optional[_Pass] = None) -> List:
         """The ``(kind, bits, operand, vidx)`` list the shm kernel takes for
         one group. The operands hold one row per distinct operand row of the
         pass (``S``; ``P * S`` in a sweep) and are kept until the next bind
-        (a sweep's until the sweep ends); ``vidx`` maps every shard of the
+        (a sweep's in its pass, so they go when the sweep ends); ``vidx`` maps every shard of the
         pass to its row. Scalars fold into the first operand, as in the
         reference."""
-        ps = ps or self._pass(1)
+        ps = ps or self.pass_of()
         U = self.S * (ps.rows if ps.sweep else 1)
         built = ps.members.get(op.uid)
         if built is None:
@@ -330,7 +334,7 @@ class CudaBackend(Backend):
     def apply_ops(self, x: torch.Tensor, prog: StageProgram,
                   ps: Optional[_Pass] = None) -> torch.Tensor:
         eng = self.engine
-        ps = ps or self._pass(1)
+        ps = ps or self.pass_of()
         L = eng.L
         for op in prog.ops:
             if eng.use_kernels and op.kind == "fused":
@@ -353,14 +357,14 @@ class CudaBackend(Backend):
     def execute(self, state: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
         held = [state]
         del state
-        return self._loop(held, self._pass(1), apply_final)
+        return self._loop(held, self.pass_of(), apply_final)
 
     def execute_batch(self, states: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
         """``states``: ``[B, 2^n]``; every op is one launch for all B."""
         B = states.shape[0]
         held = [states.reshape(-1)]
         del states
-        return self._loop(held, self._pass(B), apply_final).view(B, -1)
+        return self._loop(held, self.pass_of(B), apply_final).view(B, -1)
 
     def execute_sweep(self, state: torch.Tensor, consts: Dict[int, torch.Tensor], P: int,
                       apply_final: bool = True) -> torch.Tensor:
@@ -369,11 +373,7 @@ class CudaBackend(Backend):
         ``[P, 2^n]`` and every op is one launch for all P points."""
         held = [state.reshape(1, -1).expand(P, -1).contiguous().view(-1)]
         del state
-        self._sweep = _Pass(P, consts, True)
-        try:
-            return self._loop(held, self._sweep, apply_final).view(P, -1)
-        finally:
-            self._sweep = None
+        return self._loop(held, self.pass_of(P, consts), apply_final).view(P, -1)
 
 
 class DenseBackend(Backend):
@@ -429,8 +429,8 @@ class ExecutionEngine:
         self.circuit = circuit  # structural reference; may carry free Params
         self.plan = plan
         # bind/run* mutate shared state (the registry, ``bound_circuit``,
-        # a sweep's tables on the backend): concurrent callers hold this
-        # around every bind+execute sequence
+        # the backend's shm operands): concurrent callers hold this around
+        # every bind+execute sequence
         self.lock = threading.RLock()
         self.device = resolve_device(device)
         self.dtype = torch.complex64  # the kernels' type
@@ -624,11 +624,7 @@ class ExecutionEngine:
             raise ValueError("empty params_batch")
         with self.lock:
             if self.backend.supports_fused_sweep():
-                tables = bind_tensors_sweep(
-                    [self.circuit.bind(pt) for pt in points], self.plan, dtype=self.np_dtype,
-                    peephole=self.peephole, expect=self.cc, struct_cache=self._struct_cache)
-                stacked = {uid: self._upload(t.reshape((-1,) + t.shape[2:]))
-                           for uid, t in tables.items()}
+                stacked = self.sweep_tables(points)
                 return self._timed("run_sweep", lambda: self.backend.execute_sweep(
                     self.backend.prepare(psi0), stacked, len(points), apply_final))
             t0 = time.perf_counter()
@@ -639,6 +635,17 @@ class ExecutionEngine:
             out = torch.stack(outs)
             self._record_time("run_sweep", (time.perf_counter() - t0) * 1e6)
             return out
+
+    def sweep_tables(self, points: List[dict]) -> Dict[int, torch.Tensor]:
+        """The op tables of the P bindings ``points``, built on the host in
+        one pass and stacked on the device as ``[P * V, ...]`` (point ``p``'s
+        variants at rows ``p * V ...``): what a fused sweep runs on."""
+        with self.lock:
+            tables = bind_tensors_sweep(
+                [self.circuit.bind(pt) for pt in points], self.plan, dtype=self.np_dtype,
+                peephole=self.peephole, expect=self.cc, struct_cache=self._struct_cache)
+            return {uid: self._upload(t.reshape((-1,) + t.shape[2:]))
+                    for uid, t in tables.items()}
 
     def finalize(self, packed: torch.Tensor) -> torch.Tensor:
         """Logical-order state(s) from a ``run_packed`` result, or from a

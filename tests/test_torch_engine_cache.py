@@ -153,7 +153,6 @@ def test_run_sweep_oracle_equivalence(form):
     want = np.asarray(ref.run_sweep(None, batch + 0.1, apply_final=False)).reshape(3, -1)
     for p in range(3):
         assert_states_close(packed[p].numpy(), want[p], atol=1e-5)
-    assert eng.backend._sweep is None
     eng.bind(dict(zip(sym.param_names, _vals(n, 3))))
     assert_states_close(eng.run().numpy(), simulate_np(_ansatz(n, _vals(n, 3))), atol=1e-5)
 
@@ -176,27 +175,33 @@ def test_sweep_tables_equal_reference():
 
 
 def test_stale_sweep_state_cleared_on_rebind():
-    """A sweep parks its tables on the backend while it runs; a rebind drops
-    them, and a plain run never reads them."""
-    sym, _, eng = _sweep_case(n=6, L=4)
+    """A sweep's tables live in its own pass: a sweep cut off mid-run leaves
+    nothing behind, so a run before and after a rebind matches the
+    reference."""
+    sym, ref, eng = _sweep_case(n=6, L=4)
     n = 6
-    captured = {}
+    first = dict(zip(sym.param_names, _vals(n, 3)))
+    eng.bind(first)
     orig = eng.backend.apply_ops
+    swept = []
 
-    def spy(x, prog, ps=None):
-        if eng.backend._sweep is not None and not captured:
-            captured["sweep"] = eng.backend._sweep
-        return orig(x, prog, ps)
+    def cut(x, prog, ps=None):
+        out = orig(x, prog, ps)
+        if ps is not None and ps.sweep:
+            swept.append(ps.rows)
+            raise RuntimeError("sweep cut off")
+        return out
 
-    eng.backend.apply_ops = spy
-    eng.run_sweep(None, np.stack([_vals(n, s) for s in (7, 8)]))
+    eng.backend.apply_ops = cut
+    with pytest.raises(RuntimeError, match="sweep cut off"):
+        eng.run_sweep(None, np.stack([_vals(n, s) for s in (7, 8)]))
     del eng.backend.apply_ops
-    assert "sweep" in captured and eng.backend._sweep is None
-    eng.backend._sweep = captured["sweep"]  # as if a raced sweep left it behind
-    vals = _vals(n, 9)
-    eng.bind(dict(zip(sym.param_names, vals)))
-    assert eng.backend._sweep is None
-    assert_states_close(eng.run().numpy(), simulate_np(_ansatz(n, vals)), atol=1e-5)
+    assert swept == [2], "the sweep must have run one stage of its own pass"
+    assert_states_close(eng.run().numpy(), np.asarray(ref.run(params=first)), atol=1e-5)
+    second = dict(zip(sym.param_names, _vals(n, 9)))
+    eng.bind(second)
+    assert_states_close(eng.run().numpy(), np.asarray(ref.run(params=second)), atol=1e-5)
+    assert_states_close(eng.run().numpy(), simulate_np(_ansatz(n, _vals(n, 9))), atol=1e-5)
 
 
 def test_concurrent_sweep_and_run_stay_correct():
@@ -346,26 +351,28 @@ def test_unbound_engine_refuses_to_run():
 # ----------------------------------------------------------- compile cache
 @pytest.mark.parametrize("backend", ["cuda", "dense"])
 def test_rebind_zero_solves_zero_compiles(backend):
-    """A structural cache hit with new angles re-runs no staging, no
-    kernelization, no ``compile_plan`` and no kernel build."""
-    from repro_torch.kernels import build
-
+    """A structural cache hit with new angles re-runs no staging and no
+    kernelization. The first rebind fills the engine's structural cache;
+    from then on a binding pass compiles nothing structural: every lookup
+    hits, so the cache gains no entry."""
     n = 6
     cache = CompileCache()
     e1 = engine_for(_port(_ansatz(n, _vals(n, 0))), 4, 2, 0, backend=backend, cache=cache,
                     device="cpu")
     out0 = e1.run().numpy()
-    before = (_solve_counts(), tcompile.COMPILE_CALLS["plan"], build.BUILD_CALLS["libraries"])
-    binds = tcompile.COMPILE_CALLS["bind"]
+    solves = _solve_counts()
+    structural = None
     for seed in (1, 2):
         vals = _vals(n, seed)
         e2 = engine_for(_port(_ansatz(n, vals)), 4, 2, 0, backend=backend, cache=cache,
                         device="cpu")
         assert e2 is e1, "same structure must hit the cache"
         assert_states_close(e2.run().numpy(), simulate_np(_ansatz(n, vals)), atol=1e-5)
-    assert (_solve_counts(), tcompile.COMPILE_CALLS["plan"],
-            build.BUILD_CALLS["libraries"]) == before
-    assert tcompile.COMPILE_CALLS["bind"] == binds + 2 and e1.bind_count == 2
+        assert structural is None or set(e1._struct_cache) == structural, \
+            "a warm rebind must not compile anything structural"
+        structural = set(e1._struct_cache)
+    assert structural and _solve_counts() == solves
+    assert e1.bind_count == 2
     assert cache.misses == 1 and cache.hits == 2
     assert_states_close(out0, simulate_np(_ansatz(n, _vals(n, 0))), atol=1e-5)
     assert set(e1.timing_snapshot()) == {"run"} and e1.timing_snapshot()["run"]["count"] == 3
@@ -389,9 +396,11 @@ def test_rebind_builds_no_new_shm_schedule(monkeypatch):
                         mem))
         return out
 
+    counted = ops.SCHEDULE_CALLS["shm"]
     eng.bind(dict(zip(sym.param_names, _vals(7, 1))))
     first = tables()
     assert 0 < len(calls) <= len(groups)
+    assert ops.SCHEDULE_CALLS["shm"] - counted == len(calls)
     scheduled = len(calls)
     eng.bind(dict(zip(sym.param_names, _vals(7, 2))))
     second = tables()

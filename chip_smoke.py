@@ -17,6 +17,18 @@ held against the dense per-gate oracle on the card; every kernel op of each
 of them is held against its plain version as that path launches it (its
 shard count, operand tables and variant indices).
 
+Then host offload: the pinned link rates; ``ising(32)`` L=28 R=4 through
+``--executor offload`` — a 32 GiB pinned host state in 16 shards of 2 GiB,
+every stage streamed through the card shard by shard, one launch per op
+and shard — with per-stage GB/s against the link bounds, the host remaps,
+the measurement split, the peak device memory (at most four shards), the
+state against the in-card run of the same plan shard by shard, a warm run
+after a rebind that pins no state buffer, and every kernel op on shards 0 and 15
+against its plain version; ``qft(26)`` through the staged offload path and
+the per-gate baseline; an offload batch of 2 ``qft(28)`` states and a sweep
+of 4 ``isingparam(28)`` bindings against the in-card ones, their kernel ops
+on shard 0 against the plain versions.
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -26,6 +38,7 @@ exit code is then non-zero and no result is printed. Needs CUDA.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -59,6 +72,13 @@ ENGINE_PATH = ["--circuit", "isingparam", "--n", "30", "--L", "28", "--R", "2", 
 REBIND = {"J": 0.9, "h": 0.2}
 SWEEP = {"n": 28, "L": 26, "R": 2, "P": 16}  # [16, 2^28] complex64: 2^32 amplitudes, 32 GiB
 BATCH = {"n": 28, "L": 26, "R": 2, "B": 3}  # qft(28), basis states 0, 1, 2
+# 16 shards of 2 GiB: a 32 GiB pinned host state, the largest the card's
+# host (about 100 GB) holds beside the second state a host remap writes
+OFFLOAD_PATH = ["--circuit", "ising", "--n", "32", "--L", "28", "--R", "4", "--executor",
+                "offload", "--shots", "64", "--marginal", "0,1,2",
+                "--observable", "Z0 Z1 + 0.5*X2"]
+PERGATE = {"n": 26, "L": 22, "R": 4}  # qft(26): staged offload against the per-gate baseline
+OFFLOAD_ROWS = {"n": 28, "L": 26, "R": 2, "B": 2, "P": 4}
 FIDELITY_MIN = 1 - 1e-5
 
 
@@ -182,11 +202,13 @@ def figures(ops, ref, probe, engine, gen, sweep_err, launches, launches_by_k):
 
 
 def fused_by_k(ops, ref, probe, engine, x, what: str, launches_by_k: dict,
-               skip=()) -> list:
+               skip=(), ps=None) -> list:
     """``fused_apply`` at each width k the plan of ``engine`` launches (not
-    in ``skip``), on its first op of that width: against its plain version,
-    timed beside the plain version and one torch.matmul, with its bounds."""
-    n, L = engine.n, engine.L
+    in ``skip``), on its first op of that width, with the operands of the
+    pass ``ps`` (default: the engine's run over all its shards; ``x`` holds
+    the pass's shards): against its plain version, timed beside the plain
+    version and one torch.matmul, with its bounds."""
+    n, L = x.numel().bit_length() - 1, engine.L
 
     def against_plain(u, vidx, bits):
         err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
@@ -198,7 +220,7 @@ def fused_by_k(ops, ref, probe, engine, x, what: str, launches_by_k: dict,
             "nbytes": 2 * (8 << n) + u.numel() * 8 + vidx.numel() * 4}
 
     rows = []
-    for r in probe.fused_rows(ops, engine, x, against_plain, skip=skip):
+    for r in probe.fused_rows(ops, engine, x, against_plain, skip=skip, ps=ps):
         k = r["k"]
         cmacs = (1 << k) * (1 << n)
         row = entry("fused_apply", launches_by_k.get(k, 0), r["max_abs_err"], r["ms"],
@@ -357,24 +379,25 @@ def trace_run(run, untraced_s: float, what: str = "run_packed") -> None:
         log(f"    {ms:9.2f} ms  x{count:<3d} {key[:100]}")
 
 
-def launches_match(ops, engine, what: str) -> dict:
+def launches_match(ops, engine, what: str, per_op: int = 1, kinds=("fused", "shm")) -> dict:
     """The kernel launches since the last reset equal the engine's compiled
-    ops (one launch per op, whatever the number of states), both kernels
+    ops times ``per_op`` (one launch per op whatever the number of states;
+    one per op and shard on the offload path), every kernel of ``kinds``
     ran, and the fused launches match the plan's fused ops by width."""
     launches = ops.kernel_call_counts()
     counts = engine.op_counts()
-    want = {"fused": counts.get("fused", 0), "shm": counts.get("shm", 0)}
+    want = {"fused": per_op * counts.get("fused", 0), "shm": per_op * counts.get("shm", 0)}
     want_by_k = {}
     for prog in engine.cc.programs:
         for op in prog.ops:
             if op.kind == "fused":
-                want_by_k[len(op.local_bits)] = want_by_k.get(len(op.local_bits), 0) + 1
+                want_by_k[len(op.local_bits)] = want_by_k.get(len(op.local_bits), 0) + per_op
     log(f"  {what}: kernel launches {launches}, fused by k {ops.fused_call_counts_by_k()}; "
-        f"compiled program {counts}")
+        f"compiled program {counts}" + (f" x {per_op} shards" if per_op > 1 else ""))
     require(launches == want, f"{what}: kernel launches {launches} != compiled ops {want}")
     require(ops.fused_call_counts_by_k() == want_by_k,
             f"{what}: fused launches by k != the plan's fused ops by k {want_by_k}")
-    require(want["fused"] > 0 and want["shm"] > 0, f"{what} must run both kernels")
+    require(all(want[k] > 0 for k in kinds), f"{what} must run {' and '.join(kinds)}")
     return dict(launches, by_k=ops.fused_call_counts_by_k())
 
 
@@ -572,6 +595,373 @@ def batch_phase(ops, ref, n: int, L: int, R: int, B: int, card: str,
             "worst": worst}
 
 
+def pinned() -> tuple:
+    """Blocks and bytes PyTorch's pinned host allocator has pinned so far (a
+    block it hands out again is not counted again). Small blocks stage the
+    uploads of index tensors and step tables; a state buffer is a block of
+    at least a shard."""
+    st = torch.cuda.host_memory_stats()
+    return int(st["num_host_alloc"]), int(st["allocated_bytes.allocated"])
+
+
+def release_pinned() -> None:
+    """Hand the pinned blocks PyTorch's host allocator keeps cached back to
+    the system: the offload states are tens of GiB of host memory, and the
+    next phase pins other sizes."""
+    gc.collect()
+    empty = (getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+             or getattr(torch._C, "_host_emptyCache", None))
+    require(empty is not None, "this torch cannot release its pinned host cache")
+    empty()
+
+
+def link_rates(nbytes: int = 2 << 30) -> dict:
+    """Pinned host <-> card copy rates in GB/s at one 2 GiB shard: each
+    direction alone (median of 5 CUDA-event timings) and both at once on
+    two streams (median of 3 wall timings)."""
+    from repro_torch.kernels import probe
+
+    amps = nbytes // 8
+    host = [torch.empty(amps, dtype=torch.complex64, pin_memory=True) for _ in range(2)]
+    dev = [torch.empty(amps, dtype=torch.complex64, device="cuda") for _ in range(2)]
+    h2d = probe.time_ms(lambda: dev[0].copy_(host[0], non_blocking=True)) / 1e3
+    d2h = probe.time_ms(lambda: host[1].copy_(dev[1], non_blocking=True)) / 1e3
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    both = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(streams[0]):
+            dev[0].copy_(host[0], non_blocking=True)
+        with torch.cuda.stream(streams[1]):
+            host[1].copy_(dev[1], non_blocking=True)
+        torch.cuda.synchronize()
+        both.append(time.perf_counter() - t0)
+    del host, dev
+    release_pinned()
+    return {"h2d": nbytes / h2d / 1e9, "d2h": nbytes / d2h / 1e9,
+            "both": 2 * nbytes / float(np.median(both)) / 1e9}
+
+
+class MeasureClock:
+    """While installed, times the measurer's parts (seconds): the shard
+    masses, sampling (without the masses), marginals and expectations. On
+    its first call it also reads the device memory the run left (peak and
+    in use) and resets the peak, so the run's peak and the measurement's
+    are told apart."""
+
+    def __init__(self, TM):
+        self.TM = TM
+        self.seconds = {"masses": 0.0, "sampling": 0.0, "marginal": 0.0, "expectation": 0.0}
+        self.run_peak = self.after_run = None
+
+    def _wrap(self, cls, name, part):
+        orig = getattr(cls, name)
+
+        def timed(obj, *args, **kw):
+            if self.run_peak is None:
+                torch.cuda.synchronize()
+                self.run_peak = torch.cuda.max_memory_allocated()
+                self.after_run = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = orig(obj, *args, **kw)
+            self.seconds[part] += time.perf_counter() - t0
+            return out
+
+        self._saved.append((cls, name, orig))
+        setattr(cls, name, timed)
+
+    def __enter__(self):
+        self._saved = []
+        self._wrap(self.TM.StreamingMeasurer, "_shard_masses", "masses")
+        self._wrap(self.TM.Measurer, "sample", "sampling")
+        self._wrap(self.TM.Measurer, "marginal", "marginal")
+        self._wrap(self.TM.Measurer, "expectation", "expectation")
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+        self.seconds["sampling"] -= self.seconds["masses"]
+
+
+def shard_fidelity(host: torch.Tensor, on_card: torch.Tensor, L: int) -> tuple:
+    """``|<host|on_card>|`` accumulated in complex128 shard by shard on the
+    card (one host shard copied up at a time), and the largest amplitude
+    difference."""
+    host, on_card = host.reshape(-1), on_card.reshape(-1)
+    inner = torch.zeros((), dtype=torch.complex128, device="cuda")
+    worst = 0.0
+    for lo in range(0, host.numel(), 1 << L):
+        a = host[lo:lo + (1 << L)].to("cuda", non_blocking=True)
+        b = on_card[lo:lo + (1 << L)]
+        worst = max(worst, max_err(a, b))
+        inner += torch.vdot(a.to(torch.complex128), b.to(torch.complex128))
+        del a
+    return float(inner.abs()), worst
+
+
+def stage_lines(be, rates: dict, card: str, what: str) -> list:
+    """Log each streamed stage of the offload backend's last run (bytes
+    both ways, GB/s, and the link bounds from ``rates``: both directions
+    at once at their rates alone, both at once at the rate measured with
+    both running, one direction at a time) and each host remap; return the
+    stages."""
+    stages = [t for t in be.trace if t["kind"] == "stage"]
+    for i, t in enumerate(stages):
+        half = t["bytes"] / 2
+        both = max(half / rates["h2d"], half / rates["d2h"]) / 1e9
+        shared = t["bytes"] / rates["both"] / 1e9
+        one = (half / rates["h2d"] + half / rates["d2h"]) / 1e9
+        t.update(gb_s=t["bytes"] / t["seconds"] / 1e9, bound_both_s=both,
+                 bound_shared_s=shared, bound_one_way_s=one)
+        log(f"  {what} stage {i}: {t['ops']} ops, {gib(t['bytes'])} moved (up and down) in "
+            f"{t['seconds']:.3f} s = {t['gb_s']:.2f} GB/s; link bound {both:.3f} s (both ways "
+            f"at once), {shared:.3f} s (both ways at the measured shared rate), {one:.3f} s "
+            f"(one way at a time) ({card})")
+    remaps = [t for t in be.trace if t["kind"] == "remap"]
+    log(f"  {what} host remaps: " + ", ".join(f"{t['slot']} {t['seconds']:.3f} s" for t in remaps))
+    return stages
+
+
+def offload_phase(simulate, ops, ref, probe, card: str, rates: dict, fused: dict) -> dict:
+    """``ising(32)`` L=28 R=4 through ``--executor offload``: a 32 GiB
+    pinned host state in 16 shards of 2 GiB, streamed through the hand
+    kernels stage by stage, then measured shard by shard. Checks one
+    launch per op and shard, the run's peak device memory (at most four
+    shards above what the engine keeps), every kernel op on shard 0 and
+    shard 15 against its plain version, the state against the in-card run
+    of the same plan, and a warm run after a rebind that pins no host
+    memory and schedules no shm program."""
+    from repro_torch.sim import measure as TM
+    from repro_torch.sim.engine import ExecutionEngine
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_counters()
+    pins = pinned()
+    t0 = time.time()
+    with MeasureClock(TM) as clock:
+        run = simulate.main(OFFLOAD_PATH)
+    cli_s = time.time() - t0
+    eng, be = run.engine, run.engine.backend
+    S, L = be.S, eng.L
+    shard_bytes = 8 << L
+    launches = launches_match(ops, eng, "offload path", per_op=S)
+    res = run.result
+    require(res.samples.shape == (64,) and bool(np.all((res.samples >= 0)
+                                                       & (res.samples < 1 << eng.n))),
+            "offload path: shots must be 64 basis-state indices")
+    marg = res.marginals[(0, 1, 2)]
+    require(marg.shape == (8,) and bool(np.all(np.isfinite(marg))) and abs(marg.sum() - 1) < 1e-4,
+            "offload path: the marginal must be a finite distribution over 8 outcomes")
+    require(all(np.isfinite(v) for v in res.expectations.values()),
+            "offload path: expectations must be finite")
+    stages = stage_lines(be, rates, card, "offload")
+    remaps = [t["seconds"] for t in be.trace if t["kind"] == "remap"]
+    run_peak, kept = clock.run_peak - base, clock.after_run - base
+    require(run_peak <= 4 * shard_bytes + kept,
+            f"offload run: peak device memory {gib(run_peak)} exceeds four shards above the "
+            f"{gib(kept)} the engine keeps")
+    meas_peak = torch.cuda.max_memory_allocated() - base
+    blocks, nbytes = (a - b for a, b in zip(pinned(), pins))
+    log(f"  simulate {run.seconds:.3f} s (cold: a first run pins its host states) = "
+        f"{sum(t['seconds'] for t in stages):.3f} s streamed stages + {sum(remaps):.3f} s host "
+        f"remaps + the rest; pinned {gib(nbytes)} in {blocks} blocks; overlap_ratio "
+        f"{be.overlap_ratio:.3f}; peak device memory {gib(run_peak)} ({run_peak / shard_bytes:.2f}"
+        f" shards; the engine keeps {gib(kept)}) against a {gib(8 << eng.n)} state; measuring "
+        f"{gib(meas_peak)} ({card})")
+    m = clock.seconds
+    log(f"  measured in {sum(m.values()):.3f} s: shard masses {m['masses']:.3f} s, sampling "
+        f"64 shots {m['sampling']:.3f} s ({len(np.unique(res.samples >> L))} distinct shards, "
+        f"each a host float64 CDF of 2^{L} amplitudes), marginal {m['marginal']:.3f} s, "
+        f"expectation {m['expectation']:.3f} s; the CLI call {cli_s:.1f} s ({card})")
+
+    # the in-card run of the same plan, shard by shard against the offload state
+    t0 = time.time()
+    in_card = ExecutionEngine(eng.circuit, eng.plan, device="cuda")
+    want = in_card.run_packed()
+    sync("cuda")
+    card_s = time.time() - t0
+    fid, diff = shard_fidelity(run.state, want, L)
+    log(f"  ising({eng.n}) offload vs in-card on one plan, shard by shard: fidelity {fid:.9f}, "
+        f"max |difference| {diff:.3e}; in-card compile + run {card_s:.3f} s ({card})")
+    require(fid >= FIDELITY_MIN, f"offload fidelity {fid} < {FIDELITY_MIN}")
+    run.state = None
+    del in_card
+
+    # a warm run after a rebind: no pinned block, no shm program, same state
+    gc.collect()
+    pins, schedules = pinned(), ops.SCHEDULE_CALLS["shm"]
+    eng.bind_circuit(eng.bound_circuit)
+    t0 = time.time()
+    again = eng.run_packed()
+    warm_s = time.time() - t0
+    blocks, nbytes = (a - b for a, b in zip(pinned(), pins))
+    require(nbytes < shard_bytes and ops.SCHEDULE_CALLS["shm"] == schedules,
+            f"a warm offload run after a rebind must pin no state buffer ({gib(nbytes)} "
+            f"pinned) and schedule no shm program")
+    warm_stages = stage_lines(be, rates, card, "offload warm")
+    fid2, _ = shard_fidelity(again, want, L)
+    require(fid2 >= FIDELITY_MIN, f"warm offload fidelity {fid2} < {FIDELITY_MIN}")
+    log(f"  warm run after a rebind: {warm_s:.3f} s; no state buffer pinned ({nbytes} bytes "
+        f"in {blocks} staging blocks), no shm program scheduled, fidelity {fid2:.9f} ({card})")
+    del again, want
+    torch.cuda.empty_cache()
+
+    # every kernel op of the path on shard 0 and the last shard, as launched
+    tops = [op for prog in eng.cc.programs for op in prog.ops]
+    worst = {"fused": 0.0, "shm": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(1 << L, dtype=torch.complex64, device="cuda", generator=gen)
+    ps0 = None
+    for s in (0, S - 1):
+        ps = be.shard_pass(s, tops, be.new_run(1))
+        ps0 = ps0 or ps
+        w = hold_ops(ops, ref, eng, ps, x, f"offload shard {s}")
+        worst = {k: max(worst[k], w[k]) for k in worst}
+    rows = fused_by_k(ops, ref, probe, eng, x, "offload shard 0", launches["by_k"],
+                      skip=[row["k"] for row in fused["by_k"]], ps=ps0)
+    fused["by_k"] += [by_k_row(row) for row in rows]
+    # each stage's kernels alone on one shard (CUDA events), times the shards
+    for i, (prog, t) in enumerate(zip(eng.cc.programs, warm_stages)):
+        ps = be.shard_pass(0, prog.ops, be.new_run(1))
+        ms = probe.time_ms(lambda: be.apply_ops(x, prog, ps), reps=3)
+        t["kernels_s"] = ms * S / 1e3
+        log(f"  offload stage {i}: its kernels alone {ms:.2f} ms a shard, {t['kernels_s']:.3f} s "
+            f"for {S} shards, against {t['seconds']:.3f} s streamed (warm) ({card})")
+    del x, run
+    release_pinned()
+    return {"launches": launches, "worst": worst, "stages": stages, "warm_stages": warm_stages,
+            "remaps": remaps, "measure": m, "run_peak": run_peak, "fidelity": [fid, fid2]}
+
+
+def pergate_phase(ops, ref, probe, card: str, fused: dict, n: int, L: int, R: int) -> dict:
+    """``qft(n)`` through the staged offload path and through the per-gate
+    baseline (one pass over the host state for each op): shard transfers,
+    seconds, their ratios, each state against the in-card run of the
+    staged plan, every kernel op of both on shard 0 and the last shard
+    against its plain version."""
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.sim.engine import ExecutionEngine, engine_for
+    from repro_torch.sim.offload import PerGateOffloadExecutor
+    from repro_torch.sim.statevector import fidelity
+
+    circ = FAMILIES["qft"](n)
+    staged = engine_for(circ, L, R, 0, backend="offload", device="cuda")
+    staged.run()  # first use: pins this size and builds the step tables
+    ops.reset_kernel_counters()
+    before = staged.backend.stats["shard_transfers"]
+    t0 = time.time()
+    a = staged.run()
+    staged_s = time.time() - t0
+    staged_moves = staged.backend.stats["shard_transfers"] - before
+    S = staged.backend.S
+    staged_launches = launches_match(ops, staged, f"qft({n}) staged offload", per_op=S, kinds=())
+    want = ExecutionEngine(circ, staged.plan, device="cuda").run()
+    fa = fidelity(a.to("cuda"), want)
+    del a
+    pg = PerGateOffloadExecutor(circ, L, device="cuda")
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    b = pg.run()
+    pg_s = time.time() - t0
+    pg_launches = launches_match(ops, pg.engine, f"qft({n}) per-gate", per_op=S, kinds=("fused",))
+    fb = fidelity(b.to("cuda"), want)
+    del b, want
+    passes = sum(len(p.ops) for p in pg.engine.cc.programs)
+    require(staged_moves == len(staged.cc.programs) * S,
+            "staged offload: one transfer per stage and shard")
+    require(pg.stats["shard_transfers"] == passes * S, "per-gate: one transfer per op and shard")
+    ratio = pg.stats["shard_transfers"] / staged_moves
+    require(ratio > 5, f"the per-gate baseline moves only {ratio:.1f}x the staged shards")
+    require(min(fa, fb) >= FIDELITY_MIN, f"qft({n}) offload fidelities {fa}, {fb}")
+    log(f"  qft({n}) L={L} R={R}: staged offload {staged_s:.3f} s ({staged_moves} shard "
+        f"transfers, {len(staged.cc.programs)} stages), per-gate {pg_s:.3f} s "
+        f"({pg.stats['shard_transfers']} shard transfers, {passes} passes); transfers "
+        f"{ratio:.2f}x, seconds {pg_s / staged_s:.1f}x; fidelity vs in-card {fa:.9f} (staged), "
+        f"{fb:.9f} (per-gate) ({card})")
+    worst = {"fused": 0.0, "shm": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1 << L, dtype=torch.complex64, device="cuda", generator=gen)
+    for eng, what in ((staged, "staged"), (pg.engine, "per-gate")):
+        be = eng.backend
+        tops = [op for prog in eng.cc.programs for op in prog.ops]
+        ps0 = None
+        for s in (0, S - 1):
+            ps = be.shard_pass(s, tops, be.new_run(1))
+            ps0 = ps0 or ps
+            w = hold_ops(ops, ref, eng, ps, x, f"qft({n}) {what} shard {s}")
+            worst = {k: max(worst[k], w[k]) for k in worst}
+        launches = staged_launches if eng is staged else pg_launches
+        rows = fused_by_k(ops, ref, probe, eng, x, f"qft({n}) {what} shard 0", launches["by_k"],
+                          skip=[row["k"] for row in fused["by_k"]], ps=ps0)
+        fused["by_k"] += [by_k_row(row) for row in rows]
+    del x, staged, pg
+    release_pinned()
+    return {"staged": staged_launches, "pergate": pg_launches, "worst": worst,
+            "staged_s": staged_s, "pergate_s": pg_s, "ratio": ratio}
+
+
+def offload_rows_phase(ops, ref, card: str, n: int, L: int, R: int, B: int, P: int) -> dict:
+    """A batch of B basis states of ``qft(n)`` and a sweep of P bindings of
+    ``isingparam(n)`` through the offload backend (``[B, 2^L]`` and
+    ``[P, 2^L]`` blocks), each row against the in-card ``run_batch`` /
+    ``run_sweep`` of the same plan on the card, every kernel op on shard 0
+    at the pass's rows against its plain version."""
+    from repro_torch.core.generators import FAMILIES, PARAM_FAMILIES
+    from repro_torch.sim.engine import ExecutionEngine, engine_for
+    from repro_torch.sim.statevector import fidelity
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for what, rows in (("batch", B), ("sweep", P)):
+        if what == "batch":
+            circ = FAMILIES["qft"](n)
+            psi0s = torch.zeros(B, 1 << n, dtype=torch.complex64, device="cuda")
+            psi0s[torch.arange(B), torch.arange(B)] = 1.0
+            off = engine_for(circ, L, R, 0, backend="offload", device="cuda")
+            in_card = ExecutionEngine(circ, off.plan, device="cuda")
+
+            def go(e):
+                return e.run_batch(psi0s)
+        else:
+            circ = PARAM_FAMILIES["isingparam"](n)
+            rng = np.random.default_rng(29)
+            points = [{"J": float(j), "h": float(h)} for j, h in rng.uniform(-1.5, 1.5, (P, 2))]
+            off = engine_for(circ, L, R, 0, backend="offload", device="cuda")
+            in_card = ExecutionEngine(circ, off.plan, device="cuda")
+
+            def go(e):
+                return e.run_sweep(None, points)
+        S = off.backend.S
+        ops.reset_kernel_counters()
+        t0 = time.time()
+        got = go(off)
+        off_s = time.time() - t0
+        launches = launches_match(ops, off, f"offload {what} of {rows}", per_op=S)
+        want = go(in_card)
+        fids = [fidelity(got[r].to("cuda"), want[r]) for r in range(rows)]
+        require(min(fids) >= FIDELITY_MIN, f"offload {what}: fidelities {fids}")
+        log(f"  {'qft' if what == 'batch' else 'isingparam'}({n}) L={L} R={R}, offload {what} "
+            f"of {rows}: {off_s:.3f} s (first run), {S} shards of [{rows}, 2^{L}]; fidelity vs "
+            f"the in-card {what} " + ", ".join(f"{f:.9f}" for f in fids) + f" ({card})")
+        del got, want, in_card
+        be = off.backend
+        run = be.new_run(rows, off.sweep_tables(points) if what == "sweep" else None)
+        tops = [op for prog in off.cc.programs for op in prog.ops]
+        ps = be.shard_pass(0, tops, run)
+        x = torch.randn(rows << L, dtype=torch.complex64, device="cuda", generator=gen)
+        worst = hold_ops(ops, ref, off, ps, x, f"offload {what} of {rows}, shard 0")
+        out[what] = {"launches": launches, "worst": worst, "fidelity": fids}
+        del x, run, ps, off
+        torch.cuda.empty_cache()
+        release_pinned()
+    return out
+
+
 def sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -669,6 +1059,28 @@ def main() -> None:
     batch = batch_phase(ops, ref, **BATCH, card=card)
     paths["qft28_batch3"] = batch["launches"]
     worst.append(batch["worst"])
+    torch.cuda.empty_cache()
+
+    t_offload = time.time()
+    log("== host <-> card link (pinned, 2 GiB)")
+    rates = link_rates()
+    log("  h2d {h2d:.2f} GB/s, d2h {d2h:.2f} GB/s, both at once {both:.2f} GB/s ".format(**rates)
+        + f"({card})")
+    log("== offload path: " + " ".join(OFFLOAD_PATH))
+    off = offload_phase(simulate, ops, ref, probe, card, rates, fused)
+    paths["ising32_offload"] = off["launches"]
+    worst.append(off["worst"])
+    log("== per-gate offload baseline: qft({n}) L={L} R={R}".format(**PERGATE))
+    pg = pergate_phase(ops, ref, probe, card, fused, **PERGATE)
+    paths["qft26_offload"] = pg["staged"]
+    paths["qft26_pergate"] = pg["pergate"]
+    worst.append(pg["worst"])
+    log("== offload batch and sweep: n={n} L={L} R={R}, B={B}, P={P}".format(**OFFLOAD_ROWS))
+    rows = offload_rows_phase(ops, ref, card, **OFFLOAD_ROWS)
+    paths["qft28_offload_batch2"] = rows["batch"]["launches"]
+    paths["isingparam28_offload_sweep4"] = rows["sweep"]["launches"]
+    worst += [rows["batch"]["worst"], rows["sweep"]["worst"]]
+    log(f"  the offload phases took {time.time() - t_offload:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

@@ -28,12 +28,14 @@ def engine_from_reference(
     *,
     use_kernels: bool = True,
     device: DeviceLike = None,
+    backend: str = "cuda",
 ) -> ExecutionEngine:
     """A port engine on the reference's circuit and plan whose constant
     registry holds the reference's op tensors (uids and shapes must match
     the port's compiled program, which they do when both compilers see the
-    same plan)."""
+    same plan). ``backend``: any of the engine's (``"offload"`` runs the
+    reference's plan and tensors with the state in host memory)."""
     eng = ExecutionEngine(Circuit.from_json(circuit_json), SimulationPlan.from_json(plan_json),
-                          use_kernels=use_kernels, device=device)
+                          use_kernels=use_kernels, device=device, backend=backend)
     eng.load_consts({int(uid): np.asarray(t) for uid, t in tensors.items()})
     return eng

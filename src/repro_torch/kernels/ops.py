@@ -397,6 +397,17 @@ def _ints(values: Sequence[int]):
     return (ctypes.c_int * max(len(values), 1))(*values)
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device``. To CUDA it goes from pinned memory
+    without the host waiting: from pageable memory the host would wait for
+    the current stream's queued work, which stalls an offload stage's
+    pipeline of copies and kernels."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -529,7 +540,7 @@ def _device_table(lay: TileLayout, members: Sequence[Member], device) -> torch.T
                               for kind, bits, op, vidx in members))
     desc = _TABLES.get(key)
     if desc is None:
-        desc = torch.from_numpy(shm_descriptors(lay, members)).to(device)
+        desc = to_device(shm_descriptors(lay, members), device)
         _TABLES[key] = desc
         if len(_TABLES) > _TABLES_KEPT:
             _TABLES.popitem(last=False)

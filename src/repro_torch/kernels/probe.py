@@ -57,21 +57,24 @@ def ptxas_lines(build) -> List[str]:
 
 
 def main_path_ops(engine):
-    """The plan's ``fused`` ops, widest first, and its widest ``shm`` group."""
+    """The plan's ``fused`` ops, widest first, and its widest ``shm`` group
+    (None when it has none)."""
     tops = [op for prog in engine.cc.programs for op in prog.ops]
     fused = sorted((op for op in tops if op.kind == "fused"), key=lambda op: -len(op.local_bits))
     shm = max((op for op in tops if op.kind == "shm"),
-              key=lambda op: (len(op.local_bits), len(op.gates)))
+              key=lambda op: (len(op.local_bits), len(op.gates)), default=None)
     return fused, shm
 
 
 def fused_rows(ops, engine, x: torch.Tensor,
                check: Optional[Callable[..., Dict]] = None,
-               skip: Sequence[int] = ()) -> List[Dict]:
+               skip: Sequence[int] = (), ps=None) -> List[Dict]:
     """``fused_apply`` and one ``torch.matmul`` in full fp32 (TF32 off) at
     each width k of the plan that is not in ``skip``, on the first op of
-    each width. ``check(u, vidx, bits)``, where given, runs before the
-    timings and its dict joins the row."""
+    each width, with the operands of the pass ``ps`` (default: the
+    engine's own run over all its shards; ``x`` holds that pass's shards).
+    ``check(u, vidx, bits)``, where given, runs before the timings and its
+    dict joins the row."""
     L = engine.L
     fused, _ = main_path_ops(engine)
     rows, seen = [], set(skip)
@@ -83,7 +86,8 @@ def fused_rows(ops, engine, x: torch.Tensor,
             if k in seen:
                 continue
             seen.add(k)
-            u, vidx, bits = engine.consts[op.uid], engine.backend.kernel_vidx(op), op.local_bits
+            u, vidx = engine.consts[op.uid], engine.backend.kernel_vidx(op, ps)
+            bits = op.local_bits
             row = {"k": k, "bits": list(bits), "V": int(u.shape[0])}
             if check is not None:
                 row.update(check(u, vidx, bits))

@@ -22,8 +22,16 @@ Engine path (compile cache, parameter binding, batches, sweeps):
 (points.json: a JSON list of {name: value} objects, {"points": [...]}, or
 {"name": [v0, v1, ...]} columns of equal length.)
 
+Host offload (the state in host memory, streamed through the device stage
+by stage; ``--engine``, ``--batch`` and ``--sweep`` take it too), and the
+per-gate offload baseline:
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit ising --n 32 \
+      --L 28 --R 4 --executor offload --shots 64 --marginal 0,1,2
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 12 \
+      --L 9 --R 3 --executor pergate --check --device cpu
+
 Not in the port yet, and refused: ``--autotune``, ``--vqe``, ``--storage``
-and the ``offload``/``pergate``/``shardmap`` executors.
+and the ``shardmap`` executor.
 """
 
 from __future__ import annotations
@@ -42,8 +50,9 @@ from ..core.partition import SimulationPlan, partition
 from ..device import resolve_device
 from ..sim.engine import DEFAULT_CACHE, ExecutionEngine, engine_for
 from ..sim.measure import (
-    TorchMeasurer, measure_batch, measure_sweep, measure_to_result,
+    Frame, StreamingMeasurer, measure_batch, measure_sweep, measure_to_result, measurer_for,
 )
+from ..sim.offload import PerGateOffloadExecutor
 from ..sim.result import SimulationResult
 from ..sim.statevector import fidelity, simulate_np
 
@@ -103,6 +112,24 @@ def _load_sweep(path):
     return [{k: float(v[p]) for k, v in d.items()} for p in range(P)]
 
 
+def _print_offload(ex: ExecutionEngine) -> None:
+    """What the offload backend's last run did: each streamed stage with the
+    bytes it moved both ways and its rate, each host remap, and the
+    counters."""
+    be = ex.backend
+    if be.name != "offload":
+        return
+    stage = 0
+    for t in be.trace:
+        if t["kind"] == "stage":
+            print(f"  offload stage {stage}: {t['ops']} ops, {t['bytes'] / 2**30:.2f} GiB moved "
+                  f"in {t['seconds']:.3f}s ({t['bytes'] / t['seconds'] / 1e9:.2f} GB/s)")
+            stage += 1
+        else:
+            print(f"  host remap {t['slot']}: {t['seconds']:.3f}s")
+    print(f"  offload stats {be.stats}; overlap_ratio {be.overlap_ratio:.3f}")
+
+
 def _print_results(results) -> None:
     for i, res in enumerate(results):
         bits = []
@@ -119,10 +146,12 @@ def main(argv=None) -> SimulateRun:
     ap.add_argument("--L", type=int, default=0, help="local qubits (0: n-R-G)")
     ap.add_argument("--R", type=int, default=0)
     ap.add_argument("--G", type=int, default=0)
-    ap.add_argument("--executor", default="cuda", choices=["cuda", "dense"],
+    ap.add_argument("--executor", default="cuda", choices=["cuda", "offload", "pergate", "dense"],
                     help="cuda: the planned path through the hand-written kernels "
-                         "(on --device); dense: the per-gate oracle behind the engine "
-                         "API (implies --engine)")
+                         "(on --device); offload: the same with the state in host memory, "
+                         "streamed through --device stage by stage; pergate: the per-gate "
+                         "offload baseline (one pass over the host state per gate); dense: "
+                         "the per-gate oracle behind the engine API (implies --engine)")
     ap.add_argument("--staging", default="ilp", choices=["ilp", "greedy"])
     ap.add_argument("--kernelizer", default="dp", choices=["dp", "ordered", "greedy"])
     ap.add_argument("--opt", dest="opt", action="store_true",
@@ -151,6 +180,9 @@ def main(argv=None) -> SimulateRun:
                     help='Pauli sum, e.g. "Z0 Z1 + 0.5*X2" (repeatable)')
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.executor == "pergate" and (args.engine or args.batch > 1 or args.sweep is not None):
+        ap.error("--executor pergate is a baseline outside the engine: no --engine, "
+                 "--batch or --sweep")
 
     device = resolve_device(args.device)
     n = args.n
@@ -212,10 +244,12 @@ def main(argv=None) -> SimulateRun:
             print(f"optimizer: {ores.source.n_gates} -> {ores.circuit.n_gates} gates "
                   f"(-{ores.gates_removed}; passes: {ores.pass_counts()})")
             circ = ores.circuit
+        if args.executor == "pergate":
+            return _pergate(args, circ, L, device, measuring, marginals, ref_circ, binds)
         plan = partition(circ, L, args.R, args.G, staging_method=args.staging,
                          kernelize_method=args.kernelizer)
         t0 = time.time()
-        ex = ExecutionEngine(circ, plan, device=device)
+        ex = ExecutionEngine(circ, plan, device=device, backend=args.executor)
         print(f"compiled in {time.time() - t0:.2f}s")
     print(f"partition: {plan.n_stages} stages, kernel cost {plan.total_kernel_cost:,.0f} us"
           f" (preprocess {plan.preprocess_time_s:.2f}s); program: "
@@ -245,6 +279,7 @@ def main(argv=None) -> SimulateRun:
         run.seconds = time.time() - t0
         print(f"sweep of {P} bindings in {run.seconds:.3f}s ({run.seconds / P:.3f}s/point, "
               "one structural compile)")
+        _print_offload(ex)
         if args.check:
             for p, pt in enumerate(points):
                 run.fidelities.append(fidelity(run.state[p], simulate_np(ref_circ.bind(pt))))
@@ -273,6 +308,7 @@ def main(argv=None) -> SimulateRun:
         run.seconds = time.time() - t0
         print(f"batch of {B} simulated in {run.seconds:.3f}s ({run.seconds / B:.3f}s/state, "
               f"{B * circ.n_gates / run.seconds:,.0f} gates/s)")
+        _print_offload(ex)
         if args.check:
             for b in range(B):
                 run.fidelities.append(fidelity(run.state[b], reference(ref_circ, psi0s[b])))
@@ -287,30 +323,60 @@ def main(argv=None) -> SimulateRun:
     dt = time.time() - t0
     print(f"simulated in {dt:.3f}s ({circ.n_gates / dt:,.0f} gates/s, "
           f"{2**n / dt / 1e6:,.1f} Mamps/s)")
+    _print_offload(ex)
 
     res = None
     if measuring:
-        t0 = time.time()
-        res = measure_to_result(
-            TorchMeasurer(out, ex.measurement_frame), backend=f"{ex.backend.name}-{device.type}",
-            shots=args.shots, seed=args.seed, marginals=marginals,
-            observables=args.observable,
-        )
-        print(f"measured in {time.time() - t0:.3f}s")
-        if args.shots:
-            top = ", ".join(f"{b}:{c}" for b, c in res.top(8))
-            print(f"  top counts ({args.shots} shots): {top}")
-        for qs, m in res.marginals.items():
-            head = np.array2string(m[:8], precision=4, suppress_small=True)
-            print(f"  marginal{qs}: {head}{' ...' if m.size > 8 else ''}")
-        for name, val in res.expectations.items():
-            print(f"  <{name}> = {val:+.6f}")
+        res = _measure(measurer_for(out, ex.measurement_frame, ex),
+                       f"{ex.backend.name}-{device.type}", args, marginals)
 
     run = SimulateRun(engine=ex, plan=plan, state=out, result=res, seconds=dt,
                       build_seconds=build_s, bind_seconds=bind_s)
     if args.check:
         logical = ex.finalize(out) if measuring else out
         run.fidelity = fidelity(logical, reference(ref_circ))
+        run.fidelities.append(run.fidelity)
+        print(f"fidelity vs dense reference: {run.fidelity:.6f}")
+    return run
+
+
+def _measure(measurer, backend: str, args, marginals) -> SimulationResult:
+    """Measure as the CLI's flags ask, and print what came out."""
+    t0 = time.time()
+    res = measure_to_result(measurer, backend=backend, shots=args.shots, seed=args.seed,
+                            marginals=marginals, observables=args.observable)
+    print(f"measured in {time.time() - t0:.3f}s")
+    if args.shots:
+        top = ", ".join(f"{b}:{c}" for b, c in res.top(8))
+        print(f"  top counts ({args.shots} shots): {top}")
+    for qs, m in res.marginals.items():
+        head = np.array2string(m[:8], precision=4, suppress_small=True)
+        print(f"  marginal{qs}: {head}{' ...' if m.size > 8 else ''}")
+    for name, val in res.expectations.items():
+        print(f"  <{name}> = {val:+.6f}")
+    return res
+
+
+def _pergate(args, circ, L, device, measuring, marginals, ref_circ, binds) -> SimulateRun:
+    """``--executor pergate``: the per-gate offload baseline. Its state is
+    in logical order, measured in shards of 2^L (identity frame)."""
+    n = circ.n_qubits
+    pg = PerGateOffloadExecutor(circ, L, device=device)
+    t0 = time.time()
+    out = pg.run()
+    dt = time.time() - t0
+    ex = pg.engine
+    print(f"per-gate baseline: {sum(len(p.ops) for p in ex.cc.programs)} passes over the host "
+          f"state in {dt:.3f}s; shard transfers {pg.stats['shard_transfers']}, host remaps "
+          f"{pg.stats['host_remaps']}")
+    res = None
+    if measuring:
+        res = _measure(StreamingMeasurer(out, Frame.identity(n, L), device),
+                       f"pergate-{device.type}", args, marginals)
+    run = SimulateRun(engine=ex, plan=ex.plan, state=out, result=res, seconds=dt)
+    if args.check:
+        run.fidelity = fidelity(out, simulate_np(ref_circ if ref_circ.is_bound
+                                                 else ref_circ.bind(binds)))
         run.fidelities.append(run.fidelity)
         print(f"fidelity vs dense reference: {run.fidelity:.6f}")
     return run

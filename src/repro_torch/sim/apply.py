@@ -25,7 +25,7 @@ tensors with them on the host.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,11 +101,13 @@ def permute_bits(
     src_bit_of: Sequence[int],
     flip_bits: Sequence[int] = (),
     lead: int = 0,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """New contiguous tensor ``y`` with index bit ``p`` of ``y`` = bit
+    """Contiguous tensor ``y`` with index bit ``p`` of ``y`` = bit
     ``src_bit_of[p]`` of ``x`` (XOR 1 where that source bit is in
     ``flip_bits``). The last dimension of ``x`` is the flat ``2^n`` index;
-    the ``lead`` dimensions before it are carried along unchanged."""
+    the ``lead`` dimensions before it are carried along unchanged. ``y`` is
+    a new tensor, or ``out`` (contiguous, ``x``'s shape, not ``x``)."""
     lead_shape = tuple(x.shape[:lead])
     n = len(src_bit_of)
     flips = set(flip_bits)
@@ -125,10 +127,13 @@ def permute_bits(
     axis_of_run = {r: lead + i for i, r in enumerate(old_order)}
     perm = list(range(lead)) + [axis_of_run[r] for r in range(len(runs))]
     src = x.reshape(old_shape).permute(perm)
-    out = torch.empty(lead_shape + tuple(1 << len(r) for r in runs),
-                      dtype=x.dtype, device=x.device)
+    new_shape = lead_shape + tuple(1 << len(r) for r in runs)
+    if out is None:
+        out = torch.empty(new_shape, dtype=x.dtype, device=x.device)
+    elif out.shape != x.shape or not out.is_contiguous() or out.data_ptr() == x.data_ptr():
+        raise ValueError("out must be a contiguous tensor of x's shape, apart from x")
     flip_axes = [lead + r for r in range(len(runs)) if runs[r][0] in flips]
-    _copy_into(out, src, flip_axes)
+    _copy_into(out.view(new_shape), src, flip_axes)
     return out.reshape(lead_shape + (1 << n,))
 
 

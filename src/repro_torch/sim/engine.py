@@ -15,6 +15,10 @@ The twin of ``repro/sim/engine.py`` for the meshless single-device case:
   states, or a sweep of P bindings, is one flat tensor of ``B * 2^(G+R)``
   (``P * 2^(G+R)``) shards run through the same stage loop: every op is
   one launch for the whole batch;
+* :class:`OffloadBackend` keeps the state in host memory as shards of
+  ``2^L`` amplitudes and streams every shard through the device once a
+  stage, through the same op application (and so the same kernels) as
+  :class:`CudaBackend`; remaps are bit permutations on the host;
 * :class:`DenseBackend` is the per-gate oracle behind the same API;
 * :func:`engine_for` is the serving entry point: a structural
   :class:`CircuitKey` -> engine LRU (:class:`CompileCache`) that rebinds a
@@ -31,8 +35,9 @@ in place; a remap writes one new state, so a run holds at most two states.
 The reference's degradation ladder keeps only its planning rungs here
 (:func:`_plan_resilient`) and the one retry of a failed ``compile_plan``
 (:func:`build_engine`): a backend or kernel that fails raises. Not in this
-module yet: host offload (``storage=``), the multi-device backends, adjoint
-gradients, the norm guard and the device calibration.
+module yet: the offload backend's shard store (``storage=``) and stage
+checkpoints, the multi-device backends, adjoint gradients, the norm guard
+and the device calibration.
 """
 
 from __future__ import annotations
@@ -207,12 +212,17 @@ class _Pass:
     amplitudes (1, a batch of B, or P sweep points) held as one flat tensor
     of ``rows * S`` shards, the op tables ``consts`` (the engine's
     registry, or a sweep's ``[P * V, ...]`` stacks, point ``p``'s variants
-    at rows ``p * V ...``), and the shm operand lists built from them."""
+    at rows ``p * V ...``), and the shm operand lists built from them.
+
+    An offload pass holds ONE shard of each row (``rows`` shards of 2^L);
+    ``shard_vidx`` then maps every op uid to that shard's variant index
+    (int32 ``[rows]``, :meth:`OffloadBackend.resolve`)."""
 
     rows: int
     consts: Dict[int, torch.Tensor]
     sweep: bool = False
     members: Dict[int, List] = field(default_factory=dict)
+    shard_vidx: Optional[Dict[int, torch.Tensor]] = None
 
 
 class CudaBackend(Backend):
@@ -254,8 +264,7 @@ class CudaBackend(Backend):
     def _device_index(self, key: tuple, make: Callable[[], np.ndarray]) -> torch.Tensor:
         t = self._indices.get(key)
         if t is None:
-            t = torch.from_numpy(np.ascontiguousarray(make(), dtype=np.int32))
-            t = t.to(self.engine.device)
+            t = kops.to_device(np.ascontiguousarray(make(), dtype=np.int32), self.engine.device)
             self._indices[key] = t
         return t
 
@@ -275,6 +284,8 @@ class CudaBackend(Backend):
         """Variant index of every shard of the pass (int32 ``[rows * S]``),
         or None when every shard uses variant 0."""
         ps = ps or self.pass_of()
+        if ps.shard_vidx is not None:
+            return ps.shard_vidx[op.uid]
         v = self._variants(op, ps)
         if v is None:
             return None
@@ -308,11 +319,14 @@ class CudaBackend(Backend):
         pass to its row. Scalars fold into the first operand, as in the
         reference."""
         ps = ps or self.pass_of()
-        U = self.S * (ps.rows if ps.sweep else 1)
+        S = self.S if ps.shard_vidx is None else 1
+        U = S * (ps.rows if ps.sweep else 1)
         built = ps.members.get(op.uid)
         if built is None:
             def select(m: Op) -> torch.Tensor:
                 T = ps.consts[m.uid]
+                if ps.shard_vidx is not None:  # one shard: its rows share a variant
+                    return T[ps.shard_vidx[m.uid][:U].long()]
                 v = self._variants(m, ps)
                 if v is None:
                     return T[:1].expand((U,) + tuple(T.shape[1:]))
@@ -325,7 +339,7 @@ class CudaBackend(Backend):
             built = [("mat" if T.dim() == 3 else "diag", tuple(bits), T.contiguous())
                      for bits, T in gate_list]
             ps.members[op.uid] = built
-        total = ps.rows * self.S
+        total = ps.rows * S
         rows = self._device_index(("shard_row", U, total),
                                   lambda: np.arange(total) % U)
         return [(kind, bits, T, rows) for kind, bits, T in built]
@@ -376,6 +390,312 @@ class CudaBackend(Backend):
         return self._loop(held, self.pass_of(P, consts), apply_final).view(P, -1)
 
 
+def _flat_ops(ops) -> List[Op]:
+    """Ops in operand order: shm groups contribute their members."""
+    flat: List[Op] = []
+    for op in ops:
+        flat.extend(op.gates if op.kind == "shm" else (op,))
+    return flat
+
+
+# device shard buffers of one offload run: shard s uploads, s-1 computes and
+# s-2 downloads at once, so three is the least that lets every copy engine
+# and the SMs work together
+COPY_BUFFERS = 3
+
+
+class _ShardRing:
+    """The shard traffic of one offload run between the host state and
+    :data:`COPY_BUFFERS` device buffers of ``[rows, 2^L]`` (slot ``s %
+    COPY_BUFFERS`` for shard ``s``).
+
+    On CUDA the uploads run on one copy stream, the stage's ops on the
+    current (compute) stream and the downloads on a second copy stream,
+    ordered by events: a slot uploads only after its previous shard has
+    downloaded, computes only after it has uploaded, and downloads only
+    after it has computed. So while shard s computes, s+1 uploads and s-1
+    downloads, each direction on its own copy engine. Every copy moves one
+    contiguous row of pinned host memory. On the CPU each step is a plain
+    copy between CPU tensors."""
+
+    def __init__(self, device: torch.device, rows: int, L: int, streams):
+        self.bufs = [torch.empty((rows, 1 << L), dtype=torch.complex64, device=device)
+                     for _ in range(COPY_BUFFERS)]
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.h2d, self.d2h = streams
+            for buf in self.bufs:
+                # used on both copy streams: the caching allocator must not
+                # hand a buffer out again before their work on it is done
+                buf.record_stream(self.h2d)
+                buf.record_stream(self.d2h)
+            self.uploaded = [torch.cuda.Event() for _ in self.bufs]
+            self.computed = [torch.cuda.Event() for _ in self.bufs]
+            self.downloaded = [torch.cuda.Event() for _ in self.bufs]
+
+    def upload(self, s: int, host: torch.Tensor) -> torch.Tensor:
+        """Shard ``s`` (``host``: its ``[rows, 2^L]`` view of the host
+        state) into its slot; returns the slot, ready on the compute stream."""
+        i = s % COPY_BUFFERS
+        buf = self.bufs[i]
+        if not self.cuda:
+            buf.copy_(host)
+            return buf
+        with torch.cuda.stream(self.h2d):
+            # a slot's first use waits on an event never recorded: no wait
+            self.h2d.wait_event(self.downloaded[i])
+            for b in range(host.shape[0]):
+                buf[b].copy_(host[b], non_blocking=True)
+            self.uploaded[i].record(self.h2d)
+        torch.cuda.current_stream(buf.device).wait_event(self.uploaded[i])
+        return buf
+
+    def download(self, s: int, host: torch.Tensor) -> None:
+        """Shard ``s``'s slot back into ``host`` once the compute stream's
+        work on it so far is done."""
+        i = s % COPY_BUFFERS
+        buf = self.bufs[i]
+        if not self.cuda:
+            host.copy_(buf)
+            return
+        self.computed[i].record(torch.cuda.current_stream(buf.device))
+        with torch.cuda.stream(self.d2h):
+            self.d2h.wait_event(self.computed[i])
+            for b in range(host.shape[0]):
+                host[b].copy_(buf[b], non_blocking=True)
+            self.downloaded[i].record(self.d2h)
+
+    def drain(self) -> None:
+        """Wait (on the host) for the last download."""
+        if self.cuda:
+            self.d2h.synchronize()
+
+
+@dataclass
+class _OffloadRun:
+    """What one offload run streams with: ``rows`` states (1, a batch of B,
+    or P sweep points), the op tables (the engine's registry, or a sweep's
+    ``[P * V, ...]`` stacks), the per-shard variant indices resolved so far
+    (``slices``: the backend's own, kept until the next bind, or a sweep's),
+    each shard's shm operands, and the device ring."""
+
+    rows: int
+    consts: Dict[int, torch.Tensor]
+    sweep: bool
+    slices: Dict[tuple, torch.Tensor]
+    members: Dict[int, Dict[int, List]]
+    ring: _ShardRing
+
+
+class OffloadBackend(CudaBackend):
+    """Host-DRAM streaming path (paper §VII-C): the twin of the reference's
+    ``HostOffloadBackend``. The state lives in host memory as ``2^(R+G)``
+    shards of ``2^L`` amplitudes per row (``[rows, 2^n]``; pinned when the
+    engine's device is CUDA); each stage streams every shard through the
+    device once (:class:`_ShardRing`) and runs the stage's ops on it with
+    :meth:`CudaBackend.apply_ops`, so ``fused`` ops and ``shm`` groups go
+    to the same hand kernels as on the in-card path, one launch per op and
+    shard. Remaps are bit permutations of the host state into a second
+    host buffer. A batch or a sweep streams ``[B, 2^L]`` (``[P, 2^L]``)
+    blocks: one pass over the host covers every row.
+
+    Pinned buffers come from PyTorch's caching host allocator, which pins a
+    block of a size once and hands it out again once it is freed: a warm
+    run, or a run after a rebind, pins no state buffer as long as the
+    caller has let go of the last result (``torch.cuda.host_memory_stats()``
+    shows it). A run holds at most two host states. A pin, a kernel build
+    or a launch that fails raises; with ``device="cpu"`` the state is an
+    ordinary CPU tensor and each copy a CPU copy.
+
+    The reference's tiered shard store (``storage=``) and stage
+    checkpointing (``checkpoint_dir=``) are not ported yet (A7b): both
+    raise."""
+
+    name = "offload"
+
+    def __init__(self, storage=None, checkpoint_dir=None):
+        for arg, val in (("storage", storage), ("checkpoint_dir", checkpoint_dir)):
+            if val is not None:
+                raise ValueError(f"{arg}= (the tiered shard store and stage checkpointing) "
+                                 "is not ported yet: it comes with the next offload slice, A7b")
+
+    def setup(self, engine: "ExecutionEngine") -> None:
+        super().setup(engine)
+        self.stats = {
+            "shard_transfers": 0,  # shard round trips host -> device -> host
+            "host_remaps": 0,
+            "tensor_uploads": 0,  # ops whose table a run read since the last bind
+            "tensor_slice_reuse": 0,  # per-shard variant indices served from the memo
+            "overlapped_dispatches": 0,  # shard s+1 dispatched before s is waited on
+            "stage_streams": 0,  # streamed stages (one drain each)
+            "memory_passes": 0,  # device passes (top-level ops)
+        }
+        self._uploaded: set = set()
+        # (op uid, variant, rows) -> device int32 [rows] variant index of a
+        # shard; and shard -> {group uid: shm operands}. Operands hold tensor
+        # values, so both go at the next bind.
+        self._dev_slices: Dict[tuple, torch.Tensor] = {}
+        self._shard_members: Dict[int, Dict[int, List]] = {}
+        self._streams = ((torch.cuda.Stream(engine.device), torch.cuda.Stream(engine.device))
+                         if engine.device.type == "cuda" else None)
+        # what the last run did, in order: each streamed stage and host
+        # remap with its wall seconds (the CLI and chip_smoke.py print it)
+        self.trace: List[Dict] = []
+
+    def on_rebind(self) -> None:
+        super().on_rebind()
+        self._uploaded.clear()
+        self._dev_slices.clear()
+        self._shard_members.clear()
+
+    # ------------------------------------------------------------ shards
+    def _host(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.engine.dtype,
+                           pin_memory=self.engine.device.type == "cuda")
+
+    def new_run(self, rows: int, sweep_consts: Optional[Dict[int, torch.Tensor]] = None
+                ) -> _OffloadRun:
+        """The context of one run of ``rows`` states (a sweep of ``rows``
+        points when ``sweep_consts`` is given), with its device ring."""
+        ring = _ShardRing(self.engine.device, rows, self.engine.L, self._streams)
+        if sweep_consts is None:
+            return _OffloadRun(rows, self.engine.consts, False, self._dev_slices,
+                               self._shard_members, ring)
+        return _OffloadRun(rows, sweep_consts, True, {}, {}, ring)
+
+    def resolve(self, op: Op, s: int, run: _OffloadRun) -> torch.Tensor:
+        """Variant index of flat op ``op`` for shard ``s``: int32 ``[rows]``
+        on the device (the shard's dep-bit variant, at ``p * V + v`` for
+        sweep point ``p``). Memoised by ``(uid, variant, rows)``, as the
+        reference memoises its per-shard tensor slices; the tables stay one
+        upload per op in the engine's registry."""
+        T = run.consts[op.uid]
+        V = T.shape[0] // (run.rows if run.sweep else 1)
+        dep = self._dep[op.uid]
+        v = int(dep[s]) if dep is not None and V > 1 else 0
+        if not run.sweep and op.uid not in self._uploaded:
+            self._uploaded.add(op.uid)
+            self.stats["tensor_uploads"] += 1
+        key = (op.uid, v, run.rows)
+        idx = run.slices.get(key)
+        if idx is None:
+            vals = np.arange(run.rows) * V + v if run.sweep else np.full(run.rows, v)
+            idx = kops.to_device(vals.astype(np.int32), self.engine.device)
+            run.slices[key] = idx
+        else:
+            self.stats["tensor_slice_reuse"] += 1
+        return idx
+
+    def shard_pass(self, s: int, ops: List[Op], run: _OffloadRun) -> _Pass:
+        """The pass :meth:`apply_ops` runs ``ops`` with on shard ``s`` of
+        every row."""
+        shard_vidx = {op.uid: self.resolve(op, s, run) for op in _flat_ops(ops)}
+        return _Pass(run.rows, run.consts, run.sweep, run.members.setdefault(s, {}), shard_vidx)
+
+    def stream_stage(self, state: torch.Tensor, prog: StageProgram, run: _OffloadRun
+                     ) -> torch.Tensor:
+        """Stream every shard of the host state ``[rows, 2^n]`` through the
+        device once, running ``prog``'s ops on it; updates ``state`` in
+        place and returns it."""
+        eng = self.engine
+        L = eng.L
+        t0 = time.perf_counter()
+        self.stats["memory_passes"] += prog.n_passes
+        self.stats["stage_streams"] += 1
+        for s in range(self.S):
+            host = state[:, s << L:(s + 1) << L]
+            ps = self.shard_pass(s, prog.ops, run)
+            buf = run.ring.upload(s, host)
+            self.apply_ops(buf.view(-1), prog, ps)
+            run.ring.download(s, host)
+            if s:  # dispatched while shard s-1 is still in flight
+                self.stats["overlapped_dispatches"] += 1
+            self.stats["shard_transfers"] += 1
+        run.ring.drain()
+        dt = time.perf_counter() - t0
+        eng._record_time("offload_stage", dt * 1e6)
+        self.trace.append({"kind": "stage", "ops": prog.n_passes, "seconds": dt,
+                           "bytes": 2 * state.numel() * state.element_size()})
+        return state
+
+    def host_remap(self, state: torch.Tensor, slot, spec: RemapSpec) -> torch.Tensor:
+        """The bit permutation ``spec`` of every row of the host state, into
+        a new host buffer."""
+        t0 = time.perf_counter()
+        out = permute_bits(state, spec.src_bit_of, spec.flip_bits, lead=1,
+                           out=self._host(state.shape))
+        self.stats["host_remaps"] += 1
+        dt = time.perf_counter() - t0
+        self.engine._record_time("offload_remap", dt * 1e6)
+        self.trace.append({"kind": "remap", "slot": slot, "seconds": dt})
+        return out
+
+    @property
+    def overlap_ratio(self) -> float:
+        """Share of the dispatches that could overlap their predecessor (all
+        but the first shard of each stage) that did; a vacuous 1.0 when no
+        stage has more than one shard."""
+        possible = self.stats["shard_transfers"] - self.stats["stage_streams"]
+        if possible <= 0:
+            return 1.0
+        return self.stats["overlapped_dispatches"] / possible
+
+    # ------------------------------------------------------------ api
+    def prepare(self, psi0, batch: bool = False) -> torch.Tensor:
+        """The host state ``[rows, 2^n]``: a batch, the given state, or
+        |0..0>."""
+        eng = self.engine
+        src = None
+        if batch:
+            src = torch.as_tensor(psi0).to(dtype=eng.dtype).reshape(-1, 1 << eng.n)
+            if src.shape[0] == 0:
+                raise ValueError("empty batch")
+        elif psi0 is not None:
+            src = torch.as_tensor(psi0).to(dtype=eng.dtype).reshape(1, -1)
+            if src.shape[1] != 1 << eng.n:
+                raise ValueError(f"psi0 has {src.shape[1]} amplitudes, expected 2^{eng.n}")
+        x = self._host((1 if src is None else src.shape[0], 1 << eng.n))
+        if src is None:
+            x.zero_()
+            x[0, 0] = 1.0
+        else:
+            x.copy_(src)
+        return x
+
+    def _run(self, held: List[torch.Tensor], run: _OffloadRun, apply_final: bool
+             ) -> torch.Tensor:
+        """The stage loop over the host state in ``held`` (a one-element
+        list that this empties, so a remap frees the state it read)."""
+        self.trace = []
+        return self.engine.stage_loop(
+            held.pop(), lambda st, prog: self.stream_stage(st, prog, run),
+            self.host_remap, apply_final)
+
+    def execute(self, state: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
+        held = [state]
+        del state
+        return self._run(held, self.new_run(1), apply_final).view(-1)
+
+    def execute_batch(self, states: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
+        """``states``: ``[B, 2^n]`` on the host; every shard moves as one
+        ``[B, 2^L]`` block and every op is one launch per shard for all B."""
+        held = [states]
+        rows = states.shape[0]
+        del states
+        return self._run(held, self.new_run(rows), apply_final)
+
+    def execute_sweep(self, state: torch.Tensor, consts: Dict[int, torch.Tensor], P: int,
+                      apply_final: bool = True) -> torch.Tensor:
+        """One initial state against P bindings (``consts[uid]``: the
+        ``[P * V, ...]`` stacks): the state is tiled to ``[P, 2^n]`` on the
+        host and every op is one launch per shard for all P points."""
+        states = self._host((P, state.shape[-1]))
+        states.copy_(state.reshape(1, -1).expand(P, -1))
+        held = [states]
+        del state, states
+        return self._run(held, self.new_run(P, consts), apply_final)
+
+
 class DenseBackend(Backend):
     """Per-gate dense oracle behind the engine API, on the engine's device.
 
@@ -399,6 +719,7 @@ class DenseBackend(Backend):
 
 BACKENDS: Dict[str, Callable[[], Backend]] = {
     "cuda": CudaBackend,
+    "offload": OffloadBackend,
     "dense": DenseBackend,
 }
 
@@ -412,8 +733,9 @@ class ExecutionEngine:
     """Staged executor: one stage loop, one constant registry, one public
     API. ``device`` defaults to CUDA (raises when it is absent); pass
     ``device="cpu"`` to run on the CPU. ``backend``: ``"cuda"`` (the
-    planned path, on whichever device) or ``"dense"`` (the per-gate
-    oracle)."""
+    planned path with the state on the device), ``"offload"`` (the planned
+    path with the state in host memory, streamed through the device stage
+    by stage) or ``"dense"`` (the per-gate oracle)."""
 
     def __init__(
         self,
@@ -831,8 +1153,8 @@ def _build_lock(cache: CompileCache, key: CircuitKey) -> threading.Lock:
 
 def _no_storage(storage) -> None:
     if storage is not None:
-        raise ValueError("storage= is the host-offload shard store, which the port "
-                         "does not have yet")
+        raise ValueError("storage= (the offload backend's tiered shard store) is not "
+                         "ported yet: it comes with the next offload slice, A7b")
 
 
 def circuit_key_for(
@@ -973,8 +1295,9 @@ def engine_for(
     optimized circuit, and ``engine.provenance["optimize"]`` records the
     rewrite. ``cache=None`` forces a fresh build; an explicit ``plan``
     bypasses the cache (and cannot be combined with ``optimize``). The
-    engine's device is part of the key. ``storage`` (host offload) is not
-    ported yet and raises."""
+    engine's device is part of the key, and so is the backend: offload
+    engines are cached apart from ``cuda`` ones. ``storage`` (the offload
+    backend's tiered shard store) is not ported yet and raises."""
     _no_storage(storage)
     device = resolve_device(device)
     ocfg = copt.resolve_config(optimize)

@@ -17,7 +17,9 @@ physical layout (``run_packed`` skips the final remap), and a
 :class:`PauliSum`, :class:`Frame`, the :class:`Measurer` base class,
 :class:`DenseMeasurer` (the host oracle path) and the complex128 oracles
 :func:`expectation_np` / :func:`marginal_np` are copied from the reference;
-:class:`TorchMeasurer` replaces its ``ShardedMeasurer``. Batches and sweeps
+:class:`TorchMeasurer` replaces its ``ShardedMeasurer``, and
+:class:`StreamingMeasurer` measures the offload backend's host state one
+shard at a time, as the reference's does. Batches and sweeps
 (:func:`measure_batch`, :func:`measure_sweep`) measure element ``b`` / point
 ``p`` with seed ``seed + b`` / ``seed + p``, as the reference does.
 """
@@ -424,20 +426,131 @@ class TorchMeasurer(Measurer):
         return sum_bits(_abs2(self.xflat), keep_bits).cpu().numpy()
 
     def _expect_term_phys(self, sign_bits, xy) -> float:
-        v = self.xflat
-        for b, mat in xy:
-            m = torch.as_tensor(np.asarray(mat)).to(device=v.device, dtype=v.dtype)
-            v = apply_matrix_bits(v, m, [b])
-        marg = sum_bits(_abs2(v), sign_bits).cpu().numpy()
-        idx = np.arange(marg.size)
-        parity = np.zeros(marg.size, dtype=np.int64)
-        for j in range(len(sign_bits)):
-            parity ^= (idx >> j) & 1
-        return float(np.sum(np.where(parity, -marg, marg)))
+        return _signed_sum(self.xflat, xy, sign_bits)
 
 
 def _abs2(x: torch.Tensor) -> torch.Tensor:
     return x.real ** 2 + x.imag ** 2
+
+
+def _signed_sum(v: torch.Tensor, xy, sign_bits: Sequence[int]) -> float:
+    """``sum_i |V v|^2(i) * prod_{b in sign_bits} (-1)^{bit b of i}`` for a
+    flat state ``v``, with ``V`` the 1-qubit basis changes ``xy`` (bit,
+    2x2), on ``v``'s device; the signs are applied on the host to the
+    float64 marginal over ``sign_bits``."""
+    for b, mat in xy:
+        m = torch.as_tensor(np.asarray(mat)).to(device=v.device, dtype=v.dtype)
+        v = apply_matrix_bits(v, m, [b])
+    marg = sum_bits(_abs2(v), sign_bits).cpu().numpy()
+    idx = np.arange(marg.size)
+    parity = np.zeros(marg.size, dtype=np.int64)
+    for j in range(len(sign_bits)):
+        parity ^= (idx >> j) & 1
+    return float(np.sum(np.where(parity, -marg, marg)))
+
+
+class StreamingMeasurer(Measurer):
+    """Measurer over the offload backend's host state (flat ``[2^n]``, in
+    ``2^(R+G)`` shards of ``2^L``): the twin of the reference's
+    ``StreamingMeasurer``.
+
+    Every reduction (the shard masses, a marginal, each Pauli term) is
+    **one pass** over the host shards, each shard copied to ``device`` and
+    reduced there, so measuring costs one read of the state whatever the
+    number of qubits measured. X/Y basis changes on non-local bits couple
+    groups of ``2^m`` shards (m: the term's non-local X/Y bits); each group
+    is copied to the device together and rotated there by the Kronecker
+    product of its ``2^m x 2^m`` basis change before the per-shard
+    reduction, still reading each shard once. The local CDF of a sampled
+    shard is built from its host amplitudes in float64 (``_probs64``), as
+    the reference builds it, so a seed gives the reference's shots."""
+
+    MAX_GROUP_BITS = 8  # 2^m * 2^L working-set cap for non-local X/Y terms
+
+    def __init__(self, state: torch.Tensor, frame: Frame, device: torch.device):
+        super().__init__(frame)
+        self.state = state.reshape(-1)
+        assert self.state.numel() == 1 << frame.n
+        self.device = torch.device(device)
+
+    def _host_shard(self, s: int) -> torch.Tensor:
+        L = self.frame.L
+        return self.state[s << L:(s + 1) << L]
+
+    def _shard(self, s: int) -> torch.Tensor:
+        """Shard ``s`` on the measuring device (a view when that is where
+        the host state lies)."""
+        return self._host_shard(s).to(self.device, non_blocking=True)
+
+    def _shard_masses(self) -> np.ndarray:
+        return np.array([float(_abs2(self._shard(s)).sum(dtype=torch.float64))
+                         for s in range(self.frame.n_shards)], dtype=np.float64)
+
+    def _local_probs(self, shard_id: int) -> np.ndarray:
+        return _probs64(self._host_shard(shard_id).numpy())
+
+    def _marginal_phys(self, keep_bits: Tuple[int, ...]) -> np.ndarray:
+        L = self.frame.L
+        loc = tuple(b for b in keep_bits if b < L)
+        nl = [b for b in keep_bits if b >= L]
+        pos = {b: j for j, b in enumerate(keep_bits)}
+        # local pattern -> offset within the output index
+        spread = np.zeros(1 << len(loc), dtype=np.int64)
+        for ll in range(1 << len(loc)):
+            for jl, b in enumerate(loc):
+                if (ll >> jl) & 1:
+                    spread[ll] |= 1 << pos[b]
+        out = np.zeros(1 << len(keep_bits), dtype=np.float64)
+        for s in range(self.frame.n_shards):
+            part = sum_bits(_abs2(self._shard(s)), loc).cpu().numpy()
+            base = 0
+            for b in nl:
+                if (s >> (b - L)) & 1:
+                    base |= 1 << pos[b]
+            out[base + spread] += part
+        return out
+
+    def _expect_term_phys(self, sign_bits, xy) -> float:
+        L = self.frame.L
+        xy_loc = tuple((b, m) for b, m in xy if b < L)
+        xy_nl = [(b, m) for b, m in xy if b >= L]
+        m = len(xy_nl)
+        if m > self.MAX_GROUP_BITS:
+            raise ValueError(f"{m} non-local X/Y bits exceed the 2^{self.MAX_GROUP_BITS} "
+                             "shard-group working-set cap; re-plan with these qubits local")
+        sign_loc = tuple(b for b in sign_bits if b < L)
+        sign_nl = [b for b in sign_bits if b >= L]
+        # group rotation: index bit t <-> xy_nl[t]; kron builds low bits last
+        U = np.array([[1.0]], dtype=np.complex128)
+        for _, mat in reversed(xy_nl):
+            U = np.kron(U, mat)
+        Ud = torch.as_tensor(U).to(device=self.device, dtype=self.state.dtype)
+        nl_mask = 0
+        for b, _ in xy_nl:
+            nl_mask |= 1 << (b - L)
+        total = 0.0
+        for base in range(self.frame.n_shards):
+            if base & nl_mask:
+                continue  # shard handled inside its group
+            group_ids = []
+            for g in range(1 << m):
+                sidx = base
+                for t, (b, _) in enumerate(xy_nl):
+                    if (g >> t) & 1:
+                        sidx |= 1 << (b - L)
+                group_ids.append(sidx)
+            if m:
+                group = torch.stack([self._shard(i) for i in group_ids])
+                rows = list(torch.matmul(Ud, group))
+            else:
+                rows = [self._shard(base)]
+            for sidx, row in zip(group_ids, rows):
+                sgn = 1.0
+                for b in sign_nl:
+                    if (sidx >> (b - L)) & 1:
+                        sgn = -sgn
+                total += sgn * _signed_sum(row, xy_loc, sign_loc)
+        return total
 
 
 class DenseMeasurer(Measurer):
@@ -495,9 +608,15 @@ class DenseMeasurer(Measurer):
         return float(p2.sum())
 
 
-def measurer_for(state, frame: Frame) -> Measurer:
-    """The measurer for a state: a tensor (on any device) is measured where
-    it lies, a numpy array on the host."""
+def measurer_for(state, frame: Frame, engine=None) -> Measurer:
+    """The measurer for a state. What produced it decides, never the device
+    the tensor happens to lie on: a state of an ``engine`` on the offload
+    backend is a host state in shards, streamed through the engine's device
+    (:class:`StreamingMeasurer`); any other tensor is measured where it
+    lies (:class:`TorchMeasurer`), a numpy array on the host
+    (:class:`DenseMeasurer`)."""
+    if engine is not None and engine.backend.name == "offload":
+        return StreamingMeasurer(state, frame, engine.device)
     if isinstance(state, torch.Tensor):
         return TorchMeasurer(state, frame)
     return DenseMeasurer(state, frame)
@@ -537,7 +656,7 @@ def measure_to_result(
     return result
 
 
-_BACKENDS = ("ref", "cuda")
+_BACKENDS = ("ref", "cuda", "offload")
 
 
 def simulate_and_measure(
@@ -561,9 +680,11 @@ def simulate_and_measure(
     """Simulate ``circuit`` and consume the state through measurement only.
 
     Backends: ``'ref'`` (the dense per-gate oracle on ``device``, measured
-    on the host) and ``'cuda'`` (the planned engine on ``device``, measured
-    in the final stage's layout: the final remap is skipped). ``params``
-    binds a parameterized circuit first. ``device`` defaults to CUDA."""
+    on the host), ``'cuda'`` (the planned engine on ``device``) and
+    ``'offload'`` (the planned engine with its state in host memory,
+    streamed through ``device``). The planned backends measure in the final
+    stage's layout: the final remap is skipped. ``params`` binds a
+    parameterized circuit first. ``device`` defaults to CUDA."""
     import time
 
     from .statevector import simulate
@@ -584,8 +705,9 @@ def simulate_and_measure(
 
         if plan is None:
             plan = partition(circuit, L if L is not None else n - R - G, R, G, **plan_kw)
-        ex = ExecutionEngine(circuit, plan, use_kernels=use_kernels, device=device)
-        measurer = measurer_for(ex.run_packed(psi0), ex.measurement_frame)
+        ex = ExecutionEngine(circuit, plan, use_kernels=use_kernels, device=device,
+                             backend=backend)
+        measurer = measurer_for(ex.run_packed(psi0), ex.measurement_frame, ex)
         meta["n_stages"] = plan.n_stages
     meta["simulate_s"] = time.time() - t0
     t0 = time.time()
@@ -610,16 +732,16 @@ def measure_batch(
     stage's layout) and measure every element in the shared frame. Element
     ``b`` samples with ``seed + b``."""
     states = engine.run_batch(psi0s, apply_final=False)
-    return _measure_state_batch(states, states.shape[0], engine.measurement_frame,
-                                engine.backend.name, shots, seed, marginals, observables)
+    return _measure_state_batch(engine, states, shots, seed, marginals, observables)
 
 
-def _measure_state_batch(states, B, frame, backend_name, shots, seed,
-                         marginals, observables) -> List[SimulationResult]:
+def _measure_state_batch(engine, states, shots, seed, marginals,
+                         observables) -> List[SimulationResult]:
     results: List[SimulationResult] = []
+    B, frame = states.shape[0], engine.measurement_frame
     for b in range(B):
         res = measure_to_result(
-            measurer_for(states[b], frame), backend=backend_name, shots=shots,
+            measurer_for(states[b], frame, engine), backend=engine.backend.name, shots=shots,
             seed=seed + b, marginals=marginals, observables=observables)
         res.meta = {"batch_index": b, "batch_size": B}
         results.append(res)
@@ -640,5 +762,4 @@ def measure_sweep(
     state against a batch of bindings through the engine's sweep path, then
     every point measured; point ``p`` samples with ``seed + p``."""
     states = engine.run_sweep(psi0, params_batch, apply_final=False)
-    return _measure_state_batch(states, states.shape[0], engine.measurement_frame,
-                                engine.backend.name, shots, seed, marginals, observables)
+    return _measure_state_batch(engine, states, shots, seed, marginals, observables)

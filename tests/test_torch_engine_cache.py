@@ -292,7 +292,7 @@ def test_simulate_and_measure_matches_reference(backend):
     for key in want.expectations:
         assert abs(got.expectations[key] - want.expectations[key]) < 1e-5
     with pytest.raises(ValueError, match="unknown backend"):
-        TM.simulate_and_measure(_port(sym), backend="offload", device="cpu", params=params)
+        TM.simulate_and_measure(_port(sym), backend="shardmap", device="cpu", params=params)
 
 
 def test_dense_measurer_shots_equal_torch_measurer():
@@ -633,8 +633,8 @@ def test_cli_dense_executor_and_opt(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--autotune"], ["--vqe", "Z0"], ["--storage", "int8"], ["--executor", "offload"],
-    ["--executor", "pergate"], ["--circuit", "isingparam", "--device", "cpu"],
+    ["--autotune"], ["--vqe", "Z0"], ["--storage", "int8"], ["--executor", "shardmap"],
+    ["--executor", "pergate", "--engine"], ["--circuit", "isingparam", "--device", "cpu"],
     ["--batch", "2", "--shots", "8", "--check", "--device", "cpu"],
 ])
 def test_cli_refuses_what_is_not_ported(argv):

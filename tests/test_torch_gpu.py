@@ -283,3 +283,64 @@ def test_kernels_beyond_int32_amplitudes(cuda):
         assert torch.equal(x[b << n:(b + 1) << n], y), f"row {b}"
         del y
     assert S * B == 16
+
+
+def _offload_pair(cuda, n=24, L=20):
+    """``ising(n)`` planned once, on the in-card backend and on the offload
+    backend (16 shards of 2^L)."""
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.core.partition import partition
+    from repro_torch.sim.engine import ExecutionEngine
+
+    circ = FAMILIES["ising"](n)
+    plan = partition(circ, L, n - L, 0)
+    return (ExecutionEngine(circ, plan, device=cuda),
+            ExecutionEngine(circ, plan, device=cuda, backend="offload"))
+
+
+@pytest.mark.gpu
+def test_offload_matches_in_card_run(cuda):
+    """An offload run of ``ising(24)`` in 16 shards of 2^20 against the
+    in-card run of the same plan: the same state, one kernel launch per op
+    and shard, dispatches that overlap, peak device memory within four
+    shards above the op tables, and a second run that pins no new host
+    memory."""
+    in_card, eng = _offload_pair(cuda)
+    want = in_card.run_packed()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    ops.reset_kernel_counters()
+    got = eng.run_packed()
+    peak = torch.cuda.max_memory_allocated(cuda)
+    counts = eng.op_counts()
+    S = eng.backend.S
+    assert ops.kernel_call_counts() == {"fused": S * counts.get("fused", 0),
+                                        "shm": S * counts.get("shm", 0)}
+    assert got.is_pinned() and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), want.cpu().numpy(), atol=ATOL)
+    assert eng.backend.overlap_ratio > 0
+    shard_bytes = 8 << eng.L
+    assert peak - base <= 4 * shard_bytes, (peak - base) / shard_bytes
+    del got
+    pinned = torch.cuda.host_memory_stats()["allocated_bytes.allocated"]
+    again = eng.run_packed()
+    assert torch.cuda.host_memory_stats()["allocated_bytes.allocated"] - pinned < shard_bytes
+    np.testing.assert_allclose(again.numpy(), want.cpu().numpy(), atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_offload_pin_failure_raises(cuda, monkeypatch):
+    """A host buffer that cannot be pinned stops the run: the offload
+    backend never carries on with pageable memory or another backend."""
+    _, eng = _offload_pair(cuda, n=12, L=8)
+    real = torch.empty
+
+    def failing(*args, **kw):
+        if kw.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory (pinning refused)")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", failing)
+    with pytest.raises(RuntimeError, match="pinning refused"):
+        eng.run()

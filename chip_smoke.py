@@ -29,6 +29,21 @@ the per-gate baseline; an offload batch of 2 ``qft(28)`` states and a sweep
 of 4 ``isingparam(28)`` bindings against the in-card ones, their kernel ops
 on shard 0 against the plain versions.
 
+Then the offload backend's shard store and stage checkpoints: the spill
+directory's disk and the host's memory; ``ising(32)`` L=28 R=4 through
+``--executor offload --storage bf16`` with a DRAM budget of half the 16 GiB
+at rest (the rest spilled to disk under ``build/``), held shard by shard
+within its own error bound against the in-card run of the same plan, with
+its stage, out-of-core remap and spill figures; on that state, Pauli terms
+with 2 and 3 non-local X/Y qubits through the streaming measurer (its peak
+device memory, and the values against the same terms on the in-card state);
+``ising(30)`` L=26 R=4 through the int8 tier, spilled, under the same checks;
+and ``ising(30)`` L=26 R=4 with ``--checkpoint-dir``, killed by an injected
+``shard_transfer_error`` inside stage 1 and resumed in a fresh engine to the
+uninterrupted run's state bit for bit, that run held against the in-card
+run of its plan and its kernel ops on shards 0 and 15 against their plain
+versions.
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -41,6 +56,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -80,6 +96,16 @@ OFFLOAD_PATH = ["--circuit", "ising", "--n", "32", "--L", "28", "--R", "4", "--e
 PERGATE = {"n": 26, "L": 22, "R": 4}  # qft(26): staged offload against the per-gate baseline
 OFFLOAD_ROWS = {"n": 28, "L": 26, "R": 2, "B": 2, "P": 4}
 FIDELITY_MIN = 1 - 1e-5
+# the shard store: ising(32) at rest in bf16 (16 GiB) with half of it in a
+# DRAM budget, the rest on disk; ising(30) in int8 (2 GiB at rest) with half
+# spilled. int8 loses ~0.75% of a shard's norm per encode and a run encodes
+# every shard three times, which the default tolerance (0.05) does not
+# allow: the int8 run takes 0.25.
+STORE = {"tier": "bf16", "n": 32, "L": 28, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
+STORE_INT8 = {"tier": "int8", "n": 30, "L": 26, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
+CHECKPOINT = {"n": 30, "L": 26, "R": 4}
+SPILL_ROOT = os.path.join(HERE, "build", "spill")
+CHECKPOINT_DIR = os.path.join(HERE, "build", "checkpoint")
 
 
 def require(ok: bool, msg: str) -> None:
@@ -688,18 +714,20 @@ class MeasureClock:
 
 def shard_fidelity(host: torch.Tensor, on_card: torch.Tensor, L: int) -> tuple:
     """``|<host|on_card>|`` accumulated in complex128 shard by shard on the
-    card (one host shard copied up at a time), and the largest amplitude
-    difference."""
+    card (one host shard copied up at a time), the largest amplitude
+    difference, and ``||host - on_card||_2``."""
     host, on_card = host.reshape(-1), on_card.reshape(-1)
     inner = torch.zeros((), dtype=torch.complex128, device="cuda")
+    sq = torch.zeros((), dtype=torch.float64, device="cuda")
     worst = 0.0
     for lo in range(0, host.numel(), 1 << L):
         a = host[lo:lo + (1 << L)].to("cuda", non_blocking=True)
         b = on_card[lo:lo + (1 << L)]
         worst = max(worst, max_err(a, b))
         inner += torch.vdot(a.to(torch.complex128), b.to(torch.complex128))
+        sq += (a - b).abs().pow_(2).sum(dtype=torch.float64)
         del a
-    return float(inner.abs()), worst
+    return float(inner.abs()), worst, float(sq.sqrt())
 
 
 def stage_lines(be, rates: dict, card: str, what: str) -> list:
@@ -785,7 +813,7 @@ def offload_phase(simulate, ops, ref, probe, card: str, rates: dict, fused: dict
     want = in_card.run_packed()
     sync("cuda")
     card_s = time.time() - t0
-    fid, diff = shard_fidelity(run.state, want, L)
+    fid, diff, _ = shard_fidelity(run.state, want, L)
     log(f"  ising({eng.n}) offload vs in-card on one plan, shard by shard: fidelity {fid:.9f}, "
         f"max |difference| {diff:.3e}; in-card compile + run {card_s:.3f} s ({card})")
     require(fid >= FIDELITY_MIN, f"offload fidelity {fid} < {FIDELITY_MIN}")
@@ -804,7 +832,7 @@ def offload_phase(simulate, ops, ref, probe, card: str, rates: dict, fused: dict
             f"a warm offload run after a rebind must pin no state buffer ({gib(nbytes)} "
             f"pinned) and schedule no shm program")
     warm_stages = stage_lines(be, rates, card, "offload warm")
-    fid2, _ = shard_fidelity(again, want, L)
+    fid2, _, _ = shard_fidelity(again, want, L)
     require(fid2 >= FIDELITY_MIN, f"warm offload fidelity {fid2} < {FIDELITY_MIN}")
     log(f"  warm run after a rebind: {warm_s:.3f} s; no state buffer pinned ({nbytes} bytes "
         f"in {blocks} staging blocks), no shm program scheduled, fidelity {fid2:.9f} ({card})")
@@ -962,6 +990,262 @@ def offload_rows_phase(ops, ref, card: str, n: int, L: int, R: int, B: int, P: i
     return out
 
 
+def host_check() -> int:
+    """The spill directory's disk and the host's memory, as ``df -h`` and
+    ``free -g`` print them, and its cores; returns the disk's free bytes."""
+    os.makedirs(SPILL_ROOT, exist_ok=True)
+    for cmd in (["df", "-h", SPILL_ROOT], ["free", "-g"]):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        for line in (proc.stdout or proc.stderr).strip().splitlines():
+            log(f"  {cmd[0]}: {line}")
+    log(f"  host cores: {os.cpu_count()}")
+    return shutil.disk_usage(SPILL_ROOT).free
+
+
+def store_budget(tier: str, n: int, fraction: float, free_disk: int) -> int:
+    """The DRAM budget that keeps ``fraction`` of the state at rest in DRAM,
+    raised where the disk could not take half of what spills: a remap
+    holds both generations of the state at rest, less what DRAM holds."""
+    from repro_torch.sim.shard_store import AT_REST_BYTES_PER_AMP
+
+    at_rest = AT_REST_BYTES_PER_AMP[tier] * (1 << n)
+    budget = fraction * at_rest
+    if 2 * at_rest - budget > free_disk / 2:
+        budget = 2 * at_rest - free_disk / 2
+    require(budget < at_rest, f"the spill disk has {gib(free_disk)} free: too little to spill "
+                              f"a {gib(at_rest)} {tier} state")
+    return int(budget)
+
+
+def store_phase(simulate, ops, ref, probe, card: str, fused: dict, free_disk: int, tier: str,
+                n: int, L: int, R: int, dram_fraction: float, tol: float, xy: bool = False) -> dict:
+    """``ising(n)`` through ``--executor offload --storage tier`` with a DRAM
+    budget that spills: one launch per op and shard, spills and reloads,
+    the run's peak device memory (at most four shards), each stage and
+    out-of-core remap with the store's codec and disk seconds, the pinned
+    bytes, and the state against the in-card run of the same plan shard by
+    shard within the run's own error bound; every kernel op on shards 0 and
+    S-1 against its plain version. With ``xy``, Pauli terms with 2 and 3
+    non-local X/Y qubits measured on the store's state (peak device memory)
+    and on the in-card state."""
+    from repro_torch.sim import measure as TM
+    from repro_torch.sim.engine import ExecutionEngine
+
+    budget = store_budget(tier, n, dram_fraction, free_disk)
+    spill = os.path.join(SPILL_ROOT, f"{tier}{n}")
+    shutil.rmtree(spill, ignore_errors=True)
+    argv = ["--circuit", "ising", "--n", str(n), "--L", str(L), "--R", str(R), "--executor",
+            "offload", "--storage", tier, "--dram-budget-mb", str(budget / 2**20), "--spill-dir",
+            spill, "--storage-tol", str(tol), "--observable", "Z0 Z1 + 0.5*X2"]
+    log("  " + " ".join(argv))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_counters()
+    pins = pinned()
+    t0 = time.time()
+    with MeasureClock(TM) as clock:
+        run = simulate.main(argv)
+    cli_s = time.time() - t0
+    eng, be = run.engine, run.engine.backend
+    S, shard_bytes = be.S, 8 << L
+    launches = launches_match(ops, eng, f"{tier} store path", per_op=S)
+    snap = eng.provenance["storage"]
+    require(snap["spills"] > 0 and snap["spill_loads"] > 0,
+            f"{tier} store: the run must spill and reload ({snap['spills']} spills, "
+            f"{snap['spill_loads']} reloads)")
+    require(all(np.isfinite(v) for v in run.result.expectations.values()),
+            f"{tier} store: expectations must be finite")
+    run_peak, kept = clock.run_peak - base, clock.after_run - base
+    require(run_peak <= 4 * shard_bytes + kept,
+            f"{tier} store run: peak device memory {gib(run_peak)} exceeds four shards above the "
+            f"{gib(kept)} the engine keeps")
+    blocks, nbytes = (a - b for a, b in zip(pinned(), pins))
+    io = {"spill_write_s": 0.0, "spill_read_s": 0.0, "spill_write_bytes": 0, "spill_read_bytes": 0}
+    for t in be.trace:
+        st = t.get("store")
+        what = {"stage": f"stage ({t.get('ops')} ops)", "remap": f"out-of-core remap {t.get('slot')}"
+                }.get(t["kind"], t["kind"])
+        line = f"  {tier} store {what}: {t['seconds']:.3f} s"
+        if st:
+            for k in io:
+                io[k] += st[k]
+            io_s = st["spill_write_s"] + st["spill_read_s"]
+            io_b = st["spill_write_bytes"] + st["spill_read_bytes"]
+            line += (f"; encode {st['encode_s']:.3f} s, decode {st['decode_s']:.3f} s, disk "
+                     f"{gib(st['spill_write_bytes'])} out + {gib(st['spill_read_bytes'])} in in "
+                     f"{io_s:.3f} s" + (f" = {io_b / io_s / 1e9:.2f} GB/s" if io_s else ""))
+        log(line + f" ({card})")
+    stages = [t["seconds"] for t in be.trace if t["kind"] == "stage"]
+    remaps = [t["seconds"] for t in be.trace if t["kind"] == "remap"]
+    gather = sum(t["seconds"] for t in be.trace if t["kind"] == "gather")
+    io_s = io["spill_write_s"] + io["spill_read_s"]
+    log(f"  {tier} ising({n}) L={L} R={R}: simulate {run.seconds:.3f} s = {sum(stages):.3f} s "
+        f"stages + {sum(remaps):.3f} s out-of-core remaps + {gather:.3f} s gather + the rest "
+        f"(filling the store); spill {gib(io['spill_write_bytes'])} written at "
+        f"{io['spill_write_bytes'] / max(io['spill_write_s'], 1e-9) / 1e9:.2f} GB/s, "
+        f"{gib(io['spill_read_bytes'])} read at "
+        f"{io['spill_read_bytes'] / max(io['spill_read_s'], 1e-9) / 1e9:.2f} GB/s ({io_s:.3f} s); "
+        f"{snap['spills']} spills, {snap['spill_loads']} reloads, peak at-rest DRAM "
+        f"{gib(snap['peak_dram_bytes'])} of a {gib(budget)} budget; error bound "
+        f"{snap['relative_error_bound']:.3e} (tol {tol}); peak device memory {gib(run_peak)} "
+        f"({run_peak / shard_bytes:.2f} shards; the engine keeps {gib(kept)}); pinned "
+        f"{gib(nbytes)} in {blocks} blocks; the CLI call {cli_s:.1f} s ({card})")
+
+    t0 = time.time()
+    in_card = ExecutionEngine(eng.circuit, eng.plan, device="cuda")
+    want = in_card.run_packed()
+    sync("cuda")
+    card_s = time.time() - t0
+    fid, diff, l2 = shard_fidelity(run.state, want, L)
+    bound = snap["relative_error_bound"]
+    log(f"  {tier} store vs in-card on one plan, shard by shard: ||difference|| {l2:.3e} against "
+        f"the run's bound {bound:.3e}; fidelity {fid:.9f}, max |difference| {diff:.3e}; in-card "
+        f"compile + run {card_s:.3f} s ({card})")
+    require(l2 <= bound + 1e-5, f"{tier} store: ||store - in-card|| {l2} exceeds the bound {bound}")
+    del in_card
+    out = {"launches": launches, "seconds": run.seconds, "stages": stages, "remaps": remaps,
+           "io": io, "run_peak": run_peak, "pinned": nbytes, "l2": l2, "bound": bound}
+    if xy:
+        frame = eng.measurement_frame
+        nl = [q for q in range(frame.n) if frame.phys_of[q] >= L]
+        loc = [q for q in range(frame.n) if frame.phys_of[q] < L]
+        terms = [f"X{nl[0]} Y{nl[1]} Z{loc[0]}", f"X{nl[0]} Y{nl[1]} X{nl[2]} Z{loc[1]}"]
+        on_card = [TM.StreamingMeasurer(want, frame, "cuda").expectation(t) for t in terms]
+        del want
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m = TM.StreamingMeasurer(run.state, frame, "cuda")
+        vals, secs = [], []
+        for t in terms:
+            t0 = time.time()
+            vals.append(m.expectation(t))
+            secs.append(time.time() - t0)
+        xy_peak = torch.cuda.max_memory_allocated() - base
+        for t, v, w, sec in zip(terms, vals, on_card, secs):
+            mm = t.count("X") + t.count("Y")
+            log(f"  <{t}> (m={mm} non-local X/Y): {v:+.9f} on the {tier} store's state in "
+                f"{sec:.3f} s, {w:+.9f} on the in-card state ({card})")
+            require(abs(v - w) <= 2.1 * l2 + 1e-5,
+                    f"<{t}> on the store's state and on the in-card state differ by {abs(v - w)}")
+        log(f"  X/Y terms: peak device memory {gib(xy_peak)} ({xy_peak / shard_bytes:.2f} shards), "
+            f"against the run's {gib(run_peak)}; a whole group at m=3 would stack "
+            f"{gib(2 * 8 * shard_bytes)} ({card})")
+        require(xy_peak <= run_peak + shard_bytes,
+                f"X/Y measurement peak {gib(xy_peak)} exceeds the run's {gib(run_peak)} plus a shard")
+        out.update(xy_peak=xy_peak, xy=dict(zip(terms, vals)))
+    else:
+        del want
+    torch.cuda.empty_cache()
+
+    tops = [op for prog in eng.cc.programs for op in prog.ops]
+    worst = {"fused": 0.0, "shm": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(1 << L, dtype=torch.complex64, device="cuda", generator=gen)
+    ps0 = None
+    for s in (0, S - 1):
+        ps = be.shard_pass(s, tops, be.new_run(1))
+        ps0 = ps0 or ps
+        w = hold_ops(ops, ref, eng, ps, x, f"{tier} store shard {s}")
+        worst = {k: max(worst[k], w[k]) for k in worst}
+    rows = fused_by_k(ops, ref, probe, eng, x, f"{tier} store shard 0", launches["by_k"],
+                      skip=[row["k"] for row in fused["by_k"]], ps=ps0)
+    fused["by_k"] += [by_k_row(row) for row in rows]
+    del x, run
+    release_pinned()
+    shutil.rmtree(spill, ignore_errors=True)
+    out["worst"] = worst
+    return out
+
+
+def checkpoint_phase(card: str, ops, ref, n: int, L: int, R: int) -> dict:
+    """``ising(n)`` through the offload backend with ``checkpoint_dir``:
+    killed by an injected ``shard_transfer_error`` inside stage 1 (only that
+    typed error may end it), then resumed in a fresh engine from the
+    journal: the resumed stages' launches, and the state equal to the
+    uninterrupted run's bit for bit; the save of each stage timed. The
+    uninterrupted run is held against the in-card run of its plan shard by
+    shard, and every kernel op of its shards 0 and S-1 against its plain
+    version."""
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.sim import faults
+    from repro_torch.sim.engine import ExecutionEngine, engine_for
+
+    circ = FAMILIES["ising"](n)
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    plain = engine_for(circ, L, R, 0, backend="offload", device="cuda", cache=None)
+    t0 = time.time()
+    want = plain.run()
+    plain_s = time.time() - t0
+    S = plain.backend.S
+    on_card = ExecutionEngine(circ, plain.plan, device="cuda").run()
+    fid, diff, _ = shard_fidelity(want, on_card, L)
+    del on_card
+    torch.cuda.empty_cache()
+    log(f"  ising({n}) uninterrupted offload run vs in-card on one plan, shard by shard: "
+        f"fidelity {fid:.9f}, max |difference| {diff:.3e} ({card})")
+    require(fid >= FIDELITY_MIN, f"checkpoint phase: offload fidelity {fid} < {FIDELITY_MIN}")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(1 << L, dtype=torch.complex64, device="cuda", generator=gen)
+    tops = [op for prog in plain.cc.programs for op in prog.ops]
+    worst = {"fused": 0.0, "shm": 0.0}
+    for s in (0, S - 1):
+        ps = plain.backend.shard_pass(s, tops, plain.backend.new_run(1))
+        w = hold_ops(ops, ref, plain, ps, x, f"checkpoint plan shard {s}")
+        worst = {k: max(worst[k], w[k]) for k in worst}
+    del x, ps
+    kw = dict(backend="offload", device="cuda", cache=None, checkpoint_dir=CHECKPOINT_DIR)
+    eng = engine_for(circ, L, R, 0, **kw)
+    require(len(eng.cc.programs) >= 2, "the checkpoint phase needs a plan of two stages")
+    plan = faults.FaultPlan(seed=1).add("shard_transfer_error", site="offload.shard",
+                                        after=S + S // 2, count=1)
+    killed = None
+    t0 = time.time()
+    with faults.inject(plan):
+        try:
+            eng.run()
+        except faults.ShardTransferError as e:
+            killed = e
+    kill_s = time.time() - t0
+    require(killed is not None and killed.injected and f"offload.shard{S // 2}" in str(killed),
+            "the checkpointed run must end with the injected shard_transfer_error in stage 1")
+    saves = [t for t in eng.backend.trace if t["kind"] == "checkpoint"]
+    require(eng.backend.stats["checkpointed_stages"] >= 1
+            and os.path.exists(os.path.join(CHECKPOINT_DIR, "journal.json")),
+            "the killed run must leave a checkpoint")
+    fresh = engine_for(circ, L, R, 0, **kw)
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    got = fresh.run()
+    resume_s = time.time() - t0
+    start = fresh.backend.stats["resumed_stages"]
+    require(start >= 1, "the fresh engine must resume from the journal")
+    want_launches = {k: S * sum(op.kind == k for prog in fresh.cc.programs[start:]
+                                for op in prog.ops) for k in ("fused", "shm")}
+    launches = ops.kernel_call_counts()
+    require(launches == want_launches,
+            f"resumed run: kernel launches {launches} != the resumed stages' ops {want_launches}")
+    diff = max_err(got.to("cuda"), want.to("cuda"))
+    require(torch.equal(got, want), f"the resumed state differs from the uninterrupted run's "
+                                    f"(max |difference| {diff})")
+    require(not os.listdir(CHECKPOINT_DIR), "a finished run must delete its checkpoint")
+    saves += [t for t in fresh.backend.trace if t["kind"] == "checkpoint"]
+    loads = [t["seconds"] for t in fresh.backend.trace if t["kind"] == "resume"]
+    log(f"  ising({n}) L={L} R={R}, {len(eng.cc.programs)} stages: uninterrupted offload run "
+        f"{plain_s:.3f} s; checkpointed run killed in stage 1 at shard {S // 2} after "
+        f"{kill_s:.3f} s; a fresh engine resumed at stage {start} in {resume_s:.3f} s (the "
+        f"checkpoint read in {sum(loads):.3f} s); state equal to the uninterrupted run's bit "
+        f"for bit; launches {launches}; each _save_state: "
+        + ", ".join(f"stage {t['stage']} {gib(t['bytes'])} in {t['seconds']:.3f} s = "
+                    f"{t['bytes'] / t['seconds'] / 1e9:.2f} GB/s" for t in saves) + f" ({card})")
+    del want, got, plain, eng, fresh
+    release_pinned()
+    return {"launches": dict(launches, by_k=ops.fused_call_counts_by_k()), "plain_s": plain_s,
+            "kill_s": kill_s, "resume_s": resume_s, "saves": [t["seconds"] for t in saves],
+            "fidelity": fid, "worst": worst}
+
+
 def sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1081,6 +1365,24 @@ def main() -> None:
     paths["isingparam28_offload_sweep4"] = rows["sweep"]["launches"]
     worst += [rows["batch"]["worst"], rows["sweep"]["worst"]]
     log(f"  the offload phases took {time.time() - t_offload:.1f}s")
+
+    t_store = time.time()
+    log("== the host's disk and memory (spill directory build/spill)")
+    free_disk = host_check()
+    log("== shard store: ising({n}) L={L} R={R}, {tier}, half at rest on disk".format(**STORE))
+    store = store_phase(simulate, ops, ref, probe, card, fused, free_disk, xy=True, **STORE)
+    paths["ising32_store_bf16"] = store["launches"]
+    worst.append(store["worst"])
+    log("== shard store: ising({n}) L={L} R={R}, {tier}, half at rest on disk".format(**STORE_INT8))
+    store8 = store_phase(simulate, ops, ref, probe, card, fused, free_disk, **STORE_INT8)
+    paths["ising30_store_int8"] = store8["launches"]
+    worst.append(store8["worst"])
+    log("== stage checkpoints: ising({n}) L={L} R={R}, killed in stage 1 and resumed"
+        .format(**CHECKPOINT))
+    ckpt = checkpoint_phase(card, ops, ref, **CHECKPOINT)
+    paths["ising30_checkpoint_resumed"] = ckpt["launches"]
+    worst.append(ckpt["worst"])
+    log(f"  the store and checkpoint phases took {time.time() - t_store:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

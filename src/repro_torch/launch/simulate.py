@@ -30,8 +30,17 @@ per-gate offload baseline:
   PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 12 \
       --L 9 --R 3 --executor pergate --check --device cpu
 
-Not in the port yet, and refused: ``--autotune``, ``--vqe``, ``--storage``
-and the ``shardmap`` executor.
+The offload state at rest in a tiered shard store (bf16 or int8 shards in a
+DRAM budget, the rest spilled to disk), or checkpointed after every stage
+(a killed run resumes from the directory):
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit ising --n 32 \\
+      --L 28 --R 4 --executor offload --storage bf16 --dram-budget-mb 8192 \\
+      --spill-dir /path/to/disk
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit ising --n 30 \\
+      --L 26 --R 4 --executor offload --checkpoint-dir /path/to/ckpt
+
+Not in the port yet, and refused: ``--autotune``, ``--vqe`` and the
+``shardmap`` executor.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from ..sim.measure import (
     Frame, StreamingMeasurer, measure_batch, measure_sweep, measure_to_result, measurer_for,
 )
 from ..sim.offload import PerGateOffloadExecutor
+from ..sim.shard_store import StorageConfig
 from ..sim.result import SimulationResult
 from ..sim.statevector import fidelity, simulate_np
 
@@ -112,10 +122,23 @@ def _load_sweep(path):
     return [{k: float(v[p]) for k, v in d.items()} for p in range(P)]
 
 
+def _store_line(t: dict) -> str:
+    """The shard store's share of one traced step: codec and disk seconds,
+    and the disk rate."""
+    st = t.get("store")
+    if not st:
+        return ""
+    io_s = st["spill_write_s"] + st["spill_read_s"]
+    io_b = st["spill_write_bytes"] + st["spill_read_bytes"]
+    return (f"; store: encode {st['encode_s']:.3f}s, decode {st['decode_s']:.3f}s, spill "
+            f"{st['spill_write_bytes'] / 2**30:.2f} GiB out + {st['spill_read_bytes'] / 2**30:.2f}"
+            f" GiB in in {io_s:.3f}s" + (f" ({io_b / io_s / 1e9:.2f} GB/s)" if io_s > 0 else ""))
+
+
 def _print_offload(ex: ExecutionEngine) -> None:
     """What the offload backend's last run did: each streamed stage with the
-    bytes it moved both ways and its rate, each host remap, and the
-    counters."""
+    bytes it moved both ways and its rate, each host remap, each checkpoint,
+    the store's codec and disk time, and the counters."""
     be = ex.backend
     if be.name != "offload":
         return
@@ -123,11 +146,22 @@ def _print_offload(ex: ExecutionEngine) -> None:
     for t in be.trace:
         if t["kind"] == "stage":
             print(f"  offload stage {stage}: {t['ops']} ops, {t['bytes'] / 2**30:.2f} GiB moved "
-                  f"in {t['seconds']:.3f}s ({t['bytes'] / t['seconds'] / 1e9:.2f} GB/s)")
+                  f"in {t['seconds']:.3f}s ({t['bytes'] / t['seconds'] / 1e9:.2f} GB/s)"
+                  + _store_line(t))
             stage += 1
+        elif t["kind"] == "remap":
+            print(f"  host remap {t['slot']}: {t['seconds']:.3f}s" + _store_line(t))
+        elif t["kind"] == "checkpoint":
+            print(f"  checkpoint after stage {t['stage']}: {t['bytes'] / 2**30:.2f} GiB saved "
+                  f"in {t['seconds']:.3f}s")
         else:
-            print(f"  host remap {t['slot']}: {t['seconds']:.3f}s")
+            print(f"  {t['kind']}: {t['seconds']:.3f}s")
     print(f"  offload stats {be.stats}; overlap_ratio {be.overlap_ratio:.3f}")
+    snap = be.storage_snapshot() if be.storage is not None else None
+    if snap:
+        print(f"storage: {snap['spilled_shards']}/{snap['n_shards']} shards at rest on disk "
+              f"after run; {snap['spills']} spills, {snap['spill_loads']} reloads; error "
+              f"bound {snap['relative_error_bound']:.3e} (tol {snap['error_tolerance']})")
 
 
 def _print_results(results) -> None:
@@ -178,11 +212,48 @@ def main(argv=None) -> SimulateRun:
                     help="comma-separated qubit subset (repeatable)")
     ap.add_argument("--observable", action="append", default=[],
                     help='Pauli sum, e.g. "Z0 Z1 + 0.5*X2" (repeatable)')
+    ap.add_argument("--storage", default=None, metavar="SPEC",
+                    help="tiered at-rest shard store for --executor offload (implies "
+                         "--engine): 'exact'|'bf16'|'int8' with optional ':dram_kib=N', "
+                         "':dir=PATH', ':tol=X', e.g. 'int8:dram_kib=4096'. Shards past the "
+                         "DRAM budget spill to disk")
+    ap.add_argument("--dram-budget-mb", type=float, default=None,
+                    help="at-rest DRAM budget in MiB for --storage (overrides any dram_kib "
+                         "in the spec)")
+    ap.add_argument("--spill-dir", default=None,
+                    help="directory for spilled shard files (default: the system temp dir)")
+    ap.add_argument("--storage-tol", type=float, default=None,
+                    help="max accumulated quantization error bound before the run is "
+                         "rejected (default 0.05)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="--executor offload: save the host state after every stage and "
+                         "resume a killed run of the same circuit, binding and initial "
+                         "state from DIR (implies --engine; not with --storage)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if args.executor == "pergate" and (args.engine or args.batch > 1 or args.sweep is not None):
         ap.error("--executor pergate is a baseline outside the engine: no --engine, "
                  "--batch or --sweep")
+    storage = None
+    if args.storage is not None:
+        if args.executor != "offload":
+            ap.error("--storage requires --executor offload")
+        storage = StorageConfig.parse(args.storage)
+        if storage is not None:
+            over = {}
+            if args.dram_budget_mb is not None:
+                over["dram_bytes"] = int(args.dram_budget_mb * (1 << 20))
+            if args.spill_dir is not None:
+                over["spill_dir"] = args.spill_dir
+            if args.storage_tol is not None:
+                over["error_tolerance"] = args.storage_tol
+            if over:
+                storage = storage.with_overrides(**over)
+    if args.checkpoint_dir is not None:
+        if args.executor != "offload":
+            ap.error("--checkpoint-dir requires --executor offload")
+        if storage is not None:
+            ap.error("--checkpoint-dir and --storage are mutually exclusive")
 
     device = resolve_device(args.device)
     n = args.n
@@ -204,7 +275,8 @@ def main(argv=None) -> SimulateRun:
         ap.error(f"circuit has free parameters {circ.param_names}; "
                  "pass --bind NAME=VAL or --sweep FILE.json")
     use_engine = (args.engine or args.batch > 1 or args.executor == "dense"
-                  or args.sweep is not None)
+                  or args.sweep is not None or storage is not None
+                  or args.checkpoint_dir is not None)
     if not use_engine and (binds or not circ.is_bound):
         # the engine path binds after the cache lookup, so its key stays
         # parameter-blind; here the circuit is bound up front
@@ -219,9 +291,16 @@ def main(argv=None) -> SimulateRun:
     if use_engine:
         ex = engine_for(circ, L, args.R, args.G, backend=args.executor,
                         staging_method=args.staging, kernelize_method=args.kernelizer,
-                        optimize=args.opt, device=device)
+                        optimize=args.opt, device=device, storage=storage,
+                        checkpoint_dir=args.checkpoint_dir)
         plan = ex.plan
         build_s = time.time() - t0
+        st_cfg = getattr(ex.backend, "storage", None)
+        if st_cfg is not None:
+            budget = ("unbounded" if st_cfg.dram_bytes is None
+                      else f"{st_cfg.dram_bytes / (1 << 20):.1f} MiB")
+            print(f"storage: at-rest {st_cfg.at_rest_dtype}, DRAM budget {budget}, "
+                  f"tol {st_cfg.error_tolerance}")
         print(f"engine[{ex.backend.name}] ready in {build_s:.2f}s; "
               f"cache: {len(DEFAULT_CACHE)} entries, {DEFAULT_CACHE.hits} hits"
               f"/{DEFAULT_CACHE.misses} misses")

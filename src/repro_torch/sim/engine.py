@@ -35,14 +35,14 @@ in place; a remap writes one new state, so a run holds at most two states.
 The reference's degradation ladder keeps only its planning rungs here
 (:func:`_plan_resilient`) and the one retry of a failed ``compile_plan``
 (:func:`build_engine`): a backend or kernel that fails raises. Not in this
-module yet: the offload backend's shard store (``storage=``) and stage
-checkpoints, the multi-device backends, adjoint gradients, the norm guard
+module yet: the multi-device backends, adjoint gradients, the norm guard
 and the device calibration.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -63,7 +63,10 @@ from .apply import apply_matrix_bits, mul_bits_, permute_bits
 from .compile import (
     CompiledCircuit, Op, RemapSpec, StageProgram, bind_tensors, bind_tensors_sweep, compile_plan,
 )
+from . import faults
 from .faults import FaultError, KernelizationError, StagingError
+from .journal import RunJournal, StragglerMonitor
+from .shard_store import ShardStore, StorageConfig
 
 
 # ======================================================================
@@ -465,6 +468,11 @@ class _ShardRing:
                 host[b].copy_(buf[b], non_blocking=True)
             self.downloaded[i].record(self.d2h)
 
+    def wait(self, s: int) -> None:
+        """Wait (on the host) for shard ``s``'s download."""
+        if self.cuda:
+            self.downloaded[s % COPY_BUFFERS].synchronize()
+
     def drain(self) -> None:
         """Wait (on the host) for the last download."""
         if self.cuda:
@@ -477,7 +485,9 @@ class _OffloadRun:
     or P sweep points), the op tables (the engine's registry, or a sweep's
     ``[P * V, ...]`` stacks), the per-shard variant indices resolved so far
     (``slices``: the backend's own, kept until the next bind, or a sweep's),
-    each shard's shm operands, and the device ring."""
+    each shard's shm operands, the device ring, and on a shard store the
+    :data:`COPY_BUFFERS` host staging blocks of ``[rows, 2^L]`` (pinned on
+    CUDA) that shards are decoded into and encoded from."""
 
     rows: int
     consts: Dict[int, torch.Tensor]
@@ -485,6 +495,7 @@ class _OffloadRun:
     slices: Dict[tuple, torch.Tensor]
     members: Dict[int, Dict[int, List]]
     ring: _ShardRing
+    staging: List[torch.Tensor] = field(default_factory=list)
 
 
 class OffloadBackend(CudaBackend):
@@ -507,17 +518,29 @@ class OffloadBackend(CudaBackend):
     or a launch that fails raises; with ``device="cpu"`` the state is an
     ordinary CPU tensor and each copy a CPU copy.
 
-    The reference's tiered shard store (``storage=``) and stage
-    checkpointing (``checkpoint_dir=``) are not ported yet (A7b): both
-    raise."""
+    ``storage`` (a :class:`repro_torch.sim.shard_store.StorageConfig`, a
+    spec string like ``"int8:dram_kib=64"`` or a dict) keeps the state at
+    rest in a tiered :class:`ShardStore` instead of a host tensor: each
+    stage decodes shard s+1 (from DRAM or disk) into a host staging block on
+    the store's prefetch worker while shard s computes, and encodes shard
+    s-1 once its download has landed; remaps run out of core
+    (:meth:`ShardStore.remap`); the run ends with the tolerance check and
+    the decoded state gathered into a host tensor. ``checkpoint_dir``
+    snapshots the host state after every stage (fsync'd tmp + rename, with
+    a :class:`RunJournal`), so a killed run resumes in a fresh engine. The
+    two are mutually exclusive. A failed spill raises ``SpillIOError``, a
+    bound over the tolerance ``StorageToleranceError``: nothing falls back
+    to an exact state."""
 
     name = "offload"
 
-    def __init__(self, storage=None, checkpoint_dir=None):
-        for arg, val in (("storage", storage), ("checkpoint_dir", checkpoint_dir)):
-            if val is not None:
-                raise ValueError(f"{arg}= (the tiered shard store and stage checkpointing) "
-                                 "is not ported yet: it comes with the next offload slice, A7b")
+    def __init__(self, storage=None, checkpoint_dir: Optional[str] = None):
+        self.storage: Optional[StorageConfig] = StorageConfig.coerce(storage)
+        self.checkpoint_dir = checkpoint_dir
+        if self.storage is not None and checkpoint_dir is not None:
+            raise ValueError("storage= and checkpoint_dir= are mutually exclusive: the "
+                             "shard store is the run's at-rest form, a checkpoint would "
+                             "gather it every stage")
 
     def setup(self, engine: "ExecutionEngine") -> None:
         super().setup(engine)
@@ -529,6 +552,9 @@ class OffloadBackend(CudaBackend):
             "overlapped_dispatches": 0,  # shard s+1 dispatched before s is waited on
             "stage_streams": 0,  # streamed stages (one drain each)
             "memory_passes": 0,  # device passes (top-level ops)
+            "checkpointed_stages": 0,  # stage snapshots written (checkpoint_dir)
+            "resumed_stages": 0,  # stages skipped on the last resume
+            "straggler_stages": 0,  # stages flagged by the EWMA monitor
         }
         self._uploaded: set = set()
         # (op uid, variant, rows) -> device int32 [rows] variant index of a
@@ -538,8 +564,10 @@ class OffloadBackend(CudaBackend):
         self._shard_members: Dict[int, Dict[int, List]] = {}
         self._streams = ((torch.cuda.Stream(engine.device), torch.cuda.Stream(engine.device))
                          if engine.device.type == "cuda" else None)
-        # what the last run did, in order: each streamed stage and host
-        # remap with its wall seconds (the CLI and chip_smoke.py print it)
+        # what the last run did, in order: each streamed stage, host remap
+        # and checkpoint with its wall seconds (the CLI and chip_smoke.py
+        # print it); on a store, each stage and remap also carries the
+        # store's codec and disk seconds and bytes spent in it
         self.trace: List[Dict] = []
 
     def on_rebind(self) -> None:
@@ -592,42 +620,114 @@ class OffloadBackend(CudaBackend):
         shard_vidx = {op.uid: self.resolve(op, s, run) for op in _flat_ops(ops)}
         return _Pass(run.rows, run.consts, run.sweep, run.members.setdefault(s, {}), shard_vidx)
 
-    def stream_stage(self, state: torch.Tensor, prog: StageProgram, run: _OffloadRun
-                     ) -> torch.Tensor:
-        """Stream every shard of the host state ``[rows, 2^n]`` through the
-        device once, running ``prog``'s ops on it; updates ``state`` in
-        place and returns it."""
-        eng = self.engine
-        L = eng.L
-        t0 = time.perf_counter()
+    def _begin_stage(self, prog: StageProgram) -> float:
+        if faults._ACTIVE is not None:
+            faults.maybe_inject("slow_stage", site="offload.stage")
         self.stats["memory_passes"] += prog.n_passes
         self.stats["stage_streams"] += 1
-        for s in range(self.S):
-            host = state[:, s << L:(s + 1) << L]
-            ps = self.shard_pass(s, prog.ops, run)
-            buf = run.ring.upload(s, host)
-            self.apply_ops(buf.view(-1), prog, ps)
-            run.ring.download(s, host)
-            if s:  # dispatched while shard s-1 is still in flight
-                self.stats["overlapped_dispatches"] += 1
-            self.stats["shard_transfers"] += 1
-        run.ring.drain()
+        return time.perf_counter()
+
+    def _end_stage(self, prog: StageProgram, t0: float, nbytes: int, **extra) -> None:
         dt = time.perf_counter() - t0
-        eng._record_time("offload_stage", dt * 1e6)
-        self.trace.append({"kind": "stage", "ops": prog.n_passes, "seconds": dt,
-                           "bytes": 2 * state.numel() * state.element_size()})
+        self.engine._record_time("offload_stage", dt * 1e6)
+        self.trace.append(dict({"kind": "stage", "ops": prog.n_passes, "seconds": dt,
+                                "bytes": nbytes}, **extra))
+
+    @staticmethod
+    def _shard_fault(s: int) -> None:
+        if faults._ACTIVE is not None:
+            faults.maybe_inject("shard_transfer_error", site=f"offload.shard{s}")
+
+    def stream_stage(self, state, prog: StageProgram, run: _OffloadRun):
+        """Stream every shard of the host state ``[rows, 2^n]`` (or of a
+        :class:`ShardStore`) through the device once, running ``prog``'s
+        ops on it; updates the state in place and returns it."""
+        if isinstance(state, ShardStore):
+            return self._stream_stage_store(state, prog, run)
+        L = self.engine.L
+        t0 = self._begin_stage(prog)
+        try:
+            for s in range(self.S):
+                self._shard_fault(s)
+                host = state[:, s << L:(s + 1) << L]
+                ps = self.shard_pass(s, prog.ops, run)
+                buf = run.ring.upload(s, host)
+                self.apply_ops(buf.view(-1), prog, ps)
+                run.ring.download(s, host)
+                if s:  # dispatched while shard s-1 is still in flight
+                    self.stats["overlapped_dispatches"] += 1
+                self.stats["shard_transfers"] += 1
+        finally:
+            run.ring.drain()
+        self._end_stage(prog, t0, 2 * state.numel() * state.element_size())
         return state
 
-    def host_remap(self, state: torch.Tensor, slot, spec: RemapSpec) -> torch.Tensor:
+    def _stream_stage_store(self, store: ShardStore, prog: StageProgram, run: _OffloadRun
+                            ) -> ShardStore:
+        """The same loop over a tiered :class:`ShardStore`, in the store's
+        :meth:`ShardStore.stream_order` (resident shards first: the least
+        disk traffic under its LRU budget). The i-th shard goes through host
+        staging block ``i % COPY_BUFFERS``: decoded into it (by the store's
+        prefetch worker while shard i-1 computes), uploaded from it,
+        downloaded back into it, and encoded into the store once that
+        download has landed, while shard i+1 computes. A block is decoded
+        into again only after its previous shard was encoded."""
+        L = self.engine.L
+        t0 = self._begin_stage(prog)
+        timing0 = dict(store.timing)
+        if not run.staging:
+            run.staging = [self._host((run.rows, 1 << L)) for _ in range(COPY_BUFFERS)]
+        shape = store.lead_shape + (1 << L,)
+
+        def block(i: int) -> torch.Tensor:
+            return run.staging[i % COPY_BUFFERS].view(shape)
+
+        order = store.stream_order()
+        S = len(order)
+        fetch = store.prefetch(order[0], block(0))
+        try:
+            for i, s in enumerate(order):
+                self._shard_fault(s)
+                if fetch is not None:
+                    fetch.result()
+                else:
+                    store.get_decoded(s, block(i))
+                host = run.staging[i % COPY_BUFFERS]
+                ps = self.shard_pass(s, prog.ops, run)
+                buf = run.ring.upload(i, host)
+                self.apply_ops(buf.view(-1), prog, ps)
+                run.ring.download(i, host)
+                # block i+1 held shard i-2, encoded in the last iteration
+                fetch = store.prefetch(order[i + 1], block(i + 1)) if i + 1 < S else None
+                if i:  # shard i-1 is encoded while i computes and i+1 decodes
+                    run.ring.wait(i - 1)
+                    store.put(order[i - 1], block(i - 1))
+                    self.stats["overlapped_dispatches"] += 1
+                self.stats["shard_transfers"] += 1
+            run.ring.drain()
+            store.put(order[-1], block(S - 1))
+        finally:
+            run.ring.drain()
+        self._end_stage(prog, t0, 2 * store.total_amps * store.dtype.itemsize,
+                        store={k: v - timing0[k] for k, v in store.timing.items()})
+        return store
+
+    def host_remap(self, state, slot, spec: RemapSpec):
         """The bit permutation ``spec`` of every row of the host state, into
-        a new host buffer."""
+        a new host buffer; or of a :class:`ShardStore`, out of core."""
         t0 = time.perf_counter()
-        out = permute_bits(state, spec.src_bit_of, spec.flip_bits, lead=1,
-                           out=self._host(state.shape))
+        extra = {}
+        if isinstance(state, ShardStore):
+            timing0 = dict(state.timing)
+            out = state.remap(spec, self.engine.n)
+            extra["store"] = {k: v - timing0[k] for k, v in state.timing.items()}
+        else:
+            out = permute_bits(state, spec.src_bit_of, spec.flip_bits, lead=1,
+                               out=self._host(state.shape))
         self.stats["host_remaps"] += 1
         dt = time.perf_counter() - t0
         self.engine._record_time("offload_remap", dt * 1e6)
-        self.trace.append({"kind": "remap", "slot": slot, "seconds": dt})
+        self.trace.append(dict({"kind": "remap", "slot": slot, "seconds": dt}, **extra))
         return out
 
     @property
@@ -641,9 +741,9 @@ class OffloadBackend(CudaBackend):
         return self.stats["overlapped_dispatches"] / possible
 
     # ------------------------------------------------------------ api
-    def prepare(self, psi0, batch: bool = False) -> torch.Tensor:
+    def prepare(self, psi0, batch: bool = False):
         """The host state ``[rows, 2^n]``: a batch, the given state, or
-        |0..0>."""
+        |0..0>; with ``storage``, a :class:`ShardStore` filled with it."""
         eng = self.engine
         src = None
         if batch:
@@ -654,7 +754,16 @@ class OffloadBackend(CudaBackend):
             src = torch.as_tensor(psi0).to(dtype=eng.dtype).reshape(1, -1)
             if src.shape[1] != 1 << eng.n:
                 raise ValueError(f"psi0 has {src.shape[1]} amplitudes, expected 2^{eng.n}")
-        x = self._host((1 if src is None else src.shape[0], 1 << eng.n))
+        rows = 1 if src is None else src.shape[0]
+        if self.storage is not None:
+            lead = (rows,) if batch else ()  # the reference's store layout
+            store = ShardStore(self.S, 1 << eng.L, lead, eng.dtype, self.storage)
+            try:
+                return store.fill(None if src is None else src.view(lead + (-1,)))
+            except BaseException:
+                store.close()
+                raise
+        x = self._host((rows, 1 << eng.n))
         if src is None:
             x.zero_()
             x[0, 0] = 1.0
@@ -671,29 +780,157 @@ class OffloadBackend(CudaBackend):
             held.pop(), lambda st, prog: self.stream_stage(st, prog, run),
             self.host_remap, apply_final)
 
-    def execute(self, state: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
+    def _execute(self, held: List, run: _OffloadRun, apply_final: bool, shape: Tuple
+                 ) -> torch.Tensor:
+        """One run over the state in ``held`` (a host tensor or a store; the
+        list is emptied): through the store, the checkpoints, or plainly.
+        ``shape``: the run's logical state shape (its identity for a
+        checkpoint)."""
+        if isinstance(held[0], ShardStore):
+            return self._execute_store(held.pop(), run, apply_final)
+        if self.checkpoint_dir is not None:
+            return self._execute_checkpointed(held, run, apply_final, shape)
+        return self._run(held, run, apply_final)
+
+    def execute(self, state, apply_final: bool = True) -> torch.Tensor:
         held = [state]
         del state
-        return self._run(held, self.new_run(1), apply_final).view(-1)
+        return self._execute(held, self.new_run(1), apply_final, (1 << self.engine.n,)).view(-1)
 
-    def execute_batch(self, states: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
-        """``states``: ``[B, 2^n]`` on the host; every shard moves as one
-        ``[B, 2^L]`` block and every op is one launch per shard for all B."""
+    def execute_batch(self, states, apply_final: bool = True) -> torch.Tensor:
+        """``states``: ``[B, 2^n]`` on the host (or a store of B rows);
+        every shard moves as one ``[B, 2^L]`` block and every op is one
+        launch per shard for all B."""
+        rows = states.lead_shape[0] if isinstance(states, ShardStore) else states.shape[0]
         held = [states]
-        rows = states.shape[0]
         del states
-        return self._run(held, self.new_run(rows), apply_final)
+        return self._execute(held, self.new_run(rows), apply_final, (rows, 1 << self.engine.n))
 
-    def execute_sweep(self, state: torch.Tensor, consts: Dict[int, torch.Tensor], P: int,
+    def execute_sweep(self, state, consts: Dict[int, torch.Tensor], P: int,
                       apply_final: bool = True) -> torch.Tensor:
         """One initial state against P bindings (``consts[uid]``: the
         ``[P * V, ...]`` stacks): the state is tiled to ``[P, 2^n]`` on the
-        host and every op is one launch per shard for all P points."""
+        host (a store to a store of P rows, :meth:`ShardStore.tile`) and
+        every op is one launch per shard for all P points. Not
+        checkpointed."""
+        run = self.new_run(P, consts)
+        if isinstance(state, ShardStore):
+            try:
+                states = state.tile(P)
+            finally:
+                state.close()
+            return self._execute_store(states, run, apply_final)
         states = self._host((P, state.shape[-1]))
         states.copy_(state.reshape(1, -1).expand(P, -1))
         held = [states]
         del state, states
-        return self._run(held, self.new_run(P, consts), apply_final)
+        return self._run(held, run, apply_final)
+
+    # ------------------------------------------------------------ the store
+    def _execute_store(self, store: ShardStore, run: _OffloadRun, apply_final: bool
+                       ) -> torch.Tensor:
+        """The stage loop over a tiered :class:`ShardStore`, then the
+        storage contract: reject the run if the accumulated quantization
+        error bound exceeds the tolerance (typed ``StorageToleranceError``,
+        never a silently less accurate result), record the store's summary
+        in ``engine.provenance["storage"]``, and gather the decoded state
+        into a host tensor ``[rows, 2^n]``. The store is closed (its spill
+        files removed) however the run ends."""
+        try:
+            store = self._run([store], run, apply_final)
+            store.check_tolerance()
+            self.engine.provenance["storage"] = store.snapshot()
+            t0 = time.perf_counter()
+            out = store.gather(self._host(store.lead_shape + (store.n_shards * store.shard_len,)))
+            self.trace.append({"kind": "gather", "seconds": time.perf_counter() - t0})
+            return out
+        finally:
+            store.close()
+
+    def storage_snapshot(self) -> Optional[Dict]:
+        """The last store run's summary (None when the store is off or no
+        run has completed): what serving statistics read."""
+        return self.engine.provenance.get("storage")
+
+    # ------------------------------------------------------ stage checkpoints
+    def _run_sig(self, state: torch.Tensor, shape: Tuple) -> str:
+        """Identity of one run: structure + binding + (n, L, R, G, dtype,
+        logical shape) + the initial state's bytes. A journal written under
+        another signature is ignored (never resumed into the wrong run)."""
+        eng = self.engine
+        h = hashlib.sha256()
+        h.update(repr(eng.circuit.structure_fingerprint()).encode())
+        h.update(repr(eng.bound_circuit.binding_signature()).encode())
+        # the shape is part of the identity: a [B, 2^n] batch and a flat
+        # state of the same bytes must never resume into each other
+        h.update(repr((eng.n, eng.L, eng.R, eng.G, str(eng.np_dtype), tuple(shape))).encode())
+        h.update(state.contiguous().numpy().view(np.uint8))
+        return h.hexdigest()
+
+    @staticmethod
+    def _save_state(path: str, state: torch.Tensor) -> None:
+        """Write the host state to ``path`` durably: a temporary file,
+        fsync, then rename."""
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.save(f, state.numpy())
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def _execute_checkpointed(self, held: List[torch.Tensor], run: _OffloadRun,
+                              apply_final: bool, shape: Tuple) -> torch.Tensor:
+        """The stage loop with durability: after each completed stage unit
+        (ops + the remap after them) the host state is saved
+        (:meth:`_save_state`) and the :class:`RunJournal` records the stage
+        index; per-stage wall times feed a :class:`StragglerMonitor`. On
+        entry, a journal whose run signature matches resumes after its last
+        completed stage. A completed run deletes its checkpoint, so stale
+        state never leaks into a later run."""
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        state = held.pop()
+        sig = self._run_sig(state, shape)
+        jpath = os.path.join(self.checkpoint_dir, "journal.json")
+        spath = os.path.join(self.checkpoint_dir, "state.npy")
+        journal = RunJournal(jpath)
+        rec = journal.read()
+        start = 0
+        self.trace = []
+        if (rec.get("run_sig") == sig and rec.get("last_step", -1) >= 0
+                and os.path.exists(spath)):
+            t0 = time.perf_counter()
+            state.copy_(torch.from_numpy(np.load(spath)).view(state.shape))
+            start = int(rec["last_step"]) + 1
+            journal.mark_restart()
+            self.stats["resumed_stages"] = start
+            self.trace.append({"kind": "resume", "stage": start,
+                               "seconds": time.perf_counter() - t0})
+        monitor = StragglerMonitor()
+        began = [0.0]
+
+        def ops(st, prog):
+            began[0] = time.monotonic()
+            return self.stream_stage(st, prog, run)
+
+        def save(i, st):
+            if monitor.record(i, time.monotonic() - began[0]):
+                self.stats["straggler_stages"] += 1
+            t1 = time.perf_counter()
+            self._save_state(spath, st)
+            journal.update(i, run_sig=sig)
+            self.stats["checkpointed_stages"] += 1
+            self.trace.append({"kind": "checkpoint", "stage": i,
+                               "seconds": time.perf_counter() - t1,
+                               "bytes": st.numel() * st.element_size()})
+
+        held.append(state)
+        del state  # the loop's frame holds the state alone, so a remap frees it
+        state = self.engine.stage_loop(held.pop(), ops, self.host_remap, apply_final,
+                                       start=start, after_stage=save)
+        for p in (jpath, spath):  # completed: drop the checkpoint
+            if os.path.exists(p):
+                os.remove(p)
+        return state
 
 
 class DenseBackend(Backend):
@@ -874,17 +1111,23 @@ class ExecutionEngine:
         return out
 
     # ------------------------------------------------------------- shared
-    def stage_loop(self, x, ops_fn, remap_fn, apply_final: bool = True):
+    def stage_loop(self, x, ops_fn, remap_fn, apply_final: bool = True, start: int = 0,
+                   after_stage: Optional[Callable] = None):
         """The stage loop: ``ops_fn(x, prog)`` applies one stage's op list;
         ``remap_fn(x, slot, spec)`` applies one inter-stage remap, where
-        ``slot`` is ``"init"``, the stage index, or ``"final"``."""
+        ``slot`` is ``"init"``, the stage index, or ``"final"``. ``start``
+        skips the stages before it (and the initial remap with them: ``x``
+        is the state after stage ``start - 1``); ``after_stage(i, x)`` runs
+        after stage ``i``'s ops and the remap after them."""
         cc = self.cc
-        if cc.initial_remap is not None:
+        if start == 0 and cc.initial_remap is not None:
             x = remap_fn(x, "init", cc.initial_remap)
-        for i, prog in enumerate(cc.programs):
+        for i, prog in enumerate(cc.programs[start:], start):
             x = ops_fn(x, prog)
             if prog.remap_after is not None:
                 x = remap_fn(x, i, prog.remap_after)
+            if after_stage is not None:
+                after_stage(i, x)
         if apply_final and cc.final_remap is not None:
             x = remap_fn(x, "final", cc.final_remap)
         return x
@@ -1151,12 +1394,6 @@ def _build_lock(cache: CompileCache, key: CircuitKey) -> threading.Lock:
         return _BUILD_LOCKS.setdefault((id(cache), key.digest), threading.Lock())
 
 
-def _no_storage(storage) -> None:
-    if storage is not None:
-        raise ValueError("storage= (the offload backend's tiered shard store) is not "
-                         "ported yet: it comes with the next offload slice, A7b")
-
-
 def circuit_key_for(
     circuit: Circuit,
     L: int,
@@ -1172,6 +1409,7 @@ def circuit_key_for(
     optimize=False,
     device: DeviceLike = None,
     storage=None,
+    checkpoint_dir: Optional[str] = None,
     _pre_optimized: bool = False,
     **plan_kw,
 ) -> CircuitKey:
@@ -1179,17 +1417,27 @@ def circuit_key_for(
     arguments. With ``optimize`` on, the key covers the OPTIMIZED circuit's
     structure and the optimizer's fingerprint (``_pre_optimized=True``: the
     circuit already is the optimizer's output). The device is part of the
-    key."""
-    _no_storage(storage)
+    key, and so are the offload backend's ``storage`` (through
+    :meth:`StorageConfig.fingerprint`: compressed and exact plans never
+    share an engine) and ``checkpoint_dir``; both need ``backend="offload"``."""
+    storage = StorageConfig.coerce(storage)
+    if (storage is not None or checkpoint_dir is not None) and backend != "offload":
+        raise ValueError(f"storage= and checkpoint_dir= need backend='offload' (got "
+                         f"{backend!r}): the shard store and stage checkpoints exist only "
+                         "under the host-offload path")
     ocfg = copt.resolve_config(optimize)
     if ocfg is not None and not _pre_optimized:
         circuit = copt.optimize_circuit(circuit, ocfg).circuit
+    extra = (tuple(sorted((k, _canon(v)) for k, v in plan_kw.items())),
+             _placement_fingerprint(device))
+    if storage is not None:
+        extra += (storage.fingerprint(),)
+    if checkpoint_dir is not None:
+        extra += (("checkpoint_dir", str(checkpoint_dir)),)
     return CircuitKey.make(
         circuit, L, R, G, backend=backend, use_kernels=use_kernels, peephole=peephole,
         staging_method=staging_method, kernelize_method=kernelize_method,
-        cost_model=cost_model, optimize=ocfg,
-        extra=(tuple(sorted((k, _canon(v)) for k, v in plan_kw.items())),
-               _placement_fingerprint(device)),
+        cost_model=cost_model, optimize=ocfg, extra=extra,
     )
 
 
@@ -1239,12 +1487,22 @@ def build_engine(
     peephole: bool = True,
     device: DeviceLike = None,
     provenance: Optional[Dict] = None,
+    storage=None,
+    checkpoint_dir: Optional[str] = None,
 ) -> ExecutionEngine:
     """Compile ``plan`` and build an engine on it. A typed ``compile_plan``
     failure gets ONE retry (then it propagates). Nothing else degrades: a
     backend or a kernel that fails to build raises, so a run never lands on
-    another backend, the CPU, or the kernels' plain versions unasked."""
+    another backend, the CPU, or the kernels' plain versions unasked.
+    ``storage`` / ``checkpoint_dir`` go to the offload backend."""
     prov: Dict = provenance if provenance is not None else {}
+    be: Union[str, Backend] = backend
+    if storage is not None or checkpoint_dir is not None:
+        if backend != "offload":
+            raise ValueError(f"storage= and checkpoint_dir= need backend='offload' (got "
+                             f"{backend!r}): the shard store and stage checkpoints exist "
+                             "only under the host-offload path")
+        be = OffloadBackend(storage=storage, checkpoint_dir=checkpoint_dir)
     cc = None
     for attempt in range(2):
         try:
@@ -1254,7 +1512,7 @@ def build_engine(
             if attempt:
                 raise
             _record_fallback(prov, "compile", "compile(retry)", e)
-    eng = ExecutionEngine(circuit, plan, use_kernels, device, backend=backend,
+    eng = ExecutionEngine(circuit, plan, use_kernels, device, backend=be,
                           peephole=peephole, compiled=cc)
     eng.provenance.update(prov)
     return eng
@@ -1277,6 +1535,7 @@ def engine_for(
     plan: Optional[SimulationPlan] = None,
     device: DeviceLike = None,
     storage=None,
+    checkpoint_dir: Optional[str] = None,
     **plan_kw,
 ) -> ExecutionEngine:
     """The serving entry point: partition + compile + build an engine, or
@@ -1296,29 +1555,48 @@ def engine_for(
     rewrite. ``cache=None`` forces a fresh build; an explicit ``plan``
     bypasses the cache (and cannot be combined with ``optimize``). The
     engine's device is part of the key, and so is the backend: offload
-    engines are cached apart from ``cuda`` ones. ``storage`` (the offload
-    backend's tiered shard store) is not ported yet and raises."""
-    _no_storage(storage)
+    engines are cached apart from ``cuda`` ones.
+
+    ``storage`` turns on the offload backend's tiered shard store (a
+    :class:`repro_torch.sim.shard_store.StorageConfig`, a spec string like
+    ``"int8:dram_kib=64"``, or a dict; needs ``backend="offload"``); the
+    ``REPRO_STORAGE`` environment variable supplies one for offload engines
+    that pass neither ``storage`` nor ``checkpoint_dir``. The cost model is
+    then re-priced for the tier the shards sit in
+    (:meth:`StorageConfig.apply_to_cost_model`). ``checkpoint_dir`` turns on
+    the offload backend's stage checkpoints (needs ``backend="offload"``;
+    not with ``storage``). Both are part of the key."""
     device = resolve_device(device)
+    storage = StorageConfig.coerce(storage)
+    if storage is None and backend == "offload" and checkpoint_dir is None:
+        storage = StorageConfig.from_env()
+    if storage is not None and backend != "offload":
+        raise ValueError(f"storage= requires backend='offload' (got {backend!r}); the "
+                         "tiered shard store only exists under the host-offload path")
+    base_cost_model = cost_model
+    if storage is not None:
+        cost_model = storage.apply_to_cost_model(_resolve_cost_model(cost_model),
+                                                 circuit.n_qubits, L)
     ocfg = copt.resolve_config(optimize)
     if plan is not None:
         if ocfg is not None:
             raise ValueError("engine_for: optimize= cannot be combined with an explicit "
                              "plan (the plan was computed for the literal circuit)")
         return build_engine(circuit, plan, backend=backend, use_kernels=use_kernels,
-                            peephole=peephole, device=device)
+                            peephole=peephole, device=device, storage=storage,
+                            checkpoint_dir=checkpoint_dir)
     source_circuit = circuit
     opt_result = None
     if ocfg is not None:
         opt_result = copt.optimize_circuit(circuit, ocfg)
         circuit = opt_result.circuit
-    explicit_cm = cost_model is not None
+    explicit_cm = base_cost_model is not None
     cost_model = _resolve_cost_model(cost_model)
     key = circuit_key_for(
         circuit, L, R, G, backend=backend, use_kernels=use_kernels, peephole=peephole,
         staging_method=staging_method, kernelize_method=kernelize_method,
-        cost_model=cost_model, optimize=optimize, device=device, _pre_optimized=True,
-        **plan_kw)
+        cost_model=cost_model, optimize=optimize, device=device, storage=storage,
+        checkpoint_dir=checkpoint_dir, _pre_optimized=True, **plan_kw)
     eng = cache.get(key) if cache is not None else None
     if eng is None:
         blk = _build_lock(cache, key) if cache is not None else threading.Lock()
@@ -1332,7 +1610,8 @@ def engine_for(
                     kernelize_method=kernelize_method, cost_model=cost_model,
                     provenance=prov, **plan_kw)
                 eng = build_engine(circuit, plan, backend=backend, use_kernels=use_kernels,
-                                   peephole=peephole, device=device, provenance=prov)
+                                   peephole=peephole, device=device, provenance=prov,
+                                   storage=storage, checkpoint_dir=checkpoint_dir)
                 eng.provenance["calibration"] = {
                     "source": "explicit" if explicit_cm else "analytic defaults"}
                 if opt_result is not None:
@@ -1379,6 +1658,6 @@ def engine_for(
             source_circuit, L, R, G, backend=backend, use_kernels=use_kernels,
             peephole=peephole, staging_method=staging_method,
             kernelize_method=kernelize_method,
-            cost_model=cost_model if explicit_cm else None, optimize=optimize, cache=None,
-            device=device, **plan_kw)
+            cost_model=base_cost_model, optimize=optimize, cache=None,
+            device=device, storage=storage, checkpoint_dir=checkpoint_dir, **plan_kw)
     return eng

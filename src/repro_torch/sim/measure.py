@@ -260,10 +260,25 @@ class Frame:
 # ======================================================================
 
 
-def _probs64(row: np.ndarray) -> np.ndarray:
-    """Shared host-side float64 |amp|^2 (the local-CDF path)."""
-    row = np.asarray(row)
-    return row.real.astype(np.float64) ** 2 + row.imag.astype(np.float64) ** 2
+_PROBS_CHUNK = 1 << 20  # amplitudes squared per step of _probs64
+
+
+def _probs64(row) -> np.ndarray:
+    """Shared host-side float64 |amp|^2 (the local-CDF path): ``re**2 +
+    im**2`` with each part widened to float64 first, as the reference
+    computes it, so bit for bit its values. Worked in chunks with torch's
+    multi-threaded CPU ops into one output, so a 2^28-amplitude shard pages
+    in no whole-shard temporaries. ``row``: a host complex array or
+    tensor."""
+    t = row if isinstance(row, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(row))
+    v = torch.view_as_real(t.reshape(-1))
+    out = torch.empty(v.shape[0], dtype=torch.float64)
+    for lo in range(0, v.shape[0], _PROBS_CHUNK):
+        c = v[lo:lo + _PROBS_CHUNK].to(torch.float64)
+        o = out[lo:lo + _PROBS_CHUNK]
+        torch.mul(c[:, 0], c[:, 0], out=o)
+        o.add_(c[:, 1] * c[:, 1])
+    return out.numpy()
 
 
 
@@ -420,7 +435,7 @@ class TorchMeasurer(Measurer):
     def _local_probs(self, shard_id: int) -> np.ndarray:
         # ship the complex row and square in float64 host math, as the
         # reference does, so both build the same local CDF
-        return _probs64(self.x2d[shard_id].cpu().numpy())
+        return _probs64(self.x2d[shard_id].cpu())
 
     def _marginal_phys(self, keep_bits: Tuple[int, ...]) -> np.ndarray:
         return sum_bits(_abs2(self.xflat), keep_bits).cpu().numpy()
@@ -449,6 +464,11 @@ def _signed_sum(v: torch.Tensor, xy, sign_bits: Sequence[int]) -> float:
     return float(np.sum(np.where(parity, -marg, marg)))
 
 
+# a non-local X/Y group is rotated on the device in chunks of at most
+# 2^(L - GROUP_CHUNK_SHIFT) amplitudes: half a shard
+GROUP_CHUNK_SHIFT = 1
+
+
 class StreamingMeasurer(Measurer):
     """Measurer over the offload backend's host state (flat ``[2^n]``, in
     ``2^(R+G)`` shards of ``2^L``): the twin of the reference's
@@ -459,13 +479,16 @@ class StreamingMeasurer(Measurer):
     reduced there, so measuring costs one read of the state whatever the
     number of qubits measured. X/Y basis changes on non-local bits couple
     groups of ``2^m`` shards (m: the term's non-local X/Y bits); each group
-    is copied to the device together and rotated there by the Kronecker
-    product of its ``2^m x 2^m`` basis change before the per-shard
-    reduction, still reading each shard once. The local CDF of a sampled
-    shard is built from its host amplitudes in float64 (``_probs64``), as
-    the reference builds it, so a seed gives the reference's shots."""
+    is rotated on the device by the Kronecker product of its ``2^m x 2^m``
+    basis change in column chunks: a chunk fixes the values of the highest
+    local bits that no local X/Y rotation touches, so the group's ``2^m``
+    rows of one chunk hold at most ``2^(L - GROUP_CHUNK_SHIFT)`` amplitudes
+    (half a shard) and each shard is still read once. The local CDF of a
+    sampled shard is built from its host amplitudes in float64
+    (``_probs64``), as the reference builds it, so a seed gives the
+    reference's shots."""
 
-    MAX_GROUP_BITS = 8  # 2^m * 2^L working-set cap for non-local X/Y terms
+    MAX_GROUP_BITS = 8  # non-local X/Y bits of one term: 2^m shards a group
 
     def __init__(self, state: torch.Tensor, frame: Frame, device: torch.device):
         super().__init__(frame)
@@ -487,7 +510,7 @@ class StreamingMeasurer(Measurer):
                          for s in range(self.frame.n_shards)], dtype=np.float64)
 
     def _local_probs(self, shard_id: int) -> np.ndarray:
-        return _probs64(self._host_shard(shard_id).numpy())
+        return _probs64(self._host_shard(shard_id))
 
     def _marginal_phys(self, keep_bits: Tuple[int, ...]) -> np.ndarray:
         L = self.frame.L
@@ -510,15 +533,28 @@ class StreamingMeasurer(Measurer):
             out[base + spread] += part
         return out
 
+    def _chunk(self, s: int, cbits: Sequence[int], j: int) -> torch.Tensor:
+        """Host shard ``s`` with its local bits ``cbits`` (high -> low; bit
+        ``t`` of ``j`` is the value of ``cbits[t]``) fixed: a view whose
+        dimensions, flattened, index the other local bits in order."""
+        L = self.frame.L
+        shape, hi = [], L
+        for b in cbits:
+            shape += [1 << (hi - 1 - b), 2]
+            hi = b
+        v = self._host_shard(s).view(shape + [1 << hi])
+        for t in range(len(cbits)):
+            v = v.select(t + 1, (j >> t) & 1)
+        return v
+
     def _expect_term_phys(self, sign_bits, xy) -> float:
         L = self.frame.L
-        xy_loc = tuple((b, m) for b, m in xy if b < L)
+        xy_loc = [(b, m) for b, m in xy if b < L]
         xy_nl = [(b, m) for b, m in xy if b >= L]
         m = len(xy_nl)
         if m > self.MAX_GROUP_BITS:
             raise ValueError(f"{m} non-local X/Y bits exceed the 2^{self.MAX_GROUP_BITS} "
                              "shard-group working-set cap; re-plan with these qubits local")
-        sign_loc = tuple(b for b in sign_bits if b < L)
         sign_nl = [b for b in sign_bits if b >= L]
         # group rotation: index bit t <-> xy_nl[t]; kron builds low bits last
         U = np.array([[1.0]], dtype=np.complex128)
@@ -528,6 +564,22 @@ class StreamingMeasurer(Measurer):
         nl_mask = 0
         for b, _ in xy_nl:
             nl_mask |= 1 << (b - L)
+        # chunk bits: the highest local bits no local rotation touches, as
+        # many as it takes to bring a group's chunk under the limit
+        touched = {b for b, _ in xy_loc}
+        limit = 1 << max(L - GROUP_CHUNK_SHIFT, 0)
+        cbits: List[int] = []
+        for b in range(L - 1, -1, -1):
+            if (1 << (m + L - len(cbits))) <= limit:
+                break
+            if b not in touched:
+                cbits.append(b)
+        kept = [b for b in range(L) if b not in cbits]
+        pos = {b: i for i, b in enumerate(kept)}
+        xy_in = [(pos[b], mat) for b, mat in xy_loc]
+        sign_in = [pos[b] for b in sign_bits if b in pos]
+        sign_fixed = [t for t, b in enumerate(cbits) if b in sign_bits]
+        buf = torch.empty((1 << m, 1 << len(kept)), dtype=self.state.dtype, device=self.device)
         total = 0.0
         for base in range(self.frame.n_shards):
             if base & nl_mask:
@@ -539,17 +591,16 @@ class StreamingMeasurer(Measurer):
                     if (g >> t) & 1:
                         sidx |= 1 << (b - L)
                 group_ids.append(sidx)
-            if m:
-                group = torch.stack([self._shard(i) for i in group_ids])
-                rows = list(torch.matmul(Ud, group))
-            else:
-                rows = [self._shard(base)]
-            for sidx, row in zip(group_ids, rows):
-                sgn = 1.0
-                for b in sign_nl:
-                    if (sidx >> (b - L)) & 1:
-                        sgn = -sgn
-                total += sgn * _signed_sum(row, xy_loc, sign_loc)
+            for j in range(1 << len(cbits)):
+                for g, sidx in enumerate(group_ids):
+                    src = self._chunk(sidx, cbits, j)
+                    buf[g].view(src.shape).copy_(src, non_blocking=True)
+                rows = torch.matmul(Ud, buf) if m else buf
+                for sidx, row in zip(group_ids, rows):
+                    parity = sum((sidx >> (b - L)) & 1 for b in sign_nl)
+                    parity += sum((j >> t) & 1 for t in sign_fixed)
+                    total += (-1.0) ** parity * _signed_sum(row, xy_in, sign_in)
+                del rows
         return total
 
 

@@ -344,3 +344,68 @@ def test_offload_pin_failure_raises(cuda, monkeypatch):
     monkeypatch.setattr(torch, "empty", failing)
     with pytest.raises(RuntimeError, match="pinning refused"):
         eng.run()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["exact", "bf16", "int8"])
+def test_offload_store_matches_in_card_run(cuda, tier, tmp_path):
+    """``ising(24)`` through the shard store with half the shards spilled:
+    one launch per op and shard, the in-card state within the run's own
+    error bound (exactly for the exact tier), host staging pinned, peak
+    device memory within four shards."""
+    from repro_torch.sim.engine import ExecutionEngine, OffloadBackend
+    from repro_torch.sim.shard_store import AT_REST_BYTES_PER_AMP
+
+    in_card, eng = _offload_pair(cuda)
+    budget = int(AT_REST_BYTES_PER_AMP[tier] * (1 << 24) / 2)
+    store_eng = ExecutionEngine(eng.circuit, eng.plan, device=cuda, backend=OffloadBackend(
+        storage=f"{tier}:dram_bytes={budget}:dir={tmp_path}:tol=0.25"))
+    want = in_card.run_packed()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    ops.reset_kernel_counters()
+    got = store_eng.run_packed()
+    peak = torch.cuda.max_memory_allocated(cuda)
+    counts, S = store_eng.op_counts(), store_eng.backend.S
+    assert ops.kernel_call_counts() == {"fused": S * counts.get("fused", 0),
+                                        "shm": S * counts.get("shm", 0)}
+    snap = store_eng.backend.storage_snapshot()
+    assert snap["spills"] > 0 and snap["spill_loads"] > 0
+    assert got.is_pinned()
+    diff = float(np.linalg.norm(got.numpy() - want.cpu().numpy()))
+    if tier == "exact":
+        assert diff == 0.0
+    else:
+        assert diff <= snap["relative_error_bound"] + 1e-5
+    assert peak - base <= 4 * (8 << eng.L)
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.gpu
+def test_offload_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """Killed by an injected shard transfer error in stage 1 while copies
+    are in flight, then resumed in a fresh engine: the uninterrupted state
+    bit for bit."""
+    from repro_torch.sim import faults
+    from repro_torch.sim.engine import ExecutionEngine, OffloadBackend
+
+    _, eng = _offload_pair(cuda)
+    want = eng.run_packed()
+    S = eng.backend.S
+
+    def fresh():
+        return ExecutionEngine(eng.circuit, eng.plan, device=cuda,
+                               backend=OffloadBackend(checkpoint_dir=str(tmp_path)))
+
+    killed = fresh()
+    plan = faults.FaultPlan(seed=1).add("shard_transfer_error", after=S + 3, count=1)
+    with faults.inject(plan):
+        with pytest.raises(faults.ShardTransferError):
+            killed.run_packed()
+    assert killed.backend.stats["checkpointed_stages"] >= 1
+    again = fresh()
+    got = again.run_packed()
+    assert again.backend.stats["resumed_stages"] >= 1
+    assert torch.equal(got, want)
+    assert not list(tmp_path.iterdir())

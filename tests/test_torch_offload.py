@@ -32,7 +32,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.simulate import main as cli
 from repro_torch.sim import apply as tapply, measure as TM
 from repro_torch.sim.engine import (
-    BACKENDS, CompileCache, ExecutionEngine, OffloadBackend, circuit_key_for, engine_for,
+    BACKENDS, CompileCache, ExecutionEngine, circuit_key_for, engine_for,
 )
 from repro_torch.sim.offload import OffloadedExecutor, PerGateOffloadExecutor
 from strategies import SHM_CM
@@ -304,6 +304,84 @@ def test_streaming_measurer_matches_reference(name, seed):
         assert abs(res.expectations[key] - TM.expectation_np(psi, o)) < 1e-5
 
 
+@pytest.mark.parametrize("shift", [0, 1, 2])
+@pytest.mark.parametrize("name", ["qft9", "ising10_shm"])
+def test_streaming_measurer_rotates_groups_in_chunks(name, shift, monkeypatch):
+    """Terms with m = 1..3 non-local X/Y bits (and local X/Y, local and
+    non-local Z): every group product holds at most ``2^(L - shift)``
+    amplitudes (a whole shard, half a shard as by default, a quarter), and
+    the expectations agree with the reference's StreamingMeasurer and with
+    the complex128 oracle within 1e-6."""
+    circ, ref, eng = _pair(name)
+    frame, L = eng.measurement_frame, eng.L
+    nl = [q for q in range(frame.n) if frame.phys_of[q] >= L]
+    loc = [q for q in range(frame.n) if frame.phys_of[q] < L]
+    obs = [f"X{nl[0]} Y{nl[1]} Z{loc[0]}", f"Y{nl[0]} X{nl[1]} X{nl[2]} Y{loc[1]} Z{loc[4]}",
+           f"X{nl[2]} Z{nl[0]} X{loc[0]} Y{loc[2]} Z{loc[3]}", f"Z{nl[1]} Z{loc[1]}",
+           f"0.5*X{nl[0]} Y{nl[1]} Y{nl[2]} + Z{loc[0]}"]
+    state = eng.run_packed()
+    monkeypatch.setattr(TM, "GROUP_CHUNK_SHIFT", shift)
+    m = TM.StreamingMeasurer(state, frame, "cpu")
+    limit = 1 << (L - shift)
+    seen = []
+    real_matmul = torch.matmul
+
+    def spy(a, b, *args, **kw):
+        seen.append(b.numel())
+        return real_matmul(a, b, *args, **kw)
+
+    monkeypatch.setattr(TM.torch, "matmul", spy)
+    ref_m = RM.StreamingMeasurer(np.asarray(ref.run_packed()), ref.measurement_frame)
+    psi = simulate_np(circ)
+    for o in obs:
+        got = m.expectation(o)
+        assert abs(got - ref_m.expectation(o)) < 1e-6, o
+        assert abs(got - TM.expectation_np(psi, o)) < 1e-6, o
+    assert seen and max(seen) <= limit
+
+
+@pytest.mark.parametrize("name", ["qft9", "random_flips", "ising10_shm"])
+def test_shard_masses_match_the_reference_mass_row(name):
+    """The port sums each shard's mass as fp32 squares in an fp64
+    accumulation; the reference through one jitted fp32 ``_jnp_mass_row``,
+    whose own reduction order depends on XLA's backend. They agree within
+    fp32 rounding, and a fixed seed gives the reference's shots on these
+    states."""
+    import jax.numpy as jnp
+
+    _, ref, eng = _pair(name)
+    state = eng.run_packed()
+    host = np.asarray(ref.run_packed())
+    L = eng.L
+    want = np.array([float(RM._jnp_mass_row(jnp.asarray(host[s << L:(s + 1) << L])))
+                     for s in range(eng.backend.S)])
+    for m in (TM.StreamingMeasurer(state, eng.measurement_frame, "cpu"),
+              TM.TorchMeasurer(state, eng.measurement_frame),
+              TM.DenseMeasurer(state.numpy(), eng.measurement_frame)):
+        np.testing.assert_allclose(m._shard_masses(), want, rtol=1e-6, atol=1e-12)
+    ref_m = RM.StreamingMeasurer(host, ref.measurement_frame)
+    got_m = TM.StreamingMeasurer(state, eng.measurement_frame, "cpu")
+    for seed in (0, 1, 2):
+        np.testing.assert_array_equal(got_m.sample(500, seed=seed), ref_m.sample(500, seed=seed))
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+def test_probs64_matches_the_reference_bit_for_bit(dtype, as_tensor, monkeypatch):
+    """The local CDF's float64 ``|amp|^2``, worked in chunks through torch,
+    equals the reference's numpy ``_probs64`` bit for bit on amplitudes
+    spanning 1e-30..1e5, over a ragged last chunk."""
+    monkeypatch.setattr(TM, "_PROBS_CHUNK", 1000)
+    rng = np.random.default_rng(5)
+    n = 5 * 1000 + 37
+    mag = 10.0 ** rng.uniform(-30, 5, n)
+    row = (mag * np.exp(2j * np.pi * rng.random(n))).astype(dtype)
+    got = TM._probs64(torch.from_numpy(row) if as_tensor else row)
+    want = RM._probs64(row)
+    assert got.dtype == np.float64 and got.shape == (n,)
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+
+
 def test_streaming_measurer_group_cap():
     st = torch.zeros(1 << 12, dtype=torch.complex64)
     st[0] = 1
@@ -395,18 +473,6 @@ def test_engine_for_offload_warm_rebind():
     assert_states_close(e1.run().numpy(), simulate_np(_ansatz(n, _vals(n, 2))), atol=1e-5)
 
 
-@pytest.mark.parametrize("arg", ["storage", "checkpoint_dir"])
-def test_store_and_checkpoints_raise_until_ported(arg, tmp_path):
-    with pytest.raises(ValueError, match="A7b"):
-        OffloadBackend(**{arg: str(tmp_path) if arg == "checkpoint_dir" else "int8"})
-    if arg == "storage":
-        c = _port(gen.qft(6))
-        with pytest.raises(ValueError, match="A7b"):
-            engine_for(c, 4, 2, 0, backend="offload", storage="int8", device="cpu")
-        with pytest.raises(ValueError, match="A7b"):
-            circuit_key_for(c, 4, 2, 0, backend="offload", storage="int8", device="cpu")
-
-
 def test_no_fallback_and_no_pinning_on_the_cpu(monkeypatch):
     """The CPU branch is the caller's choice: without CUDA the default
     device raises (no CPU fallback), and a CPU run pins nothing."""
@@ -480,7 +546,7 @@ def test_cli_offload_sweep(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--executor", "pergate", "--engine"],
-                                  ["--executor", "offload", "--storage", "int8"]])
+                                  ["--executor", "cuda", "--storage", "int8"]])
 def test_cli_refuses(argv):
     with pytest.raises(SystemExit):
         cli(["--circuit", "qft", "--n", "8", "--L", "5", "--R", "3", "--device", "cpu"] + argv)

@@ -17,6 +17,19 @@ held against the dense per-gate oracle on the card; every kernel op of each
 of them is held against its plain version as that path launches it (its
 shard count, operand tables and variant indices).
 
+Then adjoint gradients: the ``--vqe`` loop on ``isingparam(30)`` L=28 R=2
+(three Adam steps; every gate, derivative and Pauli application of each
+reverse sweep one ``fused_apply`` launch), its first gradient held against
+the same sweep through the plain version on the card, against central
+finite differences of the on-card energy and against the complex128
+oracle on the observable's light cone, a sample of the sweep's launches
+at k=1 and k=2 against the plain version, and the value_and_grad split
+(forward, λ, sweep) and peak device memory; ``su2param(20)`` L=18 R=2
+against the complex128 oracle on the host; ``grad_sweep`` of 4 bindings of
+``isingparam(28)`` as one ``[4, 2^28]`` sweep against each point alone;
+``value_and_grad`` of ``isingparam(28)`` L=24 R=4 through the offload
+backend against the in-card one.
+
 Then host offload: the pinned link rates; ``ising(32)`` L=28 R=4 through
 ``--executor offload`` — a 32 GiB pinned host state in 16 shards of 2 GiB,
 every stage streamed through the card shard by shard, one launch per op
@@ -104,6 +117,24 @@ FIDELITY_MIN = 1 - 1e-5
 STORE = {"tier": "bf16", "n": 32, "L": 28, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
 STORE_INT8 = {"tier": "int8", "n": 30, "L": 26, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
 CHECKPOINT = {"n": 30, "L": 26, "R": 4}
+# adjoint gradients: the reference's tolerances (tests/test_grad.py) for a
+# float32 sweep against another sweep or an oracle, and central differences
+# of the on-card energy (their truncation error at eps 1e-2 is 1.8e-4 of
+# the gradient on this path, by the complex128 oracle)
+VQE_OBS = "Z0 Z1 + Z1 Z2 + 0.5*X0"
+VQE_PATH = ["--circuit", "isingparam", "--n", "30", "--L", "28", "--R", "2", "--vqe", VQE_OBS,
+            "--vqe-steps", "3"]
+VQE_SEED = 0  # the CLI's --vqe-seed: the angles of the first value_and_grad
+VALUE_ATOL, GRAD_ATOL, ROW_ATOL = 2e-5, 1e-4, 2e-4
+FD_EPS, FD_RTOL = 1e-2, 2e-3
+# isingparam runs two Trotter steps of nearest-neighbour gates, so VQE_OBS
+# (qubits 0-2) sees qubits 0-4 only: its energy and gradient at n=30 are
+# those at n=10, where the host's complex128 oracle is cheap
+LIGHT_CONE_N = 10
+ORACLE = {"n": 20, "L": 18, "R": 2, "reps": 1}  # su2param(20): 270 gates, 80 parameters
+ORACLE_OBS = "Z0 Z1 + 0.5*X19 - 0.3*Y5 X12 + 0.1"
+GRAD_SWEEP = {"n": 28, "L": 26, "R": 2, "P": 4}
+OFFLOAD_GRAD = {"n": 28, "L": 24, "R": 4}  # 16 host shards of 2^24
 SPILL_ROOT = os.path.join(HERE, "build", "spill")
 CHECKPOINT_DIR = os.path.join(HERE, "build", "checkpoint")
 
@@ -1246,6 +1277,294 @@ def checkpoint_phase(card: str, ops, ref, n: int, L: int, R: int) -> dict:
             "fidelity": fid, "worst": worst}
 
 
+def grad_launches(eng, obs: str, per_op: int = 1) -> tuple:
+    """The launches of one ``value_and_grad`` (or one fused ``grad_sweep``):
+    the forward plan's ops times ``per_op`` (shards, offloaded), then one
+    ``fused_apply`` per non-identity Pauli op, two per gate (``U†`` on ψ
+    and on λ) and one per symbolic slot. Returns ``(by kind, fused by k)``."""
+    from repro_torch.sim.measure import PauliSum
+
+    want, by_k = {"fused": 0, "shm": 0}, {}
+
+    def add(k, count):
+        want["fused"] += count
+        by_k[k] = by_k.get(k, 0) + count
+
+    for prog in eng.cc.programs:
+        for op in prog.ops:
+            if op.kind == "fused":
+                add(len(op.local_bits), per_op)
+            elif op.kind == "shm":
+                want["shm"] += per_op
+    for t in PauliSum.coerce(obs).terms:
+        for _ in t.ops:
+            add(1, 1)
+    for g in eng.circuit.gates:
+        add(len(g.qubits), 2 + len(g.param_slots))
+    return want, by_k
+
+
+def check_grad_launches(ops, eng, obs: str, what: str, calls: int = 1, per_op: int = 1) -> dict:
+    """The launches since the last reset are ``calls`` times those of one
+    value_and_grad (:func:`grad_launches`), by kind and by width."""
+    want, by_k = grad_launches(eng, obs, per_op)
+    want = {k: calls * v for k, v in want.items()}
+    by_k = {k: calls * v for k, v in by_k.items()}
+    got, got_k = ops.kernel_call_counts(), ops.fused_call_counts_by_k()
+    log(f"  {what}: kernel launches {got}, fused by k {got_k}; {calls} x (forward plan "
+        f"{eng.op_counts()}" + (f" x {per_op} shards" if per_op > 1 else "")
+        + f" + the reverse sweep of {len(eng.circuit.gates)} gates)")
+    require(got == want and got_k == by_k,
+            f"{what}: launches {got} by k {got_k} != forward + sweep {want} by k {by_k}")
+    return dict(got, by_k=got_k)
+
+
+def hold_sweep_sample(ops, ref, probe, eng, obs: str, x: torch.Tensor, fused: dict,
+                      launches_by_k: dict, what: str) -> float:
+    """A sample of the reverse sweep's ``fused_apply`` launches as the
+    sweep makes them (one shard of 2^n, the bound circuit's tables): for
+    the first gate with a parameter at k=1 and at k=2, its ``U†`` and its
+    derivative, a gate without one, and a Pauli X; each against its plain
+    version on ``x``. Then at k=1 and k=2 (where no row has them) the
+    kernel timed beside its plain version and one torch.matmul, as rows of
+    ``fused["by_k"]``. Returns the worst error."""
+    from repro_torch.core import gates as G
+
+    n = eng.n
+    prog = eng.adjoint_program(obs)
+    inv, d = prog.tensors(eng.bound_circuit)
+    vidx = torch.zeros(1, dtype=torch.int32, device=x.device)
+    sample, seen, slot = [], set(), 0
+    for k, g in enumerate(eng.circuit.gates):
+        key = (len(g.qubits), bool(g.param_slots))
+        if key not in seen:
+            seen.add(key)
+            sample.append((f"U† of {g.name}{g.qubits}", inv[k], g.qubits))
+            if g.param_slots:
+                sample.append((f"dU of {g.name}{g.qubits}", d[slot], g.qubits))
+        slot += len(g.param_slots)
+    sample.append(("Pauli X0", G.X, (0,)))
+    worst, by_width = 0.0, {}
+    for label, mat, bits in sample:
+        u = torch.from_numpy(np.ascontiguousarray(mat, dtype=np.complex64)).to(x.device)
+        u = u.reshape(1, *mat.shape)
+        err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, n),
+                      ref.fused_apply_ref(x.clone(), u, vidx, bits, n))
+        sync(x.device.type)
+        require(err < ATOL, f"{what}: fused_apply on {label} disagrees with its plain version")
+        log(f"  {what}: {label} k={len(bits)}: max |kernel - plain| = {err:.3e}")
+        worst = max(worst, err)
+        by_width.setdefault(len(bits), (u, bits, err))
+    have = {row["k"] for row in fused["by_k"]}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for k in (1, 2):
+            if k in have or k not in by_width:
+                continue
+            u, bits, err = by_width[k]
+            ms = probe.time_ms(lambda: ops.fused_apply(x, u, vidx, bits, n))
+            plain_ms = probe.time_ms(lambda: ref.fused_apply_ref(x, u, vidx, bits, n), reps=3)
+            xt, ut = x.view(-1, 1 << k), u[0].transpose(0, 1).contiguous()
+            matmul_ms = probe.time_ms(lambda: torch.matmul(xt, ut))
+            cmacs = (1 << k) * (1 << n)
+            row = entry("fused_apply", launches_by_k.get(k, 0), err, ms, plain_ms,
+                        2 * (8 << n) + u.numel() * 8 + 4, TF32_PASSES * KARATSUBA_OPS * cmacs,
+                        TF32_OPS_PER_S, 8 * cmacs, matmul_ms,
+                        f"{what}: k={k} bits={list(bits)} V=1 n={n} (padded to I x U on 4 bits)")
+            fused["by_k"].append(by_k_row(dict(row, k=k, path=what)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return worst
+
+
+def vqe_phase(simulate, ops, ref, probe, card: str, fused: dict) -> dict:
+    """The ``--vqe`` loop at full width through the CLI: 1 + 3
+    value_and_grad calls, each launch counted; then at the first step's
+    angles the value_and_grad split (forward, λ, sweep) and a trace, the
+    gradient against the same sweep through the plain version on the same
+    forward state, against central finite differences of the on-card
+    energy (measured by the port's measurer, another algorithm) and
+    against the complex128 oracle on the observable's light cone; a sample
+    of the sweep's launches against the plain version."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.adjoint import AdjointProgram, adjoint_gradients_np
+    from repro_torch.sim.measure import apply_pauli_sum, measurer_for
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    run = simulate.main(VQE_PATH)
+    sync("cuda")
+    cli_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    eng = run.engine
+    calls = len(run.grad_seconds)
+    require(calls == 4 and len(run.energies) == 4 and all(np.isfinite(run.energies))
+            and bool(np.all(np.isfinite(run.theta))), "VQE: four finite energies and angles")
+    launches = check_grad_launches(ops, eng, VQE_OBS, "VQE loop", calls=calls)
+    log(f"  VQE energies {run.energies}; value_and_grad seconds {run.grad_seconds} (the first "
+        f"builds the adjoint program); {run.seconds:.3f} s for 3 steps = {run.seconds / 3:.3f} "
+        f"s/step; peak device memory {gib(peak)} against a {gib(8 << eng.n)} state; engine "
+        f"built in {run.build_seconds:.3f} s; the CLI call {cli_s:.1f} s ({card})")
+
+    theta0 = np.random.default_rng(VQE_SEED).uniform(0.0, 2 * np.pi, 2).astype(np.float32)
+    sync("cuda")
+    t0 = time.time()
+    value, grads = eng.value_and_grad(VQE_OBS, params=theta0)
+    total_s = time.time() - t0
+    require(abs(value - run.energies[0]) <= 1e-6,
+            f"VQE: value_and_grad at the first angles {value} != the CLI's {run.energies[0]}")
+    t0 = time.time()
+    psi = eng.run()
+    sync("cuda")
+    forward_s = time.time() - t0
+    t0 = time.time()
+    lam = apply_pauli_sum(psi.view(1, -1), VQE_OBS)
+    sync("cuda")
+    lam_s = time.time() - t0
+    del lam
+    log(f"  value_and_grad at the first angles: {total_s:.3f} s = forward {forward_s:.3f} s + "
+        f"λ = H|ψ⟩ {lam_s:.3f} s + reverse sweep {total_s - forward_s - lam_s:.3f} s ({card})")
+    plain = AdjointProgram(eng.circuit, VQE_OBS, device="cuda", use_kernels=False)
+    t0 = time.time()
+    pv, pg = plain.sweep_(psi.view(1, -1), *plain.tensors(eng.bound_circuit))
+    plain_s = time.time() - t0
+    del psi
+    torch.cuda.empty_cache()
+    pv, pg = float(pv[0]), pg[0]
+    log(f"  against the plain version's sweep on the same state ({plain_s:.3f} s): value "
+        f"{value:+.9f} vs {pv:+.9f}, gradient {grads} vs {pg}")
+    require(abs(value - pv) <= VALUE_ATOL and np.abs(grads - pg).max() <= GRAD_ATOL,
+            "VQE: the kernel sweep and the plain sweep disagree")
+    t0 = time.time()
+    ov, og = adjoint_gradients_np(PARAM_FAMILIES["isingparam"](LIGHT_CONE_N), theta0, VQE_OBS)
+    log(f"  against the complex128 oracle at n={LIGHT_CONE_N} ({time.time() - t0:.1f} s): value "
+        f"{ov:+.9f}, gradient {og}; differences {abs(value - ov):.3e}, "
+        f"{np.abs(grads - og).max():.3e}")
+    require(abs(value - ov) <= VALUE_ATOL and np.abs(grads - og).max() <= GRAD_ATOL,
+            "VQE: the gradient disagrees with the complex128 oracle on the light cone")
+
+    def energy(th):
+        packed = eng.run_packed(params=th)
+        return measurer_for(packed, eng.measurement_frame, eng).expectation(VQE_OBS)
+
+    th = theta0.astype(np.float64)
+    fd = np.array([(energy(th + FD_EPS * e) - energy(th - FD_EPS * e)) / (2 * FD_EPS)
+                   for e in np.eye(len(th))])
+    rel = float(np.abs(grads - fd).max() / np.abs(fd).max())
+    log(f"  against central differences of the on-card energy (eps {FD_EPS}): {fd}; "
+        f"max difference {rel:.3e} of the gradient's size (limit {FD_RTOL})")
+    require(rel <= FD_RTOL, "VQE: the gradient disagrees with finite differences")
+    eng.bind(theta0)
+
+    trace_run(lambda: eng.value_and_grad(VQE_OBS), total_s, "value_and_grad")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(1 << eng.n, dtype=torch.complex64, device="cuda", generator=gen)
+    worst = hold_sweep_sample(ops, ref, probe, eng, VQE_OBS, x, fused, launches["by_k"],
+                              "isingparam(30) reverse sweep")
+    del x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "worst": {"fused": worst, "shm": 0.0}, "peak": peak,
+            "grad_seconds": run.grad_seconds, "split": [forward_s, lam_s, total_s]}
+
+
+def oracle_phase(ops, card: str, n: int, L: int, R: int, reps: int) -> dict:
+    """``value_and_grad`` of ``su2param(n, reps)`` on the card against the
+    complex128 adjoint oracle on the host, with its launches."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.adjoint import adjoint_gradients_np
+    from repro_torch.sim.engine import engine_for
+
+    sym = PARAM_FAMILIES["su2param"](n, reps=reps)
+    t0 = time.time()
+    eng = engine_for(sym, L, R, 0, device="cuda")
+    build_s = time.time() - t0
+    theta = np.random.default_rng(31).uniform(0.0, 2 * np.pi, len(sym.param_names))
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    value, grads = eng.value_and_grad(ORACLE_OBS, params=theta)
+    card_s = time.time() - t0
+    launches = check_grad_launches(ops, eng, ORACLE_OBS, f"su2param({n})")
+    t0 = time.time()
+    ov, og = adjoint_gradients_np(sym, theta, ORACLE_OBS)
+    oracle_s = time.time() - t0
+    dv, dg = abs(value - ov), float(np.abs(grads - og).max())
+    log(f"  su2param({n}, reps={reps}) L={L} R={R}: {len(sym.gates)} gates, {len(theta)} "
+        f"parameters; value_and_grad {card_s:.3f} s on the card (engine built in {build_s:.2f} "
+        f"s), the complex128 oracle {oracle_s:.1f} s on the host; value {value:+.9f} vs "
+        f"{ov:+.9f} ({dv:.3e}), gradient max difference {dg:.3e} ({card})")
+    require(dv <= VALUE_ATOL and dg <= GRAD_ATOL,
+            f"su2param({n}): value_and_grad disagrees with the complex128 oracle")
+    return {"launches": launches, "seconds": card_s, "value_err": dv, "grad_err": dg}
+
+
+def grad_sweep_phase(ops, card: str, n: int, L: int, R: int, P: int) -> dict:
+    """``grad_sweep`` of P bindings of ``isingparam(n)`` on the in-card
+    backend: one ``[P, 2^n]`` forward sweep and one reverse sweep, each
+    application one launch for all P (a single point's count), each row
+    against ``value_and_grad`` of that point alone."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+
+    eng = engine_for(PARAM_FAMILIES["isingparam"](n), L, R, 0, device="cuda")
+    require(eng.backend.supports_fused_grad(), "the in-card backend must fuse grad_sweep")
+    batch = np.random.default_rng(37).uniform(0.0, 2 * np.pi, (P, 2))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    vals, grads = eng.grad_sweep(batch, VQE_OBS)
+    sweep_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = check_grad_launches(ops, eng, VQE_OBS, f"grad_sweep of {P}")
+    worst, point_s = 0.0, 0.0
+    for p in range(P):
+        t0 = time.time()
+        v, g = eng.value_and_grad(VQE_OBS, params=batch[p])
+        point_s += time.time() - t0
+        err = max(abs(vals[p] - v), float(np.abs(grads[p] - g).max()))
+        require(err <= ROW_ATOL, f"grad_sweep row {p} differs from its point alone by {err}")
+        worst = max(worst, err)
+    log(f"  isingparam({n}) L={L} R={R}, P={P}: grad_sweep {sweep_s:.3f} s = {sweep_s / P:.3f} "
+        f"s/point, value_and_grad point by point {point_s / P:.3f} s/point; rows against the "
+        f"points alone: max difference {worst:.3e}; peak device memory {gib(peak)} ({card})")
+    return {"launches": launches, "sweep_s": sweep_s, "point_s": point_s, "peak": peak,
+            "err": worst}
+
+
+def offload_grad_phase(ops, card: str, n: int, L: int, R: int) -> dict:
+    """``value_and_grad`` through the offload backend (the forward state
+    streamed through the card shard by shard, then uploaded for the sweep)
+    against the in-card engine's."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+
+    sym = PARAM_FAMILIES["isingparam"](n)
+    theta = np.random.default_rng(41).uniform(0.0, 2 * np.pi, 2)
+    off = engine_for(sym, L, R, 0, backend="offload", device="cuda")
+    require(not off.backend.supports_fused_grad(), "offload sweeps gradients point by point")
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    value, grads = off.value_and_grad(VQE_OBS, params=theta)
+    off_s = time.time() - t0
+    launches = check_grad_launches(ops, off, VQE_OBS, f"offload isingparam({n})",
+                                   per_op=off.backend.S)
+    in_card = engine_for(sym, L, R, 0, device="cuda")
+    t0 = time.time()
+    cv, cg = in_card.value_and_grad(VQE_OBS, params=theta)
+    card_s = time.time() - t0
+    err = max(abs(value - cv), float(np.abs(grads - cg).max()))
+    log(f"  isingparam({n}) L={L} R={R}: offload value_and_grad {off_s:.3f} s, in-card "
+        f"{card_s:.3f} s; max difference {err:.3e} ({card})")
+    require(err <= GRAD_ATOL, f"offload value_and_grad differs from the in-card one by {err}")
+    del off, in_card
+    release_pinned()
+    return {"launches": launches, "offload_s": off_s, "in_card_s": card_s, "err": err}
+
+
 def sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1344,6 +1663,21 @@ def main() -> None:
     paths["qft28_batch3"] = batch["launches"]
     worst.append(batch["worst"])
     torch.cuda.empty_cache()
+
+    t_grad = time.time()
+    log("== VQE: " + " ".join(VQE_PATH))
+    vqe = vqe_phase(simulate, ops, ref, probe, card, fused)
+    paths["isingparam30_vqe"] = vqe["launches"]
+    worst.append(vqe["worst"])
+    log("== gradient oracle: su2param({n}, reps={reps}) L={L} R={R}".format(**ORACLE))
+    paths["su2param20_grad"] = oracle_phase(ops, card, **ORACLE)["launches"]
+    log("== grad_sweep: isingparam({n}) L={L} R={R}, P={P} bindings".format(**GRAD_SWEEP))
+    paths["isingparam28_grad_sweep4"] = grad_sweep_phase(ops, card, **GRAD_SWEEP)["launches"]
+    torch.cuda.empty_cache()
+    log("== offload gradient: isingparam({n}) L={L} R={R}".format(**OFFLOAD_GRAD))
+    paths["isingparam28_offload_grad"] = offload_grad_phase(ops, card, **OFFLOAD_GRAD)["launches"]
+    torch.cuda.empty_cache()
+    log(f"  the gradient phases took {time.time() - t_grad:.1f}s")
 
     t_offload = time.time()
     log("== host <-> card link (pinned, 2 GiB)")

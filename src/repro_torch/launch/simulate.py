@@ -39,8 +39,15 @@ DRAM budget, the rest spilled to disk), or checkpointed after every stage
   PYTHONPATH=src python -m repro_torch.launch.simulate --circuit ising --n 30 \\
       --L 26 --R 4 --executor offload --checkpoint-dir /path/to/ckpt
 
-Not in the port yet, and refused: ``--autotune``, ``--vqe`` and the
-``shardmap`` executor.
+Variational optimisation: Adam over adjoint-mode ``value_and_grad`` of a
+Pauli observable, the reverse sweep through the ``fused_apply`` kernel:
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit isingparam \
+      --n 30 --L 28 --R 2 --vqe "Z0 Z1 + Z1 Z2 + 0.5*X0"
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit isingparam \
+      --n 8 --L 6 --R 2 --vqe "Z0 Z1 + Z1 Z2 + 0.5*X0" --vqe-steps 5 --device cpu
+
+Not in the port yet, and refused: ``--autotune`` and the ``shardmap``
+executor.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ import argparse
 import json
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +96,13 @@ class SimulateRun:
     fidelities: List[float] = field(default_factory=list)
     build_seconds: Optional[float] = None
     bind_seconds: Optional[float] = None
+    # --vqe: <H> after the first value_and_grad and after each step, the
+    # final angles (ordered by param_names), and the seconds of each
+    # value_and_grad call (the first one first)
+    energies: List[float] = field(default_factory=list)
+    theta: Optional[np.ndarray] = None
+    param_names: Tuple[str, ...] = ()
+    grad_seconds: List[float] = field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -204,6 +218,14 @@ def main(argv=None) -> SimulateRun:
                          "parameterized families unless --sweep is given")
     ap.add_argument("--sweep", default=None, metavar="FILE.json",
                     help="run a parameter sweep in one pass (implies --engine)")
+    ap.add_argument("--vqe", default=None, metavar="OBSERVABLE",
+                    help="minimize <H> over the circuit's free parameters with Adam over "
+                         'adjoint-mode value_and_grad, e.g. --vqe "Z0 Z1 + Z1 Z2 + 0.5*X0" '
+                         "(implies --engine)")
+    ap.add_argument("--vqe-steps", type=int, default=30)
+    ap.add_argument("--vqe-lr", type=float, default=0.1)
+    ap.add_argument("--vqe-seed", type=int, default=0,
+                    help="seed of the initial angles, uniform in [0, 2 pi)")
     ap.add_argument("--check", action="store_true",
                     help=f"fidelity vs the complex128 dense reference (n <= {CHECK_MAX_QUBITS})")
     ap.add_argument("--shots", type=int, default=0, help="sample N bitstrings")
@@ -231,9 +253,12 @@ def main(argv=None) -> SimulateRun:
                          "state from DIR (implies --engine; not with --storage)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.executor == "pergate" and (args.engine or args.batch > 1 or args.sweep is not None):
+    if args.executor == "pergate" and (args.engine or args.batch > 1 or args.sweep is not None
+                                       or args.vqe is not None):
         ap.error("--executor pergate is a baseline outside the engine: no --engine, "
-                 "--batch or --sweep")
+                 "--batch, --sweep or --vqe")
+    if args.vqe is not None and args.circuit not in PARAM_FAMILIES:
+        ap.error(f"--vqe needs a parameterized circuit ({', '.join(sorted(PARAM_FAMILIES))})")
     storage = None
     if args.storage is not None:
         if args.executor != "offload":
@@ -271,12 +296,12 @@ def main(argv=None) -> SimulateRun:
           + (f"; {len(circ.param_names)} free params" if not circ.is_bound else ""))
     marginals = [tuple(int(q) for q in spec.split(",")) for spec in args.marginal]
     binds = _parse_bind(args.bind)
-    if not circ.is_bound and not binds and args.sweep is None:
+    if not circ.is_bound and not binds and args.sweep is None and args.vqe is None:
         ap.error(f"circuit has free parameters {circ.param_names}; "
-                 "pass --bind NAME=VAL or --sweep FILE.json")
+                 "pass --bind NAME=VAL, --sweep FILE.json or --vqe OBS")
     use_engine = (args.engine or args.batch > 1 or args.executor == "dense"
                   or args.sweep is not None or storage is not None
-                  or args.checkpoint_dir is not None)
+                  or args.checkpoint_dir is not None or args.vqe is not None)
     if not use_engine and (binds or not circ.is_bound):
         # the engine path binds after the cache lookup, so its key stays
         # parameter-blind; here the circuit is bound up front
@@ -333,6 +358,9 @@ def main(argv=None) -> SimulateRun:
     print(f"partition: {plan.n_stages} stages, kernel cost {plan.total_kernel_cost:,.0f} us"
           f" (preprocess {plan.preprocess_time_s:.2f}s); program: "
           + ", ".join(f"{v} {k}" for k, v in sorted(ex.op_counts().items())))
+
+    if args.vqe is not None:
+        return _vqe(args, ex, plan, build_s, bind_s)
 
     def reference(bound, psi0=None):
         return simulate_np(bound if bound.is_bound else bound.bind(binds), psi0)
@@ -416,6 +444,61 @@ def main(argv=None) -> SimulateRun:
         run.fidelity = fidelity(logical, reference(ref_circ))
         run.fidelities.append(run.fidelity)
         print(f"fidelity vs dense reference: {run.fidelity:.6f}")
+    return run
+
+
+def _vqe(args, ex: ExecutionEngine, plan: SimulationPlan, build_s, bind_s) -> SimulateRun:
+    """``--vqe``: Adam (:mod:`repro_torch.optim.adamw`, float32 moments, no
+    decay or warmup, clip 10) over ``value_and_grad`` of the observable,
+    from angles drawn with ``--vqe-seed``; one value_and_grad before the
+    first step and one after each. The iterations must run no solver, miss
+    no entry of the structural cache, schedule no ``shm`` program and build
+    no adjoint program: each is checked, and a breach raises."""
+    from ..core import kernelization, staging
+    from ..kernels import ops as kops
+    from ..optim.adamw import AdamWConfig, init as adam_init, update as adam_update
+
+    names = ex.param_names
+    rng = np.random.default_rng(args.vqe_seed)
+    theta = torch.tensor(rng.uniform(0.0, 2 * np.pi, len(names)), dtype=torch.float32)
+    cfg = AdamWConfig(lr=args.vqe_lr, weight_decay=0.0, warmup_steps=0,
+                      total_steps=max(args.vqe_steps, 1), min_lr_frac=1.0,
+                      moment_dtype="float32", clip_norm=10.0)
+    opt = adam_init(cfg, theta)
+    run = SimulateRun(engine=ex, plan=plan, state=None, result=None, seconds=0.0,
+                      build_seconds=build_s, bind_seconds=bind_s, param_names=names)
+
+    def step_grad():
+        t0 = time.time()
+        value, grads = ex.value_and_grad(args.vqe, params=theta.numpy())
+        run.grad_seconds.append(time.time() - t0)
+        run.energies.append(value)
+        return value, grads
+
+    value, grads = step_grad()
+    print(f"VQE over {len(names)} params, H = {args.vqe}; first value+grad (incl. the "
+          f"adjoint program's build) in {run.grad_seconds[0]:.3f}s")
+
+    def warm_counts():
+        return (dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
+                set(ex._struct_cache), kops.SCHEDULE_CALLS["shm"], ex.adjoint_builds)
+
+    counts = warm_counts()
+    t0 = time.time()
+    for step in range(args.vqe_steps):
+        theta, opt, _ = adam_update(cfg, torch.as_tensor(grads, dtype=torch.float32), opt, theta)
+        value, grads = step_grad()
+        if step % max(args.vqe_steps // 10, 1) == 0 or step == args.vqe_steps - 1:
+            print(f"  step {step:4d}: <H> = {value:+.6f}  |grad| = {float(np.linalg.norm(grads)):.4f}"
+                  f"  ({run.grad_seconds[-1]:.3f}s)")
+    run.seconds = time.time() - t0
+    if warm_counts() != counts:
+        raise RuntimeError("VQE iterations ran a solver, missed the structural cache, scheduled "
+                           "an shm program or built an adjoint program")
+    run.theta = theta.numpy()
+    print(f"VQE done: <H> = {value:+.6f} after {args.vqe_steps} steps in {run.seconds:.2f}s "
+          f"({run.seconds / max(args.vqe_steps, 1):.3f}s/step; no solver call, no structural-"
+          "cache miss, no shm program scheduled, no adjoint program built)")
     return run
 
 

@@ -20,6 +20,9 @@ The twin of ``repro/sim/engine.py`` for the meshless single-device case:
   stage, through the same op application (and so the same kernels) as
   :class:`CudaBackend`; remaps are bit permutations on the host;
 * :class:`DenseBackend` is the per-gate oracle behind the same API;
+* ``value_and_grad`` / ``grad_sweep`` differentiate ``<ψ(θ)|H|ψ(θ)>`` by
+  the adjoint reverse sweep (:mod:`repro_torch.sim.adjoint`) over the
+  forward state, on the engine's device;
 * :func:`engine_for` is the serving entry point: a structural
   :class:`CircuitKey` -> engine LRU (:class:`CompileCache`) that rebinds a
   cached engine to new angles instead of planning again.
@@ -35,8 +38,8 @@ in place; a remap writes one new state, so a run holds at most two states.
 The reference's degradation ladder keeps only its planning rungs here
 (:func:`_plan_resilient`) and the one retry of a failed ``compile_plan``
 (:func:`build_engine`): a backend or kernel that fails raises. Not in this
-module yet: the multi-device backends, adjoint gradients, the norm guard
-and the device calibration.
+module yet: the multi-device backends, the norm guard and the device
+calibration.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field, fields as _dc_fields
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,6 +70,9 @@ from . import faults
 from .faults import FaultError, KernelizationError, StagingError
 from .journal import RunJournal, StragglerMonitor
 from .shard_store import ShardStore, StorageConfig
+
+if TYPE_CHECKING:
+    from .adjoint import AdjointProgram
 
 
 # ======================================================================
@@ -183,6 +189,14 @@ class Backend:
         engine rebinds point by point otherwise."""
         return False
 
+    def supports_fused_grad(self) -> bool:
+        """True when ``grad_sweep`` runs the reverse sweeps of all its
+        bindings at once (``[P, 2^n]`` states, one launch per gate
+        application for all P). Backends whose states do not live as one
+        device tensor (host offload) report False, and the engine sweeps
+        point by point."""
+        return False
+
     def prepare(self, psi0, batch: bool = False) -> torch.Tensor:
         eng = self.engine
         if batch:
@@ -261,6 +275,9 @@ class CudaBackend(Backend):
         self._members.clear()  # operands derived from tensor values
 
     def supports_fused_sweep(self) -> bool:
+        return True
+
+    def supports_fused_grad(self) -> bool:
         return True
 
     # ------------------------------------------------------------ indices
@@ -575,6 +592,11 @@ class OffloadBackend(CudaBackend):
         self._uploaded.clear()
         self._dev_slices.clear()
         self._shard_members.clear()
+
+    def supports_fused_grad(self) -> bool:
+        # the state streams from host memory: a [P, 2^n] batch of gradient
+        # sweeps would need P whole states on the device at once
+        return False
 
     # ------------------------------------------------------------ shards
     def _host(self, shape) -> torch.Tensor:
@@ -1006,6 +1028,10 @@ class ExecutionEngine:
         # per-entry-point wall times (count/total/last/max in us)
         self.timings: Dict[str, Dict[str, float]] = {}
         self._struct_cache: Dict = {}  # binding-independent build artifacts
+        # observable -> AdjointProgram, and the programs built so far (a
+        # rebind builds none)
+        self._adjoint_progs: Dict[str, "AdjointProgram"] = {}
+        self.adjoint_builds = 0
         # op-tensor registry, keyed by stable ``Op.uid``: one device tensor
         # per op (a leading variant axis for dep-batched ops)
         self.consts: Dict[int, torch.Tensor] = {}
@@ -1226,6 +1252,74 @@ class ExecutionEngine:
         from .measure import Frame
 
         return Frame.from_compiled(self.cc)
+
+    # ---------------------------------------------------- adjoint gradients
+    def adjoint_program(self, observable) -> "AdjointProgram":
+        """The cached :class:`repro_torch.sim.adjoint.AdjointProgram` for
+        this engine's structure and ``observable``, on the engine's device
+        and kernel setting; every binding reuses it (each one built counts
+        into :attr:`adjoint_builds`)."""
+        from .adjoint import AdjointProgram
+        from .measure import PauliSum
+
+        key = str(PauliSum.coerce(observable))
+        with self.lock:
+            prog = self._adjoint_progs.get(key)
+            if prog is None:
+                prog = AdjointProgram(self.circuit, observable, device=self.device,
+                                      use_kernels=self.use_kernels)
+                self._adjoint_progs[key] = prog
+                self.adjoint_builds += 1
+            return prog
+
+    def _on_device(self, states: torch.Tensor) -> torch.Tensor:
+        """A run's output as the reverse sweep takes it: ``[rows, 2^n]`` on
+        the engine's device. An offload run's host state is uploaded (the
+        sweep needs whole states on the device); a state already there is
+        the run's own output, which the sweep consumes."""
+        return states.to(self.device).reshape(-1, 1 << self.n)
+
+    def value_and_grad(self, observable, params=None, psi0=None) -> Tuple[float, np.ndarray]:
+        """``(E, ∂E/∂θ)`` for ``E = <ψ(θ)|H|ψ(θ)>`` by adjoint
+        differentiation: the backend's forward run produces |ψ⟩, then one
+        reverse sweep over the gate list (:mod:`repro_torch.sim.adjoint`)
+        gives every parameter's gradient — three state passes, however many
+        parameters. ``params`` (optional) rebinds first; gradients are
+        ordered by :attr:`param_names` (float64). No solver call and no new
+        adjoint program after the first call per observable."""
+        with self.lock:
+            if params is not None:
+                self.bind(params)
+            self._require_bound()
+            t0 = time.perf_counter()
+            prog = self.adjoint_program(observable)
+            psi = self._on_device(self.run(psi0))
+            values, grads = prog.sweep_(psi, *prog.tensors(self.bound_circuit))
+            self._record_time("value_and_grad", (time.perf_counter() - t0) * 1e6)
+        return float(values[0]), grads[0]
+
+    def grad_sweep(self, params_batch, observable, psi0=None) -> Tuple[np.ndarray, np.ndarray]:
+        """``value_and_grad`` over a batch of bindings: ``(values [P],
+        grads [P, n_params])``. The forward states come from
+        :meth:`run_sweep`; when the backend reports ``supports_fused_grad``
+        the reverse sweeps run on all P states at once (every gate
+        application one launch for all P), otherwise point by point. Either
+        way through one cached adjoint program."""
+        points = self._sweep_points(params_batch)
+        if not points:
+            raise ValueError("empty params_batch")
+        with self.lock:
+            prog = self.adjoint_program(observable)
+            bounds = [self.circuit.bind(pt) for pt in points]
+            states = self.run_sweep(psi0, points)
+            if self.backend.supports_fused_grad():
+                return prog.sweep_(self._on_device(states), *prog.stacked_tensors(bounds))
+            vals, gs = [], []
+            for p, bound in enumerate(bounds):
+                v, g = prog.sweep_(self._on_device(states[p]), *prog.tensors(bound))
+                vals.append(v[0])
+                gs.append(g[0])
+            return np.asarray(vals), np.stack(gs)
 
 
 # ======================================================================
@@ -1649,8 +1743,10 @@ def engine_for(
                 # symbolic request on an engine whose skeleton is concrete or
                 # carries other Param names / scales (the key is blind to
                 # both): adopt the REQUESTED skeleton so the caller's names
-                # and scales resolve; the current binding is untouched
+                # and scales resolve; the current binding is untouched.
+                # Adjoint programs wired to the old names and scales go.
                 eng.circuit = circuit
+                eng._adjoint_progs.clear()
     if not same_structure:
         # an aliased engine in another circuit space: never rebind across
         # structures; build fresh, un-cached

@@ -35,7 +35,8 @@ import torch
 
 from ..core import gates as G
 from ..core.circuit import Circuit
-from .apply import apply_matrix_bits, sum_bits
+from ..kernels.ops import to_device
+from .apply import apply_matrix_bits, n_bits_of, sum_bits
 from .result import SimulationResult
 
 # basis-change matrices: V with V† Z V = P  =>  <psi|P|psi> = sum |V psi|^2 * sign
@@ -143,6 +144,39 @@ def pauli_sum_ops(
         (t.coeff, tuple((q, _PAULI_MATS[p]) for q, p in t.ops))
         for t in obs.terms
     )
+
+
+def apply_pauli_sum(psi: torch.Tensor, obs: Union[str, PauliSum],
+                    use_kernels: bool = True) -> torch.Tensor:
+    """``H|psi>`` for a dense *logical-order* state: flat ``[2^n]``, or
+    ``[P, 2^n]`` rows, each row on its own. A new tensor of ``psi``'s shape.
+
+    Each non-identity Pauli op is one per-gate apply
+    (:func:`repro_torch.sim.adjoint.apply_gate_`: the ``fused_apply`` kernel
+    over all rows, or with ``use_kernels=False`` its plain version) on a
+    working copy of ``psi``; the terms accumulate with their coefficients.
+    No ``2^n x 2^n`` matrix is built, and the call holds three states:
+    ``psi``, the copy and the sum. The λ-initialization of the adjoint
+    sweep."""
+    from .adjoint import apply_gate_
+
+    rows = psi.reshape(-1, psi.shape[-1])
+    n = n_bits_of(rows.shape[1])
+    vidx = to_device(np.zeros(rows.shape[0], dtype=np.int32), psi.device)
+    acc = torch.zeros_like(rows)
+    work = None
+    for coeff, ops in pauli_sum_ops(obs):
+        if not ops:  # an identity term
+            acc.add_(rows, alpha=coeff)
+            continue
+        if work is None:
+            work = torch.empty_like(rows)
+        work.copy_(rows)
+        for q, mat in ops:
+            u = to_device(mat.astype(np.complex64).reshape(1, 2, 2), psi.device)
+            apply_gate_(work.view(-1), u, vidx, (q,), n, use_kernels)
+        acc.add_(work, alpha=coeff)
+    return acc.view(psi.shape)
 
 
 def expectation_np(psi: np.ndarray, obs: Union[str, PauliSum]) -> float:

@@ -409,3 +409,73 @@ def test_offload_checkpoint_resume_on_the_card(cuda, tmp_path):
     assert again.backend.stats["resumed_stages"] >= 1
     assert torch.equal(got, want)
     assert not list(tmp_path.iterdir())
+
+
+def _grad_ansatz(n):
+    """Every parametric gate kind the sweep meets in the port's families and
+    beyond (``cx``, ``u3``, ``cry``, ``crz``, ``rzz``, rotations), on pairs
+    in both bit orders, with shared and affine parameters: a swapped
+    bit order passes the symmetric gates only."""
+    from repro_torch.core.circuit import Circuit
+    from repro_torch.core.gates import Param
+
+    c = Circuit(n)
+    for q in range(n):
+        c.add("ry", q, params=[Param(f"a{q % 4}")])
+    for q in range(n - 1):
+        c.add("cx", q + 1, q)
+    c.add("u3", n - 1, params=[Param("a0"), 0.4, Param("J")])
+    c.add("cry", 0, n - 1, params=[Param("J") * 0.5])
+    c.add("crz", n - 2, 1, params=[Param("a1")])
+    c.add("rzz", 2, n - 3, params=[Param("J")])
+    for q in range(n):
+        c.add("rx", q, params=[Param(f"a{(q + 1) % 4}") * -0.7])
+    return c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [10, 20])
+def test_value_and_grad_kernels_match_plain_on_card(cuda, n):
+    """The reverse sweep through ``fused_apply`` against the same sweep
+    through its plain version, on one forward state (n=10: shards below one
+    full tile), with the launch count of one value_and_grad."""
+    from repro_torch.core.partition import partition
+    from repro_torch.sim.adjoint import AdjointProgram
+    from repro_torch.sim.engine import ExecutionEngine
+
+    circ = _grad_ansatz(n)
+    obs = f"Z0 Z1 + 0.5*X{n - 1} + 0.3*Y2 X3 - 0.1"
+    eng = ExecutionEngine(circ, partition(circ, n - 2, 2, 0), device=cuda)
+    theta = np.random.default_rng(n).uniform(0.2, 2.0, len(circ.param_names))
+    ops.reset_kernel_counters()
+    value, grads = eng.value_and_grad(obs, params=theta)
+    slots = sum(len(g.param_slots) for g in circ.gates)
+    assert ops.kernel_call_counts()["fused"] == (eng.op_counts().get("fused", 0) + 5
+                                                 + 2 * len(circ.gates) + slots)
+    plain = AdjointProgram(circ, obs, device=cuda, use_kernels=False)
+    pv, pg = plain.value_and_grad(eng.run(), eng.bound_circuit)
+    assert abs(value - pv) < 2e-5
+    np.testing.assert_allclose(grads, pg, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_grad_sweep_on_card_matches_points(cuda):
+    """``grad_sweep`` of 3 bindings as one ``[3, 2^n]`` sweep (one launch per
+    gate application for all rows) against ``value_and_grad`` per point."""
+    from repro_torch.core.partition import partition
+    from repro_torch.sim.engine import ExecutionEngine
+
+    n = 12
+    circ = _grad_ansatz(n)
+    obs = "Z0 Z1 + 0.5*X11"
+    eng = ExecutionEngine(circ, partition(circ, n - 2, 2, 0), device=cuda)
+    batch = np.random.default_rng(1).uniform(0.2, 2.0, (3, len(circ.param_names)))
+    ops.reset_kernel_counters()
+    vals, grads = eng.grad_sweep(batch, obs)
+    slots = sum(len(g.param_slots) for g in circ.gates)
+    assert ops.kernel_call_counts()["fused"] == (eng.op_counts().get("fused", 0) + 3
+                                                 + 2 * len(circ.gates) + slots)
+    for p in range(3):
+        v, g = eng.value_and_grad(obs, params=batch[p])
+        assert abs(vals[p] - v) < 2e-4
+        np.testing.assert_allclose(grads[p], g, atol=2e-4)

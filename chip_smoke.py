@@ -57,6 +57,25 @@ uninterrupted run's state bit for bit, that run held against the in-card
 run of its plan and its kernel ops on shards 0 and 15 against their plain
 versions.
 
+Then the profiler, calibrated planning, autotune and the faults (the
+smoke points ``REPRO_CALIBRATION_DIR`` at a fresh ``build/calibration``
+first, so every phase above plans on the reference's analytic constants
+as before): ``python -m repro_torch.sim.profiler --L 28 --repeats 3
+--verify`` through ``main(argv)`` (each field beside the constant it
+replaces; both kernels launched by the profile); ``ising(30)`` and
+``qsvm(30)`` L=28 R=2 planned under the resolved calibration against the
+analytic constants (stages, fused widths, shm ops, run seconds, both
+against the dense oracle on the card, the calibrated engine's kernel ops
+against their plain versions); ``--autotune`` on ``ising(30)`` (every
+candidate's replay, the choice, the tuning's peak device memory; then
+``engine_for`` with default knobs is a cache hit with no solver call); the
+integrity guard at n=28 (clean ``run``/``run_packed`` with ``verify=True``
+and no retry, an injected NaN recovered by one dense-oracle retry, a sweep
+of 4 ``isingparam(28)`` bindings with one poisoned row) and the typed
+build faults (``xla_trace_error`` at ``cuda.setup``,
+``pallas_lowering_error`` at ``engine.init``) raised out of
+``engine_for`` with no other engine built.
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -68,6 +87,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -136,6 +156,15 @@ ORACLE_OBS = "Z0 Z1 + 0.5*X19 - 0.3*Y5 X12 + 0.1"
 GRAD_SWEEP = {"n": 28, "L": 26, "R": 2, "P": 4}
 OFFLOAD_GRAD = {"n": 28, "L": 24, "R": 4}  # 16 host shards of 2^24
 SPILL_ROOT = os.path.join(HERE, "build", "spill")
+# the profiler, calibrated planning, autotune and the faults: the smoke's own
+# calibration directory, empty until the calibration phase writes it, so
+# every earlier phase plans on the analytic constants as before
+CALIBRATION_DIR = os.path.join(HERE, "build", "calibration")
+CALIBRATION_L, CALIBRATION_REPEATS = 28, 3  # the disk round trip of 2 GiB takes seconds
+CALIBRATED = {"n": 30, "L": 28, "R": 2, "families": ("ising", "qsvm")}
+AUTOTUNE = {"n": 30, "L": 28, "R": 2}
+AUTOTUNE_PATH = ["--circuit", "ising", "--n", "30", "--L", "28", "--R", "2", "--autotune"]
+FAULTS = {"n": 28, "L": 26, "R": 2, "P": 4}
 CHECKPOINT_DIR = os.path.join(HERE, "build", "checkpoint")
 
 
@@ -1565,6 +1594,339 @@ def offload_grad_phase(ops, card: str, n: int, L: int, R: int) -> dict:
     return {"launches": launches, "offload_s": off_s, "in_card_s": card_s, "err": err}
 
 
+def plan_line(eng) -> str:
+    """Stages, ``fused`` ops by width and ``shm`` ops of an engine's plan."""
+    by_k = {}
+    for prog in eng.cc.programs:
+        for op in prog.ops:
+            if op.kind == "fused":
+                by_k[len(op.local_bits)] = by_k.get(len(op.local_bits), 0) + 1
+    counts = eng.op_counts()
+    return (f"{eng.plan.n_stages} stages, fused by k {dict(sorted(by_k.items()))}, "
+            f"{counts.get('shm', 0)} shm, {counts.get('diag', 0)} diag")
+
+
+def calibration_phase(ops, card: str) -> dict:
+    """The profiler on the card: ``python -m repro_torch.sim.profiler --L
+    28 --repeats 3 --verify`` through ``main(argv)``, into the smoke's own
+    calibration directory. Every measured field positive and finite,
+    printed beside the analytic constant it replaces; both hand kernels
+    launched by the profile; ``--verify`` passed."""
+    from repro_torch.core.cost_model import DEFAULT_COST_MODEL
+    from repro_torch.sim import profiler
+
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    rc = profiler.main(["--L", str(CALIBRATION_L), "--repeats", str(CALIBRATION_REPEATS),
+                        "--verify"])
+    profile_s = time.time() - t0
+    require(rc == 0, "profiler --verify: the engine under the calibrated model disagrees with "
+                     "the dense oracle")
+    launches = dict(ops.kernel_call_counts(), by_k=ops.fused_call_counts_by_k())
+    require(launches["fused"] > 0 and launches["shm"] > 0,
+            f"the profile must launch both hand kernels: {launches}")
+    calib = profiler.load_calibration(profiler.default_calibration_path())
+    meas, raw = calib["measurements"], calib["meta"]["raw"]
+    require(calib["fingerprint"]["platform"] == "cuda" and calib["meta"]["L"] == CALIBRATION_L,
+            f"calibration fingerprint {calib['fingerprint']}, L {calib['meta']['L']}")
+    for field in sorted(meas):
+        v = meas[field]
+        require(math.isfinite(v) and v > 0, f"calibrated {field} = {v}")
+        log(f"  {field:<18} {v:12.4f}  (analytic {getattr(DEFAULT_COST_MODEL, field):g}) ({card})")
+    log("  raw: fused_apply us by k " + json.dumps({k: round(v, 1) for k, v in
+                                                   raw["fusion"]["per_k_us"].items()})
+        + f"; shm dense 1/5 members {raw['shm']['dense_us']}, diag {raw['shm']['diag_us']}; "
+        f"pass {raw['pass']['elementwise_us']:.1f} us; link round trip "
+        f"{raw['host_link']['roundtrip_us']:.0f} us; disk round trip "
+        f"{raw['disk']['roundtrip_us'] / 1e6:.2f} s in {raw['disk']['dir']}")
+    log(f"  profile + verify {profile_s:.1f} s (profile alone {calib['meta']['profile_time_s']:.1f}"
+        f" s); launches {launches}")
+    return {"launches": launches, "measurements": meas, "seconds": profile_s}
+
+
+def calibrated_phase(ops, ref, probe, card: str, name: str, fused: dict) -> dict:
+    """``name(30)`` L=28 R=2 planned under the resolved calibration
+    (``engine_for`` with no cost model) and under the analytic constants:
+    each plan's stages, ``fused`` widths and ``shm`` ops and its warm run
+    seconds, both states against the dense per-gate oracle on the card,
+    launches equal to the plan; the calibrated engine's kernel ops against
+    their plain versions."""
+    import scipy
+
+    from repro_torch.core.cost_model import DEFAULT_COST_MODEL
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.sim import profiler
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
+
+    n, L, R = CALIBRATED["n"], CALIBRATED["L"], CALIBRATED["R"]
+    circ = FAMILIES[name](n)
+    t0 = time.time()
+    oracle = dense_simulate(circ, device="cuda")
+    oracle_s = time.time() - t0
+    out, launches = {}, {}
+    for label, cm in (("calibrated", None), ("analytic", DEFAULT_COST_MODEL)):
+        t0 = time.time()
+        eng = engine_for(circ, L, R, 0, cost_model=cm, cache=None, device="cuda")
+        build_s = time.time() - t0
+        if cm is None:
+            src = eng.provenance["calibration"]
+            require(src["source"] == "calibrated", f"{name}({n}) planned on {src}")
+        eng.run()  # warm: index tensors, step tables
+        ops.reset_kernel_counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = eng.run()
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches[label] = launches_match(ops, eng, f"{label} {name}({n})", kinds=())
+        require(launches[label]["fused"] + launches[label]["shm"] > 0,
+                f"{label} {name}({n}) launched no kernel")
+        fid = fidelity(state, oracle)
+        del state
+        require(fid >= FIDELITY_MIN, f"{label} {name}({n}) fidelity {fid} < {FIDELITY_MIN}")
+        log(f"  {label:<10} {name}({n}) L={L} R={R}: {plan_line(eng)}; planned and built in "
+            f"{build_s:.2f} s; run {run_s:.4f} s; fidelity {fid:.9f} (host scipy "
+            f"{scipy.__version__}; {card})")
+        out[label] = {"run_s": run_s, "build_s": build_s, "fidelity": fid,
+                      "plan": plan_line(eng), "engine": eng}
+    log(f"  dense oracle {oracle_s:.1f} s; calibrated run / analytic run = "
+        f"{out['calibrated']['run_s'] / out['analytic']['run_s']:.3f}")
+    del oracle
+    torch.cuda.empty_cache()
+    eng = out["calibrated"]["engine"]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(1 << n, dtype=torch.complex64, device="cuda", generator=gen)
+    worst = hold_ops(ops, ref, eng, eng.backend.pass_of(), x, f"calibrated {name}({n})")
+    rows = fused_by_k(ops, ref, probe, eng, x, f"calibrated {name}({n})",
+                      launches["calibrated"]["by_k"], skip=[r["k"] for r in fused["by_k"]])
+    fused["by_k"] += [by_k_row(row) for row in rows]
+    del x, eng
+    for v in out.values():
+        v.pop("engine")
+    torch.cuda.empty_cache()
+    return {"launches": launches["calibrated"], "analytic_launches": launches["analytic"],
+            "worst": worst, "runs": out}
+
+
+def autotune_phase(simulate, ops, ref, card: str) -> dict:
+    """``--autotune`` on ``ising(30)`` L=28 R=2 through the CLI: every
+    candidate's replay, the choice and its speedup, the tuning's peak device
+    memory; then ``engine_for`` with default knobs is a cache hit that runs
+    no solver, and the tuned run holds against the dense oracle."""
+    from repro_torch.core import kernelization, staging
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.sim.engine import DEFAULT_CACHE, engine_for
+    from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_kernel_counters()
+    t0 = time.time()
+    run = simulate.main(AUTOTUNE_PATH)
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(ops.kernel_call_counts(), by_k=ops.fused_call_counts_by_k())
+    tuned = run.engine.provenance["autotune"]
+    for cand, us in sorted(tuned["replay_us"].items(), key=lambda kv: kv[1]):
+        log(f"  candidate {cand:<18} replay {us:12.1f} us")
+    log(f"  chose '{tuned['chosen']}' ({tuned['speedup_vs_default']:.3f}x vs default, "
+        f"{len(tuned['replay_us'])} candidates, tuning {tuned['tune_time_s']:.1f} s, the CLI "
+        f"{cli_s:.1f} s); peak device memory of the tuning {gib(peak)}; launches {launches}; "
+        f"tuned plan {plan_line(run.engine)} ({card})")
+    require(peak <= 2.25 * (8 << AUTOTUNE["n"]),
+            f"the tuning's peak {gib(peak)} is more than one run's two states")
+    solves = (dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS))
+    hits = DEFAULT_CACHE.hits
+    again = engine_for(FAMILIES["ising"](AUTOTUNE["n"]), AUTOTUNE["L"], AUTOTUNE["R"], 0,
+                       device="cuda")
+    require(again is run.engine and DEFAULT_CACHE.hits == hits + 1,
+            "engine_for with default knobs must hit the tuned engine")
+    require((dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS)) == solves,
+            "the tuned cache hit must run no ILP or DP solver")
+    fid = fidelity(run.state, dense_simulate(again.circuit, device="cuda"))
+    require(fid >= FIDELITY_MIN, f"tuned ising fidelity {fid} < {FIDELITY_MIN}")
+    log(f"  engine_for(default knobs): cache hit on the tuned engine, no solver call; "
+        f"fidelity {fid:.9f}")
+    run.state = None
+    worst = {"fused": 0.0, "shm": 0.0}
+    if tuned["chosen"] != "default":  # the default is the calibrated plan, held above
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        x = torch.randn(1 << again.n, dtype=torch.complex64, device="cuda", generator=gen)
+        worst = hold_ops(ops, ref, again, again.backend.pass_of(), x, "tuned ising(30)")
+        del x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "chosen": tuned["chosen"], "peak_bytes": peak,
+            "speedup": tuned["speedup_vs_default"], "replay_us": tuned["replay_us"],
+            "fidelity": fid, "worst": worst}
+
+
+def _built_engines():
+    """Record the (backend, use_kernels) of every engine construction while
+    the context is open."""
+    from repro_torch.sim import engine as teng
+
+    class Recorder:
+        def __enter__(self):
+            self.seen, self.real = [], teng.ExecutionEngine.__init__
+            real, seen = self.real, self.seen
+
+            def init(eng, circuit, plan, use_kernels=True, device=None, **kw):
+                be = kw.get("backend", "cuda")
+                seen.append((be if isinstance(be, str) else be.name, use_kernels))
+                real(eng, circuit, plan, use_kernels, device, **kw)
+
+            teng.ExecutionEngine.__init__ = init
+            return self
+
+        def __exit__(self, *exc):
+            teng.ExecutionEngine.__init__ = self.real
+
+    return Recorder()
+
+
+def faults_phase(ops, card: str) -> dict:
+    """The integrity guard and the build faults at n=28: clean guarded
+    ``run`` and ``run_packed`` (no retry; the guard's seconds); a NaN
+    injected into each, recovered by one dense-oracle retry on the card to
+    the clean state; a guarded sweep of 4 ``isingparam(28)`` bindings with
+    one poisoned row, only that row retried; ``xla_trace_error`` at
+    ``cuda.setup`` and ``pallas_lowering_error`` at ``engine.init`` raise
+    their typed errors out of ``engine_for`` with no other engine built."""
+    import random
+
+    from repro_torch.core.generators import FAMILIES, PARAM_FAMILIES
+    from repro_torch.sim import faults
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.faults import PallasLoweringError, XlaTraceError
+    from repro_torch.sim.statevector import fidelity
+
+    n, L, R = FAULTS["n"], FAULTS["L"], FAULTS["R"]
+    ops.reset_kernel_counters()
+    eng = engine_for(FAMILIES["ising"](n), L, R, 0, cache=None, device="cuda")
+    report = {}
+    for entry in ("run", "run_packed"):
+        fn = getattr(eng, entry)
+        fn(verify=True)  # warm: the run's and the guard's buffers
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        t0 = time.time()
+        clean = fn(verify=True)
+        torch.cuda.synchronize()
+        guarded_s = time.time() - t0
+        require("integrity_retries" not in eng.provenance,
+                f"a clean guarded {entry} recorded a retry")
+        t0 = time.time()
+        eng._norm_of(clean)
+        torch.cuda.synchronize()
+        norm_s = time.time() - t0
+        t0 = time.time()
+        with faults.inject(faults.FaultPlan(seed=3).add("nan_amplitudes", count=1)) as plan:
+            out = fn(verify=True)
+        torch.cuda.synchronize()
+        retry_s = time.time() - t0
+        require(plan.fires == {"nan_amplitudes": 1}, f"{entry}: the fault fired {plan.fires}")
+        prov = eng.provenance
+        require(prov.pop("integrity_retries") == prov.pop("integrity_recovered") == 1,
+                f"{entry}: one retry, recovered")
+        fid = fidelity(out, clean)
+        require(fid >= FIDELITY_MIN, f"recovered {entry} fidelity {fid} < {FIDELITY_MIN}")
+        log(f"  {entry}(verify=True) ising({n}) L={L} R={R}: clean {guarded_s:.4f} s against "
+            f"{plain_s:.4f} s unguarded (the norm pass {norm_s * 1e3:.2f} ms), no retry; NaN injected: one dense-oracle retry on "
+            f"the card, {retry_s:.3f} s, fidelity to the clean run {fid:.9f} ({card})")
+        report[entry] = {"guarded_s": guarded_s, "plain_s": plain_s, "norm_s": norm_s,
+                         "retry_s": retry_s,
+                         "fidelity": fid}
+        del clean, out
+    del eng
+    torch.cuda.empty_cache()
+
+    P = FAULTS["P"]
+    sym = PARAM_FAMILIES["isingparam"](n)
+    swp = engine_for(sym, L, R, 0, cache=None, device="cuda")
+    rng = np.random.default_rng(29)
+    points = [{"J": float(j), "h": float(h)} for j, h in rng.uniform(-1.5, 1.5, size=(P, 2))]
+    clean = swp.run_sweep(None, points)
+    seed = 5
+    row = random.Random(seed).randrange(P)  # the plan's first draw: the row it poisons
+    t0 = time.time()
+    with faults.inject(faults.FaultPlan(seed=seed).add("nan_amplitudes", count=1,
+                                                       site="engine.run_sweep")):
+        out = swp.run_sweep(None, points, verify=True)
+    torch.cuda.synchronize()
+    sweep_s = time.time() - t0
+    require(swp.provenance["integrity_retries"] == swp.provenance["integrity_recovered"] == 1,
+            "the sweep must retry one row")
+    fids = [fidelity(out[p], clean[p]) for p in range(P)]
+    require(min(fids) >= FIDELITY_MIN, f"sweep rows against the clean sweep: {fids}")
+    require(all(torch.equal(out[p], clean[p]) for p in range(P) if p != row),
+            "the clean rows must come through untouched")
+    log(f"  run_sweep(verify=True) of {P} isingparam({n}) bindings, row {row} poisoned: that row "
+        f"alone retried; {sweep_s:.3f} s; row fidelities to the clean sweep "
+        f"{[round(f, 9) for f in fids]}")
+    report["sweep"] = {"seconds": sweep_s, "row": row, "fidelity": fids}
+    del clean, out, swp
+    torch.cuda.empty_cache()
+
+    small = FAMILIES["ising"](n)
+    for point, site, error in (("xla_trace_error", "cuda.setup", XlaTraceError),
+                               ("pallas_lowering_error", "engine.init", PallasLoweringError)):
+        with _built_engines() as rec, faults.inject(
+                faults.FaultPlan(seed=2).add(point, site=site)) as plan:
+            try:
+                engine_for(small, L, R, 0, cache=None, device="cuda")
+            except error as e:
+                raised = e
+            else:
+                raised = None
+        require(raised is not None and raised.injected, f"{point} at {site} must raise "
+                                                         f"{error.__name__}")
+        require(rec.seen == [("cuda", True)] and plan.fires == {point: 1},
+                f"{point}: engines built {rec.seen}, fires {plan.fires}")
+        log(f"  {point} at {site}: {type(raised).__name__} out of engine_for; engines "
+            f"attempted {rec.seen} (no other backend, no plain versions)")
+    launches = dict(ops.kernel_call_counts(), by_k=ops.fused_call_counts_by_k())
+    log(f"  launches of the faults phase {launches}")
+    report["launches"] = launches
+    return report
+
+
+def width_rows(ops, ref, probe, ks, n: int) -> list:
+    """``fused_apply`` rows at widths ``ks`` that no plan launched (the
+    profile's k on bits 0..k-1 of one shard of 2^n): against the plain
+    version, timed beside it and one torch.matmul, with the bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x = random_state(n, gen)
+    vidx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    rows = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for k in ks:
+            u = random_unitaries(1, k, gen)
+            bits = list(range(k))
+            err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, n),
+                          ref.fused_apply_ref(x.clone(), u, vidx, bits, n))
+            require(err < ATOL, f"fused_apply k={k} disagrees with its plain version")
+            ms = probe.time_ms(lambda: ops.fused_apply(x, u, vidx, bits, n))
+            plain_ms = probe.time_ms(lambda: ref.fused_apply_ref(x, u, vidx, bits, n), reps=3)
+            xt, ut = x.view(-1, 1 << k), u[0].transpose(0, 1).contiguous()
+            mm_ms = probe.time_ms(lambda: torch.matmul(xt, ut))
+            cmacs = (1 << k) * (1 << n)
+            row = entry("fused_apply", 0, err, ms, plain_ms, 2 * (8 << n) + u.numel() * 8 + 4,
+                        TF32_PASSES * KARATSUBA_OPS * cmacs, TF32_OPS_PER_S, 8 * cmacs, mm_ms,
+                        f"calibration: k={k} bits={bits} V=1 n={n}")
+            rows.append(by_k_row(dict(row, k=k, path="calibration")))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return rows
+
+
 def sync(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1578,6 +1940,10 @@ def main() -> None:
     from repro_torch.launch import simulate
     from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
 
+    shutil.rmtree(CALIBRATION_DIR, ignore_errors=True)
+    os.makedirs(CALIBRATION_DIR)
+    os.environ["REPRO_CALIBRATION_DIR"] = CALIBRATION_DIR
+    os.environ.pop("REPRO_CALIBRATION", None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -1717,6 +2083,29 @@ def main() -> None:
     paths["ising30_checkpoint_resumed"] = ckpt["launches"]
     worst.append(ckpt["worst"])
     log(f"  the store and checkpoint phases took {time.time() - t_store:.1f}s")
+
+    t_cal = time.time()
+    log(f"== calibration: python -m repro_torch.sim.profiler --L {CALIBRATION_L} "
+        f"--repeats {CALIBRATION_REPEATS} --verify (into build/calibration)")
+    paths["calibration_L28"] = calibration_phase(ops, card)["launches"]
+    from repro_torch.sim import profiler
+
+    profiler.clear_resolved_cache()
+    for name in CALIBRATED["families"]:
+        log("== calibrated planning: {name}({n}) L={L} R={R}, calibrated against analytic"
+            .format(name=name, **CALIBRATED))
+        cal = calibrated_phase(ops, ref, probe, card, name, fused)
+        paths[f"{name}30_calibrated"] = cal["launches"]
+        worst.append(cal["worst"])
+    log("== autotune: " + " ".join(AUTOTUNE_PATH))
+    tuned = autotune_phase(simulate, ops, ref, card)
+    paths["ising30_autotune"] = tuned["launches"]
+    worst.append(tuned["worst"])
+    log("== integrity guard and build faults: ising({n}) L={L} R={R}, sweep of {P}"
+        .format(**FAULTS))
+    paths["ising28_faults"] = faults_phase(ops, card)["launches"]
+    log(f"  the calibration, calibrated, autotune and faults phases took "
+        f"{time.time() - t_cal:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
@@ -1727,6 +2116,12 @@ def main() -> None:
         row["launches"] = sum(row["launches_by_path"].values())
         require(row["launches"] > 0, f"no path launched fused_apply at k={row['k']}")
     launched_k = {k for counts in paths.values() for k in counts["by_k"]}
+    missing = sorted(launched_k - {row["k"] for row in fused["by_k"]})
+    for row in width_rows(ops, ref, probe, missing, CALIBRATION_L):
+        row["launches_by_path"] = {path: counts["by_k"].get(row["k"], 0)
+                                   for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        fused["by_k"].append(row)
     require(launched_k <= {row["k"] for row in fused["by_k"]},
             f"a fused_apply width launched on a path has no row: {sorted(launched_k)}")
 

@@ -7,11 +7,13 @@ The paper prices two kernel execution modes:
 * **shared-memory (shm)** — stream state-vector blocks through on-chip memory
   and apply gates one by one. Cost = alpha + sum_g cost(g).
 
-The constants below are the JAX reference's planning constants, kept
-unchanged so that this package's staging and kernelization produce exactly
-the reference's plans for the same circuit. They are NOT figures measured on
-or derived for the H100 this package runs on; calibrating them against the
-card's own kernel times is later work (ROADMAP queue A, item 10). Only
+The constants below are the JAX reference's analytic planning constants,
+kept unchanged so that this package's staging and kernelization produce
+exactly the reference's plans for the same circuit. They are NOT figures
+measured on or derived for the card this package runs on. A calibration
+measured on the card by :mod:`repro_torch.sim.profiler` replaces them
+(:meth:`CostModel.from_calibration`): ``engine_for`` plans on it whenever a
+calibration file matches the device, and on these constants otherwise. Only
 *relative* costs matter to the kernelizer; everything is in microseconds for
 a 2^28-amplitude shard.
 """

@@ -46,8 +46,15 @@ Pauli observable, the reverse sweep through the ``fused_apply`` kernel:
   PYTHONPATH=src python -m repro_torch.launch.simulate --circuit isingparam \
       --n 8 --L 6 --R 2 --vqe "Z0 Z1 + Z1 Z2 + 0.5*X0" --vqe-steps 5 --device cpu
 
-Not in the port yet, and refused: ``--autotune`` and the ``shardmap``
-executor.
+Plan autotuning: replay candidate plans (the card's calibrated cost model
+against the analytic one, kernelizer methods, fusion caps, the optimizer,
+ILP comm weights), install the fastest under the default key, then run:
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit ising --n 30 \
+      --L 28 --R 2 --autotune
+  PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 10 \
+      --L 8 --R 2 --autotune --check --device cpu
+
+Not in the port yet, and refused: the ``shardmap`` executor.
 """
 
 from __future__ import annotations
@@ -208,6 +215,9 @@ def main(argv=None) -> SimulateRun:
     ap.add_argument("--no-opt", dest="opt", action="store_false",
                     help="no pre-staging optimizer (default)")
     ap.set_defaults(opt=False)
+    ap.add_argument("--autotune", action="store_true",
+                    help="A/B-replay candidate plans first and serve the fastest (implies "
+                         "--engine; the winner is cached under the default key)")
     ap.add_argument("--engine", action="store_true",
                     help="go through the compile cache (repro_torch.sim.engine.engine_for)")
     ap.add_argument("--batch", type=int, default=1,
@@ -253,10 +263,10 @@ def main(argv=None) -> SimulateRun:
                          "state from DIR (implies --engine; not with --storage)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.executor == "pergate" and (args.engine or args.batch > 1 or args.sweep is not None
-                                       or args.vqe is not None):
+    if args.executor == "pergate" and (args.engine or args.autotune or args.batch > 1
+                                       or args.sweep is not None or args.vqe is not None):
         ap.error("--executor pergate is a baseline outside the engine: no --engine, "
-                 "--batch, --sweep or --vqe")
+                 "--autotune, --batch, --sweep or --vqe")
     if args.vqe is not None and args.circuit not in PARAM_FAMILIES:
         ap.error(f"--vqe needs a parameterized circuit ({', '.join(sorted(PARAM_FAMILIES))})")
     storage = None
@@ -299,7 +309,7 @@ def main(argv=None) -> SimulateRun:
     if not circ.is_bound and not binds and args.sweep is None and args.vqe is None:
         ap.error(f"circuit has free parameters {circ.param_names}; "
                  "pass --bind NAME=VAL, --sweep FILE.json or --vqe OBS")
-    use_engine = (args.engine or args.batch > 1 or args.executor == "dense"
+    use_engine = (args.engine or args.autotune or args.batch > 1 or args.executor == "dense"
                   or args.sweep is not None or storage is not None
                   or args.checkpoint_dir is not None or args.vqe is not None)
     if not use_engine and (binds or not circ.is_bound):
@@ -314,6 +324,14 @@ def main(argv=None) -> SimulateRun:
     build_s = bind_s = None
     t0 = time.time()
     if use_engine:
+        if args.autotune:
+            from ..core.autotune import autotune_engine
+
+            res = autotune_engine(circ, L, args.R, args.G, backend=args.executor, device=device,
+                                  storage=storage, checkpoint_dir=args.checkpoint_dir)
+            print(f"autotune: chose '{res.chosen}' ({res.speedup_vs_default:.2f}x vs default, "
+                  f"{len(res.replay_us)} candidates, {res.tune_time_s:.1f}s"
+                  f"{', cached' if res.cached else ''})")
         ex = engine_for(circ, L, args.R, args.G, backend=args.executor,
                         staging_method=args.staging, kernelize_method=args.kernelizer,
                         optimize=args.opt, device=device, storage=storage,

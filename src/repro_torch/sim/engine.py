@@ -25,7 +25,16 @@ The twin of ``repro/sim/engine.py`` for the meshless single-device case:
   forward state, on the engine's device;
 * :func:`engine_for` is the serving entry point: a structural
   :class:`CircuitKey` -> engine LRU (:class:`CompileCache`) that rebinds a
-  cached engine to new angles instead of planning again.
+  cached engine to new angles instead of planning again. With no explicit
+  cost model it plans on the device's calibration
+  (:func:`repro_torch.sim.profiler.resolve_cost_model`: measured on the
+  card by the profiler, or the reference's analytic constants when there
+  is none) and records its source in ``provenance["calibration"]``;
+* ``run`` / ``run_packed`` / ``run_sweep`` take ``verify=``: the
+  reference's post-run norm guard (a norm off by more than 1e-2 or not
+  finite is retried ONCE on the dense per-gate oracle, recorded in
+  ``provenance``; an oracle that is poisoned too raises
+  :class:`~repro_torch.sim.faults.IntegrityError`).
 
 With ``use_kernels`` (the default) every ``fused`` op goes to the
 hand-written ``fused_apply`` kernel and every ``shm`` group to
@@ -37,14 +46,18 @@ in place; a remap writes one new state, so a run holds at most two states.
 
 The reference's degradation ladder keeps only its planning rungs here
 (:func:`_plan_resilient`) and the one retry of a failed ``compile_plan``
-(:func:`build_engine`): a backend or kernel that fails raises. Not in this
-module yet: the multi-device backends, the norm guard and the device
-calibration.
+(:func:`build_engine`); :data:`BACKEND_CHAIN` has no backend rung and there
+is no retry without the kernels: a backend or kernel that fails to build
+raises its typed error (``XlaTraceError`` from a backend's setup,
+``PallasLoweringError`` when the kernels do not build or load). The fault
+sites are the reference's, named as in :mod:`repro_torch.sim.faults`. Not in
+this module yet: the multi-device backends.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 import threading
 import time
@@ -57,7 +70,7 @@ import torch
 
 from ..core import optimize as copt
 from ..core.circuit import Circuit
-from ..core.cost_model import CostModel, DEFAULT_COST_MODEL
+from ..core.cost_model import CostModel
 from ..core.gates import UnboundParameterError
 from ..core.partition import SimulationPlan, partition
 from ..device import DeviceLike, resolve_device
@@ -66,8 +79,8 @@ from .apply import apply_matrix_bits, mul_bits_, permute_bits
 from .compile import (
     CompiledCircuit, Op, RemapSpec, StageProgram, bind_tensors, bind_tensors_sweep, compile_plan,
 )
-from . import faults
-from .faults import FaultError, KernelizationError, StagingError
+from . import faults, profiler
+from .faults import FaultError, IntegrityError, KernelizationError, StagingError
 from .journal import RunJournal, StragglerMonitor
 from .shard_store import ShardStore, StorageConfig
 
@@ -179,6 +192,8 @@ class Backend:
 
     def setup(self, engine: "ExecutionEngine") -> None:
         self.engine = engine
+        if faults._ACTIVE is not None and self.name != "dense":
+            faults.maybe_inject("xla_trace_error", site=f"{self.name}.setup")
 
     def on_rebind(self) -> None:
         """Called after the engine installs a new binding. Anything derived
@@ -1018,7 +1033,14 @@ class ExecutionEngine:
         self.np_dtype = np.dtype(np.complex64)
         self.use_kernels = use_kernels
         self.peephole = peephole
-        self.provenance: Dict = {}
+        # degradation provenance: build_engine records the planning rungs and
+        # the compile retry here, the integrity guard its retries
+        self.provenance: Dict = {"degraded": False}
+        if use_kernels:
+            if faults._ACTIVE is not None:
+                faults.maybe_inject("pallas_lowering_error", site="engine.init")
+            if self.device.type == "cuda":
+                kops.load()  # a kernel that does not build fails here, typed
         self.cc: CompiledCircuit = (
             compiled if compiled is not None
             else compile_plan(circuit, plan, dtype=self.np_dtype, peephole=peephole))
@@ -1117,6 +1139,8 @@ class ExecutionEngine:
         t["total_us"] += wall_us
         t["last_us"] = wall_us
         t["max_us"] = max(t["max_us"], wall_us)
+        profiler.record_observation(name, wall_us=wall_us, backend=self.backend.name, n=self.n,
+                                    L=self.L, n_stages=len(self.cc.programs))
 
     def timing_snapshot(self) -> Dict[str, Dict[str, float]]:
         """JSON-able copy of the per-entry-point wall times, with means.
@@ -1166,28 +1190,111 @@ class ExecutionEngine:
                 counts[op.kind] = counts.get(op.kind, 0) + 1
         return counts
 
+    # --------------------------------------------------- integrity guard
+    def dense_reference(self, bound: Optional[Circuit] = None, psi0=None,
+                        apply_final: bool = True) -> torch.Tensor:
+        """Per-gate dense oracle state for ``bound`` (defaults to the
+        current binding) on the engine's device — the integrity guard's
+        one-retry path. With ``apply_final=False`` it is re-stored in the
+        compiled frame's physical order (comparable to ``run_packed``
+        output) by one bit permutation."""
+        from .statevector import simulate
+
+        bound = self.bound_circuit if bound is None else bound
+        psi = simulate(bound, psi0=psi0, dtype=self.dtype, device=self.device).reshape(-1)
+        return psi if apply_final else to_frame(psi, self.measurement_frame)
+
+    @staticmethod
+    def _norms(rows: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+        """The 2-norm of every row of ``rows`` (``[P, N]``), reduced where the
+        rows live, ``chunk`` amplitudes of a row at a time, the squares
+        summed in float64. A non-finite amplitude makes its row's norm
+        non-finite."""
+        acc = torch.zeros(rows.shape[0], dtype=torch.float64, device=rows.device)
+        for i in range(0, rows.shape[1], chunk):
+            part = torch.view_as_real(rows[:, i:i + chunk])
+            acc += part.square().sum(dim=(1, 2), dtype=torch.float64)
+        return acc.sqrt()
+
+    @staticmethod
+    def _norm_ok(norm: float, expected: float, rtol: float = 1e-2) -> bool:
+        return math.isfinite(norm) and abs(norm - expected) <= rtol * max(expected, 1e-30)
+
+    def _norm_of(self, arr) -> float:
+        arr = torch.as_tensor(arr)
+        return float(self._norms(arr.reshape(1, -1))[0])
+
+    def _expected_norm(self, psi0) -> float:
+        return 1.0 if psi0 is None else self._norm_of(psi0)
+
+    def _guard(self, out: torch.Tensor, psi0, apply_final: bool = True,
+               bound: Optional[Circuit] = None) -> torch.Tensor:
+        """Post-run ||psi|| =~ ||psi0|| check: unitary evolution keeps the
+        input norm, so a NaN/denormal blowup shows in one pass. On failure,
+        retry ONCE against the dense per-gate oracle; if even that is
+        poisoned, raise a typed :class:`IntegrityError`."""
+        expected = self._expected_norm(psi0)
+        norm = self._norm_of(out)
+        if self._norm_ok(norm, expected):
+            return out
+        self.provenance["integrity_retries"] = self.provenance.get("integrity_retries", 0) + 1
+        ref = self.dense_reference(bound=bound, psi0=psi0, apply_final=apply_final)
+        if not self._norm_ok(self._norm_of(ref), expected):
+            raise IntegrityError(
+                f"state norm {norm:.6g} != {expected:.6g} and the dense-oracle retry is also "
+                "poisoned — numerically corrupt circuit/binding")
+        self.provenance["integrity_recovered"] = (
+            self.provenance.get("integrity_recovered", 0) + 1)
+        return ref
+
+    @staticmethod
+    def _poison(out: torch.Tensor) -> torch.Tensor:
+        """The ``nan_amplitudes`` fault: NaN into the run's own output
+        (amplitude 0), in place (a copy would be a second state)."""
+        out.view(-1)[0] = float("nan")
+        return out
+
+    def _corrupt(self, out: torch.Tensor, site: str) -> torch.Tensor:
+        if faults._ACTIVE is not None and faults.should_corrupt(site):
+            return self._poison(out)
+        return out
+
     # ---------------------------------------------------------------- api
-    def run(self, psi0=None, params=None) -> torch.Tensor:
+    def run(self, psi0=None, params=None, *, verify: bool = False) -> torch.Tensor:
         """psi0: flat [2^n] in logical order (defaults to |0..0>). Returns
         the final flat state in logical order, on the engine's device.
-        ``params`` rebinds first: a tensor swap, never a re-plan."""
+        ``params`` rebinds first: a tensor swap, never a re-plan.
+        ``verify`` turns on the post-run norm guard (a NaN blowup becomes
+        one dense-oracle retry, then a typed :class:`IntegrityError`)."""
         with self.lock:
             if params is not None:
                 self.bind(params)
             self._require_bound()
-            return self._timed("run", lambda: self.backend.execute(
+            bound = self.bound_circuit
+            if faults._ACTIVE is not None:
+                faults.maybe_inject("slow_stage", site="engine.run")
+            out = self._timed("run", lambda: self.backend.execute(
                 self.backend.prepare(psi0), True))
+        out = self._corrupt(out, "engine.run")
+        return self._guard(out, psi0, True, bound) if verify else out
 
-    def run_packed(self, psi0=None, params=None) -> torch.Tensor:
+    def run_packed(self, psi0=None, params=None, *, verify: bool = False) -> torch.Tensor:
         """Run but skip the final inter-stage remap: the state stays in the
         last stage's physical layout (lazy flips pending). Pair with
-        :attr:`measurement_frame` and :mod:`repro_torch.sim.measure`."""
+        :attr:`measurement_frame` and :mod:`repro_torch.sim.measure`.
+        ``verify``: as in :meth:`run` (the oracle is re-stored in the
+        packed frame)."""
         with self.lock:
             if params is not None:
                 self.bind(params)
             self._require_bound()
-            return self._timed("run_packed", lambda: self.backend.execute(
+            bound = self.bound_circuit
+            if faults._ACTIVE is not None:
+                faults.maybe_inject("slow_stage", site="engine.run")
+            out = self._timed("run_packed", lambda: self.backend.execute(
                 self.backend.prepare(psi0), False))
+        out = self._corrupt(out, "engine.run")
+        return self._guard(out, psi0, False, bound) if verify else out
 
     def run_batch(self, psi0s, apply_final: bool = True) -> torch.Tensor:
         """Run a batch of initial states ``psi0s: [B, 2^n]`` (any B).
@@ -1199,7 +1306,8 @@ class ExecutionEngine:
             return self._timed("run_batch", lambda: self.backend.execute_batch(
                 self.backend.prepare(psi0s, batch=True), apply_final))
 
-    def run_sweep(self, psi0, params_batch, apply_final: bool = True) -> torch.Tensor:
+    def run_sweep(self, psi0, params_batch, apply_final: bool = True, *,
+                  verify: bool = False) -> torch.Tensor:
         """Run ONE initial state against a batch of parameter bindings.
 
         ``params_batch``: a ``[P, n_params]`` array (columns ordered by
@@ -1209,23 +1317,63 @@ class ExecutionEngine:
         op is one launch over ``P * 2^(G+R)`` shards. The ``dense`` backend
         rebinds point by point. Returns ``[P, 2^n]`` in logical order (or
         packed when ``apply_final=False``); the engine's own binding is
-        left as it was by the fused path."""
+        left as it was by the fused path. ``verify``: the norm guard row by
+        row; only a poisoned row pays the dense-oracle retry."""
         points = self._sweep_points(params_batch)
         if not points:
             raise ValueError("empty params_batch")
         with self.lock:
             if self.backend.supports_fused_sweep():
+                if faults._ACTIVE is not None:
+                    faults.maybe_inject("slow_stage", site="engine.run_sweep")
                 stacked = self.sweep_tables(points)
-                return self._timed("run_sweep", lambda: self.backend.execute_sweep(
+                out = self._timed("run_sweep", lambda: self.backend.execute_sweep(
                     self.backend.prepare(psi0), stacked, len(points), apply_final))
-            t0 = time.perf_counter()
-            outs = []
-            for pt in points:
-                self.bind(pt)
-                outs.append(self.run(psi0) if apply_final else self.run_packed(psi0))
-            out = torch.stack(outs)
-            self._record_time("run_sweep", (time.perf_counter() - t0) * 1e6)
+            else:
+                t0 = time.perf_counter()
+                outs = []
+                for pt in points:
+                    self.bind(pt)
+                    outs.append(self.run(psi0) if apply_final else self.run_packed(psi0))
+                out = torch.stack(outs)
+                self._record_time("run_sweep", (time.perf_counter() - t0) * 1e6)
+        if faults._ACTIVE is not None and faults.should_corrupt("engine.run_sweep"):
+            out = self._poison_row(out, len(points))
+        return self._guard_sweep(out, psi0, points, apply_final) if verify else out
+
+    def _poison_row(self, out: torch.Tensor, n_rows: int) -> torch.Tensor:
+        """NaN into one row of a sweep's own output, the row drawn from the
+        active plan's generator as the reference draws it (one seed poisons
+        the same row in both packages)."""
+        plan = faults._ACTIVE
+        row = plan._rng.randrange(n_rows) if plan is not None else 0
+        out.reshape(out.shape[0], -1)[row, 0] = float("nan")
+        return out
+
+    def _guard_sweep(self, out: torch.Tensor, psi0, points: List[dict],
+                     apply_final: bool) -> torch.Tensor:
+        """Per-row norm guard for a sweep: only poisoned rows pay the
+        dense-oracle retry, written into the sweep's output; a row whose
+        oracle is poisoned too raises."""
+        flat = out.reshape(out.shape[0], -1)
+        expected = self._expected_norm(psi0)
+        norms = self._norms(flat).tolist()
+        bad = [i for i in range(len(points)) if not self._norm_ok(norms[i], expected)]
+        if not bad:
             return out
+        self.provenance["integrity_retries"] = (
+            self.provenance.get("integrity_retries", 0) + len(bad))
+        for i in bad:
+            ref = self.dense_reference(bound=self.circuit.bind(points[i]), psi0=psi0,
+                                       apply_final=apply_final)
+            if not self._norm_ok(self._norm_of(ref), expected):
+                raise IntegrityError(f"sweep row {i}: norm check failed and the dense-oracle "
+                                     "retry is also poisoned")
+            flat[i].copy_(ref.to(flat.device))
+            del ref
+        self.provenance["integrity_recovered"] = (
+            self.provenance.get("integrity_recovered", 0) + len(bad))
+        return out
 
     def sweep_tables(self, points: List[dict]) -> Dict[int, torch.Tensor]:
         """The op tables of the P bindings ``points``, built on the host in
@@ -1338,13 +1486,15 @@ def _canon(v):
     return v
 
 
-def _resolve_cost_model(cm: Optional[CostModel]) -> CostModel:
-    """``cost_model=None`` means the analytic defaults
-    (:data:`repro_torch.core.cost_model.DEFAULT_COST_MODEL`, the
-    reference's constants): the port has no calibration of this card yet,
-    so there is no measured model to resolve to. Explicit models pass
+def _resolve_cost_model(cm: Optional[CostModel], device: DeviceLike = None) -> CostModel:
+    """``cost_model=None`` (the serving default) means "whatever the
+    device is calibrated to": the profiler's memoized resolution — the
+    measured model when a calibration file whose fingerprint matches
+    ``device`` exists, the analytic defaults otherwise. Explicit models pass
     through untouched."""
-    return DEFAULT_COST_MODEL if cm is None else cm
+    if cm is not None:
+        return cm
+    return profiler.resolve_cost_model(device=device)
 
 
 def _placement_fingerprint(device: DeviceLike) -> Tuple:
@@ -1522,6 +1672,7 @@ def circuit_key_for(
     ocfg = copt.resolve_config(optimize)
     if ocfg is not None and not _pre_optimized:
         circuit = copt.optimize_circuit(circuit, ocfg).circuit
+    cost_model = _resolve_cost_model(cost_model, device)
     extra = (tuple(sorted((k, _canon(v)) for k, v in plan_kw.items())),
              _placement_fingerprint(device))
     if storage is not None:
@@ -1536,8 +1687,17 @@ def circuit_key_for(
 
 
 # ======================================================================
-# Planning rungs and the build
+# The degradation ladder: planning rungs and the build
 # ======================================================================
+
+#: Backend fallback chain, one entry per name in :data:`BACKENDS`, and no
+#: rungs. The reference walks ``pjit -> dense`` and ``offload -> dense`` on
+#: a typed build failure, and first retries a failed Pallas lowering with
+#: ``use_pallas=False``. The port takes neither: a run that asked for the
+#: hand kernels on the card never lands on torch ops, another backend or
+#: the CPU unasked. A backend or kernel that fails to build raises its
+#: typed error (which the serving layer's breaker counts).
+BACKEND_CHAIN: Dict[str, Tuple[str, ...]] = {"cuda": (), "offload": (), "dense": ()}
 
 
 def _record_fallback(prov: Dict, from_: str, to: str, err: Exception) -> None:
@@ -1583,9 +1743,11 @@ def build_engine(
     provenance: Optional[Dict] = None,
     storage=None,
     checkpoint_dir: Optional[str] = None,
+    degrade: bool = True,
 ) -> ExecutionEngine:
     """Compile ``plan`` and build an engine on it. A typed ``compile_plan``
-    failure gets ONE retry (then it propagates). Nothing else degrades: a
+    failure gets ONE retry (then it propagates; with ``degrade=False`` the
+    first one does). Nothing else degrades (:data:`BACKEND_CHAIN`): a
     backend or a kernel that fails to build raises, so a run never lands on
     another backend, the CPU, or the kernels' plain versions unasked.
     ``storage`` / ``checkpoint_dir`` go to the offload backend."""
@@ -1603,7 +1765,7 @@ def build_engine(
             cc = compile_plan(circuit, plan, dtype=np.complex64, peephole=peephole)
             break
         except FaultError as e:
-            if attempt:
+            if attempt or not degrade:
                 raise
             _record_fallback(prov, "compile", "compile(retry)", e)
     eng = ExecutionEngine(circuit, plan, use_kernels, device, backend=be,
@@ -1630,6 +1792,7 @@ def engine_for(
     device: DeviceLike = None,
     storage=None,
     checkpoint_dir: Optional[str] = None,
+    degrade: bool = True,
     **plan_kw,
 ) -> ExecutionEngine:
     """The serving entry point: partition + compile + build an engine, or
@@ -1659,7 +1822,14 @@ def engine_for(
     then re-priced for the tier the shards sit in
     (:meth:`StorageConfig.apply_to_cost_model`). ``checkpoint_dir`` turns on
     the offload backend's stage checkpoints (needs ``backend="offload"``;
-    not with ``storage``). Both are part of the key."""
+    not with ``storage``). Both are part of the key.
+
+    ``cost_model=None`` plans on the device's calibration
+    (:func:`_resolve_cost_model`); the resolved model is part of the key,
+    so a calibrated and an analytic engine never share a slot, and
+    ``provenance["calibration"]`` records its source. ``degrade=False``
+    turns the planning rungs and the compile retry off: the first typed
+    error propagates unchanged."""
     device = resolve_device(device)
     storage = StorageConfig.coerce(storage)
     if storage is None and backend == "offload" and checkpoint_dir is None:
@@ -1669,7 +1839,7 @@ def engine_for(
                          "tiered shard store only exists under the host-offload path")
     base_cost_model = cost_model
     if storage is not None:
-        cost_model = storage.apply_to_cost_model(_resolve_cost_model(cost_model),
+        cost_model = storage.apply_to_cost_model(_resolve_cost_model(cost_model, device),
                                                  circuit.n_qubits, L)
     ocfg = copt.resolve_config(optimize)
     if plan is not None:
@@ -1678,14 +1848,14 @@ def engine_for(
                              "plan (the plan was computed for the literal circuit)")
         return build_engine(circuit, plan, backend=backend, use_kernels=use_kernels,
                             peephole=peephole, device=device, storage=storage,
-                            checkpoint_dir=checkpoint_dir)
+                            checkpoint_dir=checkpoint_dir, degrade=degrade)
     source_circuit = circuit
     opt_result = None
     if ocfg is not None:
         opt_result = copt.optimize_circuit(circuit, ocfg)
         circuit = opt_result.circuit
     explicit_cm = base_cost_model is not None
-    cost_model = _resolve_cost_model(cost_model)
+    cost_model = _resolve_cost_model(cost_model, device)
     key = circuit_key_for(
         circuit, L, R, G, backend=backend, use_kernels=use_kernels, peephole=peephole,
         staging_method=staging_method, kernelize_method=kernelize_method,
@@ -1699,15 +1869,22 @@ def engine_for(
             eng = cache.peek(key) if cache is not None else None
             if eng is None:
                 prov: Dict = {}
-                plan, _, _ = _plan_resilient(
-                    circuit, L, R, G, staging_method=staging_method,
-                    kernelize_method=kernelize_method, cost_model=cost_model,
-                    provenance=prov, **plan_kw)
+                if degrade:
+                    plan, _, _ = _plan_resilient(
+                        circuit, L, R, G, staging_method=staging_method,
+                        kernelize_method=kernelize_method, cost_model=cost_model,
+                        provenance=prov, **plan_kw)
+                else:
+                    plan = partition(circuit, L, R, G, staging_method=staging_method,
+                                     kernelize_method=kernelize_method, cost_model=cost_model,
+                                     **plan_kw)
                 eng = build_engine(circuit, plan, backend=backend, use_kernels=use_kernels,
                                    peephole=peephole, device=device, provenance=prov,
-                                   storage=storage, checkpoint_dir=checkpoint_dir)
-                eng.provenance["calibration"] = {
-                    "source": "explicit" if explicit_cm else "analytic defaults"}
+                                   storage=storage, checkpoint_dir=checkpoint_dir,
+                                   degrade=degrade)
+                eng.provenance["calibration"] = (
+                    {"source": "explicit"} if explicit_cm
+                    else profiler.resolve_calibration(device=device)[1])
                 if opt_result is not None:
                     # the engine serves the OPTIMIZED circuit; the config lets
                     # an aliased hit map a literal request through the passes
@@ -1755,5 +1932,6 @@ def engine_for(
             peephole=peephole, staging_method=staging_method,
             kernelize_method=kernelize_method,
             cost_model=base_cost_model, optimize=optimize, cache=None,
-            device=device, storage=storage, checkpoint_dir=checkpoint_dir, **plan_kw)
+            device=device, storage=storage, checkpoint_dir=checkpoint_dir, degrade=degrade,
+            **plan_kw)
     return eng

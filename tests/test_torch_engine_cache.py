@@ -633,7 +633,8 @@ def test_cli_dense_executor_and_opt(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--autotune"], ["--vqe", "Z0"], ["--storage", "int8"], ["--executor", "shardmap"],
+    ["--autotune", "--executor", "pergate"], ["--vqe", "Z0"], ["--storage", "int8"],
+    ["--executor", "shardmap"],
     ["--executor", "pergate", "--engine"], ["--circuit", "isingparam", "--device", "cpu"],
     ["--batch", "2", "--shots", "8", "--check", "--device", "cpu"],
 ])

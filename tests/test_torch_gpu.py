@@ -479,3 +479,62 @@ def test_grad_sweep_on_card_matches_points(cuda):
         v, g = eng.value_and_grad(obs, params=batch[p])
         assert abs(vals[p] - v) < 2e-4
         np.testing.assert_allclose(grads[p], g, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_profiler_launches_the_hand_kernels_on_card(cuda):
+    """``profile_fusion`` and ``profile_shm`` at L=20 time the hand kernels
+    through the engine's wrappers: the launch counters rise by every
+    warm-up and timed call, and the measured constants are positive."""
+    from repro_torch.sim import profiler
+
+    ops.reset_kernel_counters()
+    fusion = profiler.profile_fusion(20, repeats=2, device=cuda)
+    shm = profiler.profile_shm(20, repeats=2, device=cuda)
+    assert ops.fused_call_counts_by_k() == {k: 3 for k in range(1, 8)}
+    assert ops.kernel_call_counts() == {"fused": 7 * 3, "shm": 4 * 3}
+    assert fusion["mxu_us_per_2k"] > 0 and set(fusion["raw"]["per_k_us"]) == {
+        str(k) for k in range(1, 8)}
+    assert shm["shm_gate_us"] > 0 and 0 < shm["shm_diag_gate_us"] <= shm["shm_gate_us"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["run", "run_packed"])
+def test_guarded_run_recovers_from_nan_on_card(cuda, entry):
+    """``ising(24)`` with a NaN injected into its output: ``verify=True``
+    retries once on the dense per-gate oracle on the card and returns the
+    clean run's state; a clean guarded run records no retry."""
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.sim import faults
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.statevector import fidelity
+
+    eng = engine_for(FAMILIES["ising"](24), 22, 2, 0, cache=None, device=cuda)
+    clean = getattr(eng, entry)(verify=True)
+    assert "integrity_retries" not in eng.provenance
+    with faults.inject(faults.FaultPlan(seed=3).add("nan_amplitudes", count=1)):
+        out = getattr(eng, entry)(verify=True)
+    assert out.device.type == "cuda" and bool(torch.isfinite(out).all())
+    assert fidelity(out, clean) >= 1 - 1e-5
+    assert eng.provenance["integrity_retries"] == eng.provenance["integrity_recovered"] == 1
+
+
+@pytest.mark.gpu
+def test_kernel_build_failure_surfaces_typed_at_engine_construction(cuda, monkeypatch):
+    """A kernel build that fails on the card raises ``PallasLoweringError``
+    (a ``BackendBuildError``) out of ``engine_for``, chained from the
+    compiler's error: no engine lands on the plain versions."""
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.kernels import build
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.faults import BackendBuildError, PallasLoweringError
+
+    def boom(names=build.SOURCES):
+        raise RuntimeError("nvcc failed for fused_apply.cu (exit 1)")
+
+    monkeypatch.setattr(ops, "_LIBS", {})
+    monkeypatch.setattr(build, "build", boom)
+    with pytest.raises(PallasLoweringError) as ei:
+        engine_for(FAMILIES["ising"](12), 10, 2, 0, cache=None, device=cuda)
+    assert isinstance(ei.value, BackendBuildError)
+    assert isinstance(ei.value.__cause__, RuntimeError)

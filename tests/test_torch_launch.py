@@ -44,6 +44,7 @@ def test_no_jax_in_the_port_process():
     code = (
         "import sys\n"
         "import repro_torch.launch.simulate as s\n"
+        "import repro_torch.sim.profiler, repro_torch.core.autotune\n"
         "s.main(['--circuit', 'ghz', '--n', '6', '--L', '4', '--R', '2', '--shots', '8',"
         " '--check', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

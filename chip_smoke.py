@@ -70,8 +70,9 @@ against their plain versions); ``--autotune`` on ``ising(30)`` (every
 candidate's replay, the choice, the tuning's peak device memory; then
 ``engine_for`` with default knobs is a cache hit with no solver call); the
 integrity guard at n=28 (clean ``run``/``run_packed`` with ``verify=True``
-and no retry, an injected NaN recovered by one dense-oracle retry, a sweep
-of 4 ``isingparam(28)`` bindings with one poisoned row) and the typed
+and no retry, an injected NaN recovered by one re-run of the plan through
+the hand kernels, a sweep of 4 ``isingparam(28)`` bindings with one
+poisoned row) and the typed
 build faults (``xla_trace_error`` at ``cuda.setup``,
 ``pallas_lowering_error`` at ``engine.init``) raised out of
 ``engine_for`` with no other engine built.
@@ -1787,12 +1788,18 @@ def _built_engines():
     return Recorder()
 
 
+def launches_since(ops, before: dict) -> dict:
+    """The kernel launches, by kernel, since the counts ``before``."""
+    return {k: v - before[k] for k, v in ops.kernel_call_counts().items()}
+
+
 def faults_phase(ops, card: str) -> dict:
     """The integrity guard and the build faults at n=28: clean guarded
     ``run`` and ``run_packed`` (no retry; the guard's seconds); a NaN
-    injected into each, recovered by one dense-oracle retry on the card to
-    the clean state; a guarded sweep of 4 ``isingparam(28)`` bindings with
-    one poisoned row, only that row retried; ``xla_trace_error`` at
+    injected into each, recovered by one re-run of the plan through the
+    hand kernels (twice a clean run's launches) to the clean state; a
+    guarded sweep of 4 ``isingparam(28)`` bindings with one poisoned row,
+    only that row re-run; ``xla_trace_error`` at
     ``cuda.setup`` and ``pallas_lowering_error`` at ``engine.init`` raise
     their typed errors out of ``engine_for`` with no other engine built."""
     import random
@@ -1815,33 +1822,43 @@ def faults_phase(ops, card: str) -> dict:
         fn()
         torch.cuda.synchronize()
         plain_s = time.time() - t0
+        before = ops.kernel_call_counts()
         t0 = time.time()
         clean = fn(verify=True)
         torch.cuda.synchronize()
         guarded_s = time.time() - t0
+        per_run = launches_since(ops, before)
         require("integrity_retries" not in eng.provenance,
                 f"a clean guarded {entry} recorded a retry")
         t0 = time.time()
         eng._norm_of(clean)
         torch.cuda.synchronize()
         norm_s = time.time() - t0
+        before = ops.kernel_call_counts()
         t0 = time.time()
         with faults.inject(faults.FaultPlan(seed=3).add("nan_amplitudes", count=1)) as plan:
             out = fn(verify=True)
         torch.cuda.synchronize()
         retry_s = time.time() - t0
         require(plan.fires == {"nan_amplitudes": 1}, f"{entry}: the fault fired {plan.fires}")
+        retried = launches_since(ops, before)
+        require(sum(per_run.values()) > 0
+                and retried == {k: 2 * v for k, v in per_run.items()},
+                f"{entry}: the retry must re-run the plan through the kernels "
+                f"(a clean run {per_run}, with the retry {retried})")
         prov = eng.provenance
         require(prov.pop("integrity_retries") == prov.pop("integrity_recovered") == 1,
                 f"{entry}: one retry, recovered")
         fid = fidelity(out, clean)
         require(fid >= FIDELITY_MIN, f"recovered {entry} fidelity {fid} < {FIDELITY_MIN}")
+        same = torch.equal(out, clean)
         log(f"  {entry}(verify=True) ising({n}) L={L} R={R}: clean {guarded_s:.4f} s against "
-            f"{plain_s:.4f} s unguarded (the norm pass {norm_s * 1e3:.2f} ms), no retry; NaN injected: one dense-oracle retry on "
-            f"the card, {retry_s:.3f} s, fidelity to the clean run {fid:.9f} ({card})")
+            f"{plain_s:.4f} s unguarded (the norm pass {norm_s * 1e3:.2f} ms), no retry; NaN "
+            f"injected: one re-run through the kernels ({retried} launches), {retry_s:.3f} s, "
+            f"fidelity to the clean run {fid:.9f}, bit for bit {same} ({card})")
         report[entry] = {"guarded_s": guarded_s, "plain_s": plain_s, "norm_s": norm_s,
                          "retry_s": retry_s,
-                         "fidelity": fid}
+                         "fidelity": fid, "bit_for_bit": same}
         del clean, out
     del eng
     torch.cuda.empty_cache()
@@ -1851,15 +1868,28 @@ def faults_phase(ops, card: str) -> dict:
     swp = engine_for(sym, L, R, 0, cache=None, device="cuda")
     rng = np.random.default_rng(29)
     points = [{"J": float(j), "h": float(h)} for j, h in rng.uniform(-1.5, 1.5, size=(P, 2))]
+    before = ops.kernel_call_counts()
     clean = swp.run_sweep(None, points)
+    per_sweep = launches_since(ops, before)
     seed = 5
     row = random.Random(seed).randrange(P)  # the plan's first draw: the row it poisons
+    before = ops.kernel_call_counts()
     t0 = time.time()
     with faults.inject(faults.FaultPlan(seed=seed).add("nan_amplitudes", count=1,
                                                        site="engine.run_sweep")):
         out = swp.run_sweep(None, points, verify=True)
     torch.cuda.synchronize()
     sweep_s = time.time() - t0
+    retried = launches_since(ops, before)
+    require(swp.bound_circuit is None, "the row's retry must leave the engine unbound")
+    swp.bind(points[row])
+    before = ops.kernel_call_counts()
+    swp.run()
+    per_run = launches_since(ops, before)
+    require(sum(per_run.values()) > 0
+            and retried == {k: per_sweep[k] + per_run[k] for k in per_sweep},
+            f"the poisoned row must be re-run through the kernels (a clean sweep {per_sweep}, "
+            f"one run {per_run}, the sweep with its retry {retried})")
     require(swp.provenance["integrity_retries"] == swp.provenance["integrity_recovered"] == 1,
             "the sweep must retry one row")
     fids = [fidelity(out[p], clean[p]) for p in range(P)]
@@ -1867,7 +1897,9 @@ def faults_phase(ops, card: str) -> dict:
     require(all(torch.equal(out[p], clean[p]) for p in range(P) if p != row),
             "the clean rows must come through untouched")
     log(f"  run_sweep(verify=True) of {P} isingparam({n}) bindings, row {row} poisoned: that row "
-        f"alone retried; {sweep_s:.3f} s; row fidelities to the clean sweep "
+        f"alone re-run through the kernels ({retried} launches with the sweep's); "
+        f"{sweep_s:.3f} s; the row bit for bit {torch.equal(out[row], clean[row])}; row "
+        f"fidelities to the clean sweep "
         f"{[round(f, 9) for f in fids]}")
     report["sweep"] = {"seconds": sweep_s, "row": row, "fidelity": fids}
     del clean, out, swp

@@ -32,7 +32,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..sim.faults import PallasLoweringError
 from . import ref
 from .ref import Member
 
@@ -362,48 +361,36 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 
 def load() -> Dict[str, ctypes.CDLL]:
-    """Build (if needed) and load both kernel libraries. A build or load
-    that fails (nvcc missing or failing, a library that does not load or
-    disagrees with this module) raises
-    :class:`~repro_torch.sim.faults.PallasLoweringError`, the taxonomy's
-    "kernel lowering failed", chained from the cause."""
+    """Build (if needed) and load both kernel libraries."""
     if len(_LIBS) < 2:
-        try:
-            _load()
-        except (RuntimeError, OSError, ValueError) as e:
-            raise PallasLoweringError(f"the CUDA kernels did not build or load: "
-                                      f"{type(e).__name__}: {e}") from e
+        from .build import build
+
+        paths = build()
+        fused = ctypes.CDLL(str(paths["fused_apply"]))
+        fused.fused_apply.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _IP, _IP, _IP, _P]
+        fused.fused_apply.restype = _I
+        fused.fused_groups_per_tile.argtypes = [_I]
+        fused.fused_groups_per_tile.restype = _I
+        fused.fused_error_string.argtypes = [_I]
+        fused.fused_error_string.restype = ctypes.c_char_p
+        shm = ctypes.CDLL(str(paths["shm_apply"]))
+        shm.shm_apply.argtypes = [_P, _P, _LL, _I, _I, _I, _IP, _P]
+        shm.shm_apply.restype = _I
+        shm.shm_max_matrix_bits.restype = _I
+        shm.shm_register_bits.restype = _I
+        shm.shm_table_chunk.restype = _I
+        shm.shm_error_string.argtypes = [_I]
+        shm.shm_error_string.restype = ctypes.c_char_p
+        for k in range(1, FUSED_MAX_BITS + 1):
+            if fused.fused_groups_per_tile(k) != fused_groups_per_tile(k):
+                raise RuntimeError("fused_apply.cu and ops.py disagree on the tile shape")
+        if (shm.shm_max_matrix_bits() != SHM_MAX_MATRIX_BITS
+                or shm.shm_register_bits() != SHM_REG_BITS
+                or shm.shm_table_chunk() != SHM_TABLE_CHUNK):
+            raise RuntimeError("shm_apply.cu and ops.py disagree on the matrix or register size "
+                               "or the table chunk")
+        _LIBS.update(fused=fused, shm=shm)
     return _LIBS
-
-
-def _load() -> None:
-    from .build import build
-
-    paths = build()
-    fused = ctypes.CDLL(str(paths["fused_apply"]))
-    fused.fused_apply.argtypes = [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _IP, _IP, _IP, _P]
-    fused.fused_apply.restype = _I
-    fused.fused_groups_per_tile.argtypes = [_I]
-    fused.fused_groups_per_tile.restype = _I
-    fused.fused_error_string.argtypes = [_I]
-    fused.fused_error_string.restype = ctypes.c_char_p
-    shm = ctypes.CDLL(str(paths["shm_apply"]))
-    shm.shm_apply.argtypes = [_P, _P, _LL, _I, _I, _I, _IP, _P]
-    shm.shm_apply.restype = _I
-    shm.shm_max_matrix_bits.restype = _I
-    shm.shm_register_bits.restype = _I
-    shm.shm_table_chunk.restype = _I
-    shm.shm_error_string.argtypes = [_I]
-    shm.shm_error_string.restype = ctypes.c_char_p
-    for k in range(1, FUSED_MAX_BITS + 1):
-        if fused.fused_groups_per_tile(k) != fused_groups_per_tile(k):
-            raise RuntimeError("fused_apply.cu and ops.py disagree on the tile shape")
-    if (shm.shm_max_matrix_bits() != SHM_MAX_MATRIX_BITS
-            or shm.shm_register_bits() != SHM_REG_BITS
-            or shm.shm_table_chunk() != SHM_TABLE_CHUNK):
-        raise RuntimeError("shm_apply.cu and ops.py disagree on the matrix or register size "
-                           "or the table chunk")
-    _LIBS.update(fused=fused, shm=shm)
 
 
 def _ints(values: Sequence[int]):

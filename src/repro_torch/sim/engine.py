@@ -31,10 +31,12 @@ The twin of ``repro/sim/engine.py`` for the meshless single-device case:
   card by the profiler, or the reference's analytic constants when there
   is none) and records its source in ``provenance["calibration"]``;
 * ``run`` / ``run_packed`` / ``run_sweep`` take ``verify=``: the
-  reference's post-run norm guard (a norm off by more than 1e-2 or not
-  finite is retried ONCE on the dense per-gate oracle, recorded in
-  ``provenance``; an oracle that is poisoned too raises
-  :class:`~repro_torch.sim.faults.IntegrityError`).
+  reference's post-run norm guard. A norm off by more than 1e-2 or not
+  finite gets ONE retry, recorded in ``provenance``; a retry that is
+  poisoned too raises :class:`~repro_torch.sim.faults.IntegrityError`.
+  Where the reference retries on its dense per-gate oracle, the port
+  re-runs the same plan through its own backend and kernels, so a guarded
+  run on the card never gives way to the plain per-gate path.
 
 With ``use_kernels`` (the default) every ``fused`` op goes to the
 hand-written ``fused_apply`` kernel and every ``shm`` group to
@@ -46,12 +48,13 @@ in place; a remap writes one new state, so a run holds at most two states.
 
 The reference's degradation ladder keeps only its planning rungs here
 (:func:`_plan_resilient`) and the one retry of a failed ``compile_plan``
-(:func:`build_engine`); :data:`BACKEND_CHAIN` has no backend rung and there
-is no retry without the kernels: a backend or kernel that fails to build
-raises its typed error (``XlaTraceError`` from a backend's setup,
-``PallasLoweringError`` when the kernels do not build or load). The fault
-sites are the reference's, named as in :mod:`repro_torch.sim.faults`. Not in
-this module yet: the multi-device backends.
+(:func:`build_engine`). Its backend rungs (``pjit -> dense``,
+``offload -> dense``) and its retry without the kernels are not ported: a
+backend or kernel that fails to build raises its typed error
+(``XlaTraceError`` from a backend's setup, ``PallasLoweringError`` when the
+kernels do not build or load). The fault sites are the reference's, named
+as in :mod:`repro_torch.sim.faults`. Not in this module yet: the
+multi-device backends.
 """
 
 from __future__ import annotations
@@ -80,7 +83,9 @@ from .compile import (
     CompiledCircuit, Op, RemapSpec, StageProgram, bind_tensors, bind_tensors_sweep, compile_plan,
 )
 from . import faults, profiler
-from .faults import FaultError, IntegrityError, KernelizationError, StagingError
+from .faults import (
+    FaultError, IntegrityError, KernelizationError, PallasLoweringError, StagingError,
+)
 from .journal import RunJournal, StragglerMonitor
 from .shard_store import ShardStore, StorageConfig
 
@@ -172,6 +177,19 @@ def _shm_operands(op: Op, select: Callable):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _load_kernels() -> None:
+    """Build (if needed) and load the hand kernels. A build or load that
+    fails (nvcc missing or failing, a library that does not load or
+    disagrees with :mod:`repro_torch.kernels.ops`) raises
+    :class:`PallasLoweringError`, the taxonomy's "kernel lowering failed",
+    chained from the cause."""
+    try:
+        kops.load()
+    except (RuntimeError, OSError, ValueError) as e:
+        raise PallasLoweringError(f"the CUDA kernels did not build or load: "
+                                  f"{type(e).__name__}: {e}") from e
 
 
 # ======================================================================
@@ -1040,7 +1058,7 @@ class ExecutionEngine:
             if faults._ACTIVE is not None:
                 faults.maybe_inject("pallas_lowering_error", site="engine.init")
             if self.device.type == "cuda":
-                kops.load()  # a kernel that does not build fails here, typed
+                _load_kernels()  # a kernel that does not build fails here, typed
         self.cc: CompiledCircuit = (
             compiled if compiled is not None
             else compile_plan(circuit, plan, dtype=self.np_dtype, peephole=peephole))
@@ -1191,18 +1209,23 @@ class ExecutionEngine:
         return counts
 
     # --------------------------------------------------- integrity guard
-    def dense_reference(self, bound: Optional[Circuit] = None, psi0=None,
-                        apply_final: bool = True) -> torch.Tensor:
-        """Per-gate dense oracle state for ``bound`` (defaults to the
-        current binding) on the engine's device — the integrity guard's
-        one-retry path. With ``apply_final=False`` it is re-stored in the
-        compiled frame's physical order (comparable to ``run_packed``
-        output) by one bit permutation."""
-        from .statevector import simulate
-
-        bound = self.bound_circuit if bound is None else bound
-        psi = simulate(bound, psi0=psi0, dtype=self.dtype, device=self.device).reshape(-1)
-        return psi if apply_final else to_frame(psi, self.measurement_frame)
+    def _rerun(self, bound: Circuit, psi0, apply_final: bool) -> torch.Tensor:
+        """The integrity guard's one retry: the same plan under ``bound``,
+        through the engine's own backend and kernels, on the device the
+        run's output lives on. The engine's binding is left as it was."""
+        with self.lock:
+            prev = self.bound_circuit
+            if bound is not prev:
+                self.bind_circuit(bound)
+            try:
+                out = self.backend.execute(self.backend.prepare(psi0), apply_final)
+                _sync(self.device)
+                return out
+            finally:
+                if prev is None:
+                    self.bound_circuit = None  # an unbound engine stays unbound
+                elif prev is not bound:
+                    self.bind_circuit(prev)
 
     @staticmethod
     def _norms(rows: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
@@ -1231,21 +1254,21 @@ class ExecutionEngine:
                bound: Optional[Circuit] = None) -> torch.Tensor:
         """Post-run ||psi|| =~ ||psi0|| check: unitary evolution keeps the
         input norm, so a NaN/denormal blowup shows in one pass. On failure,
-        retry ONCE against the dense per-gate oracle; if even that is
-        poisoned, raise a typed :class:`IntegrityError`."""
+        re-run the plan ONCE (:meth:`_rerun`); if that is poisoned too,
+        raise a typed :class:`IntegrityError`."""
         expected = self._expected_norm(psi0)
         norm = self._norm_of(out)
         if self._norm_ok(norm, expected):
             return out
         self.provenance["integrity_retries"] = self.provenance.get("integrity_retries", 0) + 1
-        ref = self.dense_reference(bound=bound, psi0=psi0, apply_final=apply_final)
-        if not self._norm_ok(self._norm_of(ref), expected):
+        retry = self._rerun(self.bound_circuit if bound is None else bound, psi0, apply_final)
+        if not self._norm_ok(self._norm_of(retry), expected):
             raise IntegrityError(
-                f"state norm {norm:.6g} != {expected:.6g} and the dense-oracle retry is also "
-                "poisoned — numerically corrupt circuit/binding")
+                f"state norm {norm:.6g} != {expected:.6g} and the retry is also poisoned — "
+                "numerically corrupt circuit/binding")
         self.provenance["integrity_recovered"] = (
             self.provenance.get("integrity_recovered", 0) + 1)
-        return ref
+        return retry
 
     @staticmethod
     def _poison(out: torch.Tensor) -> torch.Tensor:
@@ -1265,7 +1288,7 @@ class ExecutionEngine:
         the final flat state in logical order, on the engine's device.
         ``params`` rebinds first: a tensor swap, never a re-plan.
         ``verify`` turns on the post-run norm guard (a NaN blowup becomes
-        one dense-oracle retry, then a typed :class:`IntegrityError`)."""
+        one re-run of the plan, then a typed :class:`IntegrityError`)."""
         with self.lock:
             if params is not None:
                 self.bind(params)
@@ -1282,8 +1305,7 @@ class ExecutionEngine:
         """Run but skip the final inter-stage remap: the state stays in the
         last stage's physical layout (lazy flips pending). Pair with
         :attr:`measurement_frame` and :mod:`repro_torch.sim.measure`.
-        ``verify``: as in :meth:`run` (the oracle is re-stored in the
-        packed frame)."""
+        ``verify``: as in :meth:`run`."""
         with self.lock:
             if params is not None:
                 self.bind(params)
@@ -1318,7 +1340,7 @@ class ExecutionEngine:
         rebinds point by point. Returns ``[P, 2^n]`` in logical order (or
         packed when ``apply_final=False``); the engine's own binding is
         left as it was by the fused path. ``verify``: the norm guard row by
-        row; only a poisoned row pays the dense-oracle retry."""
+        row; only a poisoned row pays the retry."""
         points = self._sweep_points(params_batch)
         if not points:
             raise ValueError("empty params_batch")
@@ -1352,9 +1374,9 @@ class ExecutionEngine:
 
     def _guard_sweep(self, out: torch.Tensor, psi0, points: List[dict],
                      apply_final: bool) -> torch.Tensor:
-        """Per-row norm guard for a sweep: only poisoned rows pay the
-        dense-oracle retry, written into the sweep's output; a row whose
-        oracle is poisoned too raises."""
+        """Per-row norm guard for a sweep: only poisoned rows pay the retry
+        (:meth:`_rerun` under that row's binding), written into the sweep's
+        output; a row whose retry is poisoned too raises."""
         flat = out.reshape(out.shape[0], -1)
         expected = self._expected_norm(psi0)
         norms = self._norms(flat).tolist()
@@ -1364,13 +1386,12 @@ class ExecutionEngine:
         self.provenance["integrity_retries"] = (
             self.provenance.get("integrity_retries", 0) + len(bad))
         for i in bad:
-            ref = self.dense_reference(bound=self.circuit.bind(points[i]), psi0=psi0,
-                                       apply_final=apply_final)
-            if not self._norm_ok(self._norm_of(ref), expected):
-                raise IntegrityError(f"sweep row {i}: norm check failed and the dense-oracle "
-                                     "retry is also poisoned")
-            flat[i].copy_(ref.to(flat.device))
-            del ref
+            retry = self._rerun(self.circuit.bind(points[i]), psi0, apply_final)
+            if not self._norm_ok(self._norm_of(retry), expected):
+                raise IntegrityError(f"sweep row {i}: norm check failed and the retry is also "
+                                     "poisoned")
+            flat[i].copy_(retry)
+            del retry
         self.provenance["integrity_recovered"] = (
             self.provenance.get("integrity_recovered", 0) + len(bad))
         return out
@@ -1690,14 +1711,12 @@ def circuit_key_for(
 # The degradation ladder: planning rungs and the build
 # ======================================================================
 
-#: Backend fallback chain, one entry per name in :data:`BACKENDS`, and no
-#: rungs. The reference walks ``pjit -> dense`` and ``offload -> dense`` on
-#: a typed build failure, and first retries a failed Pallas lowering with
-#: ``use_pallas=False``. The port takes neither: a run that asked for the
-#: hand kernels on the card never lands on torch ops, another backend or
-#: the CPU unasked. A backend or kernel that fails to build raises its
-#: typed error (which the serving layer's breaker counts).
-BACKEND_CHAIN: Dict[str, Tuple[str, ...]] = {"cuda": (), "offload": (), "dense": ()}
+# No backend rungs: the reference walks ``pjit -> dense`` and
+# ``offload -> dense`` on a typed build failure, and first retries a failed
+# Pallas lowering with ``use_pallas=False``. The port takes neither: a run
+# that asked for the hand kernels on the card never lands on torch ops,
+# another backend or the CPU unasked. A backend or kernel that fails to
+# build raises its typed error (which the serving layer's breaker counts).
 
 
 def _record_fallback(prov: Dict, from_: str, to: str, err: Exception) -> None:
@@ -1743,11 +1762,9 @@ def build_engine(
     provenance: Optional[Dict] = None,
     storage=None,
     checkpoint_dir: Optional[str] = None,
-    degrade: bool = True,
 ) -> ExecutionEngine:
     """Compile ``plan`` and build an engine on it. A typed ``compile_plan``
-    failure gets ONE retry (then it propagates; with ``degrade=False`` the
-    first one does). Nothing else degrades (:data:`BACKEND_CHAIN`): a
+    failure gets ONE retry (then it propagates). Nothing else degrades: a
     backend or a kernel that fails to build raises, so a run never lands on
     another backend, the CPU, or the kernels' plain versions unasked.
     ``storage`` / ``checkpoint_dir`` go to the offload backend."""
@@ -1765,7 +1782,7 @@ def build_engine(
             cc = compile_plan(circuit, plan, dtype=np.complex64, peephole=peephole)
             break
         except FaultError as e:
-            if attempt or not degrade:
+            if attempt:
                 raise
             _record_fallback(prov, "compile", "compile(retry)", e)
     eng = ExecutionEngine(circuit, plan, use_kernels, device, backend=be,
@@ -1792,7 +1809,6 @@ def engine_for(
     device: DeviceLike = None,
     storage=None,
     checkpoint_dir: Optional[str] = None,
-    degrade: bool = True,
     **plan_kw,
 ) -> ExecutionEngine:
     """The serving entry point: partition + compile + build an engine, or
@@ -1827,9 +1843,7 @@ def engine_for(
     ``cost_model=None`` plans on the device's calibration
     (:func:`_resolve_cost_model`); the resolved model is part of the key,
     so a calibrated and an analytic engine never share a slot, and
-    ``provenance["calibration"]`` records its source. ``degrade=False``
-    turns the planning rungs and the compile retry off: the first typed
-    error propagates unchanged."""
+    ``provenance["calibration"]`` records its source."""
     device = resolve_device(device)
     storage = StorageConfig.coerce(storage)
     if storage is None and backend == "offload" and checkpoint_dir is None:
@@ -1848,7 +1862,7 @@ def engine_for(
                              "plan (the plan was computed for the literal circuit)")
         return build_engine(circuit, plan, backend=backend, use_kernels=use_kernels,
                             peephole=peephole, device=device, storage=storage,
-                            checkpoint_dir=checkpoint_dir, degrade=degrade)
+                            checkpoint_dir=checkpoint_dir)
     source_circuit = circuit
     opt_result = None
     if ocfg is not None:
@@ -1869,19 +1883,13 @@ def engine_for(
             eng = cache.peek(key) if cache is not None else None
             if eng is None:
                 prov: Dict = {}
-                if degrade:
-                    plan, _, _ = _plan_resilient(
-                        circuit, L, R, G, staging_method=staging_method,
-                        kernelize_method=kernelize_method, cost_model=cost_model,
-                        provenance=prov, **plan_kw)
-                else:
-                    plan = partition(circuit, L, R, G, staging_method=staging_method,
-                                     kernelize_method=kernelize_method, cost_model=cost_model,
-                                     **plan_kw)
+                plan, _, _ = _plan_resilient(
+                    circuit, L, R, G, staging_method=staging_method,
+                    kernelize_method=kernelize_method, cost_model=cost_model,
+                    provenance=prov, **plan_kw)
                 eng = build_engine(circuit, plan, backend=backend, use_kernels=use_kernels,
                                    peephole=peephole, device=device, provenance=prov,
-                                   storage=storage, checkpoint_dir=checkpoint_dir,
-                                   degrade=degrade)
+                                   storage=storage, checkpoint_dir=checkpoint_dir)
                 eng.provenance["calibration"] = (
                     {"source": "explicit"} if explicit_cm
                     else profiler.resolve_calibration(device=device)[1])
@@ -1932,6 +1940,6 @@ def engine_for(
             peephole=peephole, staging_method=staging_method,
             kernelize_method=kernelize_method,
             cost_model=base_cost_model, optimize=optimize, cache=None,
-            device=device, storage=storage, checkpoint_dir=checkpoint_dir, degrade=degrade,
+            device=device, storage=storage, checkpoint_dir=checkpoint_dir,
             **plan_kw)
     return eng

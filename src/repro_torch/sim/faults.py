@@ -109,8 +109,8 @@ class StorageToleranceError(FaultError):
 
 
 class IntegrityError(FaultError):
-    """The post-run ||psi|| =~ 1 guard failed AND the dense-oracle retry
-    also failed — the result is numerically poisoned, not recoverable."""
+    """The post-run ||psi|| =~ 1 guard failed AND its one retry also
+    failed — the result is numerically poisoned, not recoverable."""
 
 
 class RequestTimeout(FaultError):

@@ -5,9 +5,10 @@ The same circuits and the same seeded ``FaultPlan`` go through
 ``repro.sim.engine.engine_for`` (``backend="pjit"`` without a mesh, or
 ``"offload"``) and ``repro_torch.sim.engine.engine_for`` (``device="cpu"``).
 The port keeps the reference's planning rungs and its one compile retry;
-it has no backend rung and no retry without the kernels
-(``BACKEND_CHAIN``): where the reference degrades to the dense oracle, the
-port raises the same typed error.
+it has no backend rung and no retry without the kernels: where the
+reference degrades to the dense oracle, the port raises the same typed
+error. Where the reference's integrity guard retries on its dense per-gate
+oracle, the port re-runs the plan through its own backend and kernels.
 
 Tolerances: recovered and clean states within ``atol=1e-5`` of the
 reference's and of ``simulate_np`` (complex64 through a few dozen gates);
@@ -23,15 +24,14 @@ import torch
 from conftest import assert_states_close
 from repro.core.generators import PARAM_FAMILIES as REF_PARAM_FAMILIES, random_circuit
 from repro.sim import faults as rfaults
-from repro.sim.engine import BACKEND_CHAIN as REF_CHAIN, engine_for as ref_engine_for
+from repro.sim.engine import engine_for as ref_engine_for
 from repro.sim.statevector import simulate_np
 from repro_torch.core.circuit import Circuit as PCircuit
 from repro_torch.kernels import build as kbuild, ops
-from repro_torch.sim import engine as teng, faults
-from repro_torch.sim.engine import BACKEND_CHAIN, BACKENDS, engine_for
+from repro_torch.sim import engine as teng, faults, statevector
+from repro_torch.sim.engine import engine_for
 from repro_torch.sim.faults import (
-    BackendBuildError, FaultPlan, IntegrityError, KernelizationError, PallasLoweringError,
-    StagingError, XlaTraceError,
+    BackendBuildError, FaultPlan, IntegrityError, PallasLoweringError, XlaTraceError,
 )
 
 C8 = random_circuit(8, 20, seed=3)
@@ -113,19 +113,70 @@ def test_verify_holds_the_initial_states_norm():
     assert "integrity_retries" not in port.provenance
 
 
-def test_unrecoverable_integrity_raises_typed_in_both():
-    ref, port = _engines(C6, SPLIT6)
-    poisoned = simulate_np(C6).astype(np.complex64)
-    poisoned[0] = np.nan
-    rplan, pplan = _plan(count=1)
-    ref.dense_reference = lambda *a, **k: poisoned
-    port.dense_reference = lambda *a, **k: torch.from_numpy(poisoned)
-    with rfaults.inject(rplan), pytest.raises(rfaults.IntegrityError):
-        ref.run(verify=True)
-    with faults.inject(pplan), pytest.raises(IntegrityError):
-        port.run(verify=True)
+def _nan_binding(sym):
+    return dict.fromkeys(sym.param_names, float("nan"))
+
+
+@pytest.mark.parametrize("entry", ["run", "run_packed", "run_sweep"])
+def test_unrecoverable_integrity_raises_typed_in_both(entry):
+    """A binding that is numerically corrupt poisons the reference's dense
+    oracle and the port's re-run alike: one retry each, then the typed
+    error."""
+    sym = REF_PARAM_FAMILIES["su2param"](6)
+    ref, port = _engines(sym, SPLIT6)
+    bad = _nan_binding(sym)
+    for eng, err in ((ref, rfaults.IntegrityError), (port, IntegrityError)):
+        with pytest.raises(err):
+            if entry == "run_sweep":
+                eng.run_sweep(None, [bad], verify=True)
+            else:
+                getattr(eng, entry)(params=bad, verify=True)
     assert port.provenance["integrity_retries"] == ref.provenance["integrity_retries"] == 1
     assert "integrity_recovered" not in port.provenance
+
+
+@pytest.mark.parametrize("backend", ["cuda", "offload", "dense"])
+def test_guard_retry_reruns_the_plan_not_the_per_gate_oracle(monkeypatch, backend):
+    """The one retry is the engine's own backend again (its kernels on the
+    card), never the per-gate oracle, and its state comes back where the
+    run's did."""
+    port = engine_for(_port(C8), **SPLIT8, backend=backend, cache=None, device="cpu")
+    calls, real = [], port.backend.execute
+
+    def execute(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    def no_oracle(*a, **k):
+        raise AssertionError("the guard fell back to the per-gate oracle")
+
+    monkeypatch.setattr(port.backend, "execute", execute)
+    if backend != "dense":  # the dense backend's own path IS the per-gate one
+        monkeypatch.setattr(statevector, "simulate", no_oracle)
+    clean = port.run()
+    with faults.inject(FaultPlan(seed=3).add("nan_amplitudes", count=1)):
+        out = port.run(verify=True)
+    assert len(calls) == 3 and out.device == clean.device
+    np.testing.assert_allclose(_np(out), _np(clean), atol=1e-5)
+    assert port.provenance["integrity_recovered"] == 1
+
+
+def test_sweep_retry_leaves_the_engines_binding():
+    """A poisoned sweep row is re-run under its own binding; the engine's
+    binding (here: none, a symbolic engine) is as it was."""
+    sym = REF_PARAM_FAMILIES["su2param"](6)
+    pts = _sweep_points(sym, P=3)
+    _, port = _engines(sym, SPLIT6)
+    assert port.bound_circuit is None
+    with faults.inject(FaultPlan(seed=5).add("nan_amplitudes", count=1,
+                                             site="engine.run_sweep")):
+        port.run_sweep(None, pts, verify=True)
+    assert port.bound_circuit is None and port.provenance["integrity_recovered"] == 1
+    port.bind(pts[0])
+    with faults.inject(FaultPlan(seed=5).add("nan_amplitudes", count=1,
+                                             site="engine.run_sweep")):
+        port.run_sweep(None, pts, verify=True)
+    assert port.bound_circuit.binding_signature() == sym.bind(pts[0]).binding_signature()
 
 
 def _sweep_points(sym, P=4):
@@ -212,19 +263,6 @@ def test_planning_rungs_give_the_references_fallbacks(point):
     np.testing.assert_allclose(_np(port.run()), np.asarray(ref.run()).reshape(-1), atol=1e-5)
 
 
-@pytest.mark.parametrize("point,error", [("ilp_timeout", StagingError),
-                                         ("dp_solve_error", KernelizationError)])
-def test_degrade_false_propagates_typed_error(point, error):
-    with rfaults.inject(rfaults.FaultPlan(seed=1).add(point)):
-        with pytest.raises(rfaults.FaultError) as rei:
-            ref_engine_for(C8, L=5, G=3, cache=None, degrade=False)
-    with faults.inject(FaultPlan(seed=1).add(point)):
-        with pytest.raises(error) as ei:
-            engine_for(_port(C8), L=5, G=3, cache=None, device="cpu", degrade=False)
-    assert ei.value.injected and rei.value.injected
-    assert type(rei.value).__name__ == error.__name__
-
-
 def test_transient_compile_fault_gets_one_retry():
     spec = dict(count=1, site="compile.compile_plan")
     with rfaults.inject(rfaults.FaultPlan(seed=2).add("xla_trace_error", **spec)):
@@ -237,27 +275,20 @@ def test_transient_compile_fault_gets_one_retry():
     np.testing.assert_allclose(_np(port.run()), simulate_np(C6), atol=1e-5)
 
 
-@pytest.mark.parametrize("degrade", [True, False])
-def test_persistent_compile_fault_raises_typed(degrade):
+def test_persistent_compile_fault_raises_typed():
     spec = dict(site="compile.compile_plan")
     with rfaults.inject(rfaults.FaultPlan(seed=2).add("xla_trace_error", **spec)):
         with pytest.raises(rfaults.XlaTraceError):
-            ref_engine_for(C6, L=6, cache=None, degrade=degrade)
+            ref_engine_for(C6, L=6, cache=None)
     with faults.inject(FaultPlan(seed=2).add("xla_trace_error", **spec)) as plan:
         with pytest.raises(XlaTraceError):
-            engine_for(_port(C6), L=6, cache=None, device="cpu", degrade=degrade)
-    assert plan.fires["xla_trace_error"] == (2 if degrade else 1)
+            engine_for(_port(C6), L=6, cache=None, device="cpu")
+    assert plan.fires["xla_trace_error"] == 2
 
 
 # ==========================================================================
 # build faults: typed, and no other backend built
 # ==========================================================================
-
-def test_backend_chain_has_no_rungs():
-    assert set(BACKEND_CHAIN) == set(BACKENDS)
-    assert all(chain == () for chain in BACKEND_CHAIN.values())
-    assert REF_CHAIN["pjit"] == ("dense",) and REF_CHAIN["offload"] == ("dense",)
-
 
 def _built(monkeypatch):
     """The (backend, use_kernels) of every engine construction."""
@@ -332,10 +363,12 @@ def _bad_library(monkeypatch, tmp_path):
 @pytest.mark.parametrize("cause,breaks", [
     (RuntimeError, _fail_nvcc), (RuntimeError, _no_nvcc), (OSError, _bad_library)])
 def test_kernel_build_failure_is_typed_and_chained(monkeypatch, tmp_path, cause, breaks):
+    """The engine's kernel load (what it runs at construction on the card)
+    turns a failed build or load into the taxonomy's typed error."""
     monkeypatch.setattr(ops, "_LIBS", {})
     breaks(monkeypatch, tmp_path)
     with pytest.raises(PallasLoweringError) as ei:
-        ops.load()
+        teng._load_kernels()
     assert isinstance(ei.value, BackendBuildError) and not ei.value.injected
     assert isinstance(ei.value.__cause__, cause)
     assert ops._LIBS == {}  # nothing half-loaded

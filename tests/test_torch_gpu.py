@@ -499,22 +499,33 @@ def test_profiler_launches_the_hand_kernels_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "offload"])
 @pytest.mark.parametrize("entry", ["run", "run_packed"])
-def test_guarded_run_recovers_from_nan_on_card(cuda, entry):
+def test_guarded_run_recovers_from_nan_on_card(cuda, monkeypatch, backend, entry):
     """``ising(24)`` with a NaN injected into its output: ``verify=True``
-    retries once on the dense per-gate oracle on the card and returns the
-    clean run's state; a clean guarded run records no retry."""
+    re-runs the plan once through the hand kernels (the per-gate oracle is
+    never called) and returns the clean run's state on the device the run's
+    output lives on (the host for offload); a clean guarded run records no
+    retry."""
     from repro_torch.core.generators import FAMILIES
-    from repro_torch.sim import faults
+    from repro_torch.sim import faults, statevector
     from repro_torch.sim.engine import engine_for
     from repro_torch.sim.statevector import fidelity
 
-    eng = engine_for(FAMILIES["ising"](24), 22, 2, 0, cache=None, device=cuda)
+    def no_oracle(*a, **k):
+        raise AssertionError("the guard fell back to the per-gate oracle")
+
+    monkeypatch.setattr(statevector, "simulate", no_oracle)
+    eng = engine_for(FAMILIES["ising"](24), 22, 2, 0, backend=backend, cache=None, device=cuda)
+    ops.reset_kernel_counters()
     clean = getattr(eng, entry)(verify=True)
-    assert "integrity_retries" not in eng.provenance
+    per_run = ops.kernel_call_counts()
+    assert "integrity_retries" not in eng.provenance and sum(per_run.values()) > 0
+    ops.reset_kernel_counters()
     with faults.inject(faults.FaultPlan(seed=3).add("nan_amplitudes", count=1)):
         out = getattr(eng, entry)(verify=True)
-    assert out.device.type == "cuda" and bool(torch.isfinite(out).all())
+    assert ops.kernel_call_counts() == {k: 2 * v for k, v in per_run.items()}
+    assert out.device == clean.device and bool(torch.isfinite(out).all())
     assert fidelity(out, clean) >= 1 - 1e-5
     assert eng.provenance["integrity_retries"] == eng.provenance["integrity_recovered"] == 1
 

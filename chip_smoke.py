@@ -77,6 +77,25 @@ build faults (``xla_trace_error`` at ``cuda.setup``,
 ``pallas_lowering_error`` at ``engine.init``) raised out of
 ``engine_for`` with no other engine built.
 
+Then the simulation service (``repro_torch.serve``, what ``python -m
+repro_torch.launch.serve_sim`` drives), planned on that calibration:
+``SimulationService`` with its defaults (the card, the hand kernels), max
+batch 8, max wait 5 ms, tenants gold (weight 4) and free (1); one warm-up
+request each for ``isingparam(28)``, ``su2param(28)`` at one layer (L=26, R=2),
+``qft(28)`` and ``ising(30)`` (L=28, R=2), then a burst of 40
+parameterized requests (``<Z0 Z1 + 0.5*X2>`` each, 4 with 64 shots and a
+marginal), 3 identical ``qft(28)`` requests and one ``ising(30)``: no
+solver call, no shm program scheduled and no cache miss, each batch one
+launch per compiled op, the ``qft`` group one run; every response against
+its binding run alone on the same engine, the first point of each
+structure against the dense oracle on the card, every kernel op of a
+served ``isingparam`` batch against its plain version; a malformed rider
+failing alone, a NaN recovered by one re-run through the kernels, a kernel
+build failure quarantined; the JSON-lines front end on the loopback; and
+each structure's warm run planned on the calibration against the analytic
+constants. It prints the stage percentiles, the coalesce factor, the
+padded-row share, the launches of every batch and the peak device memory.
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -167,6 +186,23 @@ AUTOTUNE = {"n": 30, "L": 28, "R": 2}
 AUTOTUNE_PATH = ["--circuit", "ising", "--n", "30", "--L", "28", "--R", "2", "--autotune"]
 FAULTS = {"n": 28, "L": 26, "R": 2, "P": 4}
 CHECKPOINT_DIR = os.path.join(HERE, "build", "checkpoint")
+# the simulation service on the card, planned on the card's calibration (it
+# runs after the profiler): 40 parameterized requests over isingparam(28) and
+# su2param(28) (a full batch of 8 rows is 16 GiB), 4 of them with shots and a
+# marginal (host sampling of 2^28 amplitudes costs seconds), 3 identical
+# qft(28) requests (one dedup run) and one ising(30) request at the main
+# path's width; every served row's amplitudes are held through every
+# STRIDE-th amplitude (2^20 of them across the whole state). su2param runs
+# one layer (depth cut from the generator's 3: the staging ILP of its 1246
+# gates, planned twice here, calibrated and analytic, would dominate the
+# phase; one layer is 490 gates with the same 112 parameters)
+SERVE = {"n": 28, "L": 26, "R": 2, "su2param_reps": 1, "requests": 40, "shots": 64,
+         "shot_requests": (0, 11, 20, 31), "qft": 3, "main_n": 30, "main_L": 28, "seed": 41,
+         "stride": 1 << 8}
+SERVE_CONFIG = {"max_batch_size": 8, "max_wait_ms": 5.0, "cache_size": 4,
+                "tenant_weights": {"gold": 4.0, "free": 1.0}}
+SERVE_OBS = "Z0 Z1 + 0.5*X2"
+SERVE_ATOL = 1e-5  # a served row against the same binding run alone
 
 
 def require(ok: bool, msg: str) -> None:
@@ -1928,6 +1964,410 @@ def faults_phase(ops, card: str) -> dict:
     return report
 
 
+def spy_engine(ops, eng, stride: int) -> list:
+    """Record every ``run``, ``run_packed`` and ``run_sweep`` of ``eng`` (as
+    instance attributes over the class's methods; :func:`unspy` removes
+    them): the entry, its points, the kernel launches of the call, its stage
+    loop's seconds (the engine's own timing, to the device's last op) and
+    every ``stride``-th amplitude of each output row, on the host."""
+    calls = []
+    for entry in ("run", "run_packed", "run_sweep"):
+        def spy(*a, _real=getattr(type(eng), entry), _entry=entry, **kw):
+            before = ops.kernel_call_counts()
+            out = _real(eng, *a, **kw)
+            launched = launches_since(ops, before)
+            rows = out.reshape(-1, 1 << eng.n)
+            calls.append({"entry": _entry, "points": a[1] if _entry == "run_sweep" else None,
+                          "rows": rows.shape[0], "launches": launched,
+                          "loop_s": eng.timings[_entry]["last_us"] / 1e6,
+                          "sample": rows[:, ::stride].cpu()})
+            return out
+        setattr(eng, entry, spy)
+    return calls
+
+
+def unspy(eng) -> None:
+    for entry in ("run", "run_packed", "run_sweep"):
+        eng.__dict__.pop(entry, None)
+
+
+def serve_phase(ops, ref, card: str, device: str = "cuda") -> dict:
+    """The port's simulation service on the card (``repro_torch.serve``, the
+    entry points ``python -m repro_torch.launch.serve_sim`` drives): one
+    ``SimulationService`` with its defaults (CUDA, the hand kernels), two
+    weighted tenants, planned on the card's calibration.
+
+    One warm-up request per structure (cold builds), then one burst of 44
+    requests: every response a cache hit with no solver call and no shm
+    program scheduled, each batch one launch per compiled op whatever its
+    rows, the qft dedup group one run; every response held against the same
+    binding run alone on the same engine (expectations, marginals and counts;
+    every STRIDE-th amplitude of each served row) and the first point of
+    each structure against the dense per-gate oracle; every kernel op of a
+    served ``isingparam`` batch against its plain version. Then the faults (a
+    malformed rider alone, a NaN recovered by one re-run through the
+    kernels, a kernel build failure quarantined), the JSON-lines front end
+    on the loopback, and each structure's warm run planned on the
+    calibration against the analytic constants."""
+    import asyncio
+
+    from repro_torch.core import kernelization, staging
+    from repro_torch.core.cost_model import DEFAULT_COST_MODEL
+    from repro_torch.core.generators import FAMILIES, PARAM_FAMILIES
+    from repro_torch.launch.serve_sim import handle_client
+    from repro_torch.serve import ServeConfig, SimRequest, SimulationService
+    from repro_torch.serve.service import WarmPool
+    from repro_torch.sim import faults
+    from repro_torch.sim.engine import circuit_key_for, engine_for
+    from repro_torch.sim.faults import CircuitQuarantined, PallasLoweringError
+    from repro_torch.sim.measure import measure_to_result, measurer_for
+    from repro_torch.sim.statevector import fidelity, simulate as dense_simulate
+
+    n, L, R, stride = SERVE["n"], SERVE["L"], SERVE["R"], SERVE["stride"]
+    mn, mL = SERVE["main_n"], SERVE["main_L"]
+    syms = {"isingparam": PARAM_FAMILIES["isingparam"](n),
+            "su2param": PARAM_FAMILIES["su2param"](n, reps=SERVE["su2param_reps"])}
+    concrete = {"qft": (FAMILIES["qft"](n), L), "ising": (FAMILIES["ising"](mn), mL)}
+    rng = np.random.default_rng(SERVE["seed"])
+
+    def point(name):
+        lo, hi = (-1.5, 1.5) if name == "isingparam" else (0.1, 6.2)
+        return rng.uniform(lo, hi, len(syms[name].param_names))
+
+    def param_request(i, name, params=None, tenant=None):
+        shots = SERVE["shots"] if i in SERVE["shot_requests"] else 0
+        return SimRequest(circuit=syms[name], params=point(name) if params is None else params,
+                          tenant=tenant or ("gold", "free")[(i // 2) % 2], shots=shots,
+                          marginals=((0, 1),) if shots else (), observables=(SERVE_OBS,),
+                          seed=i, L=L, R=R)
+
+    def concrete_request(name, tenant):
+        circ, cl = concrete[name]
+        return SimRequest(circuit=circ, tenant=tenant, L=cl, R=R,
+                          observables=(SERVE_OBS,) if name == "ising" else ())
+
+    svc = SimulationService(ServeConfig(**SERVE_CONFIG) if device == "cuda"
+                            else ServeConfig(**SERVE_CONFIG, device=device))
+    require(svc.pool.device.type == device and svc.cfg.use_kernels,
+            "the service must default to the card and the hand kernels")
+    structures = ["isingparam", "su2param", "qft", "ising"]
+
+    def ckey(name):
+        circ, cl = (syms[name], L) if name in syms else concrete[name]
+        return circuit_key_for(circ, cl, R, 0, device=svc.pool.device)
+
+    async def warm_and_burst():
+        async with svc:
+            cold = {}
+            for i, name in enumerate(structures):
+                req = (param_request(-1, name, tenant="gold") if name in syms
+                       else concrete_request(name, "gold"))
+                t0 = time.time()
+                resp = await svc.submit(req)
+                cold[name] = (time.time() - t0, resp.timings["bind_s"])
+            engines = {name: svc.pool.cache.peek(key) for name, key in zip(
+                structures, [ckey(s) for s in structures])}
+            spies = {name: spy_engine(ops, eng, stride) for name, eng in engines.items()}
+            reqs = [param_request(i, ("isingparam", "su2param")[i % 2])
+                    for i in range(SERVE["requests"])]
+            reqs += [concrete_request("qft", ("gold", "free")[i % 2]) for i in range(SERVE["qft"])]
+            reqs.append(concrete_request("ising", "gold"))
+            raw = {}
+            real_observe = svc.metrics.observe
+
+            def observe(name, value):
+                raw.setdefault(name, []).append(value)
+                real_observe(name, value)
+
+            before = (staging.SOLVER_CALLS["ilp"], staging.SOLVER_CALLS["greedy"],
+                      kernelization.SOLVER_CALLS["dp"], WarmPool.shm_schedules(),
+                      svc.metrics.counter("cache_misses"), svc.metrics.counter("sweep_rows"),
+                      svc.metrics.counter("sweep_rows_padding"))
+            svc.metrics.observe = observe
+            sync(device)
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_kernel_counters()
+            t0 = time.time()
+            resps = await asyncio.gather(*[svc.submit_nowait(r) for r in reqs],
+                                         return_exceptions=True)
+            sync(device)
+            wall = time.time() - t0
+            launches = dict(ops.kernel_call_counts(), by_k=ops.fused_call_counts_by_k())
+            peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+            del svc.metrics.observe
+            after = (staging.SOLVER_CALLS["ilp"], staging.SOLVER_CALLS["greedy"],
+                     kernelization.SOLVER_CALLS["dp"], WarmPool.shm_schedules(),
+                     svc.metrics.counter("cache_misses"), svc.metrics.counter("sweep_rows"),
+                     svc.metrics.counter("sweep_rows_padding"))
+            for eng in engines.values():
+                unspy(eng)
+            return cold, engines, spies, reqs, resps, raw, before, after, wall, launches, peak
+
+    (cold, engines, spies, reqs, resps, raw, before, after, wall, launches,
+     peak) = asyncio.run(warm_and_burst())
+    stats = svc.stats()
+    log(f"  calibration the service plans on: {json.dumps(stats['calibration'])}")
+    require(device != "cuda" or stats["calibration"]["source"] == "calibrated",
+            f"the serve phase must plan on the card's calibration: {stats['calibration']}")
+    for name in structures:
+        log(f"  cold {name}: first request {cold[name][0]:.3f} s (bind_s {cold[name][1]:.3f} s: "
+            f"plan and build); plan {plan_line(engines[name])}")
+    failed = [(i, r) for i, r in enumerate(resps) if isinstance(r, Exception)]
+    require(not failed, f"served requests failed: {failed[:3]}")
+    require(all(r.cache_hit for r in resps), "every warm request must be a cache hit")
+    require(after[:3] == before[:3], f"warm serving ran a solver: {before[:3]} -> {after[:3]}")
+    require(after[3] == before[3], f"warm serving scheduled shm programs: {before[3]} -> {after[3]}")
+    require(after[4] == before[4], "warm serving missed the cache")
+    require(launches["fused"] > 0 and launches["shm"] > 0,
+            f"the served burst must launch both kernels: {launches}")
+    batches = []
+    for name, calls in spies.items():
+        counts = engines[name].op_counts()
+        want = {"fused": counts.get("fused", 0), "shm": counts.get("shm", 0)}
+        for c in calls:
+            require(c["launches"] == want, f"{name}: a batch of {c['rows']} rows launched "
+                                           f"{c['launches']}, the plan has {want} ops")
+            batches.append((name, c["entry"], c["rows"], c["launches"], c["loop_s"]))
+    require(sum(b[3]["fused"] for b in batches) == launches["fused"]
+            and sum(b[3]["shm"] for b in batches) == launches["shm"],
+            "every launch of the burst must come from a served batch")
+    qft_calls = spies["qft"]
+    qft_resps = [r for req, r in zip(reqs, resps) if req.circuit is concrete["qft"][0]]
+    require(len(qft_calls) == 1 and qft_calls[0]["entry"] == "run"
+            and all(r.batch_size == SERVE["qft"] for r in qft_resps)
+            and len({r.amp0 for r in qft_resps}) == 1,
+            f"the {SERVE['qft']} identical qft requests must dedup into one run")
+    rows = after[5] - before[5]
+    padding = after[6] - before[6]
+    sizes = raw["batch_size"]
+    e2e = [r.timings["e2e_s"] for r in resps]
+    log(f"  burst of {len(reqs)} requests in {wall:.3f} s = {len(reqs) / wall:.3f} requests/s; "
+        f"e2e p50 {np.percentile(e2e, 50):.6f} s, p99 {np.percentile(e2e, 99):.6f} s; stage p50s: "
+        + ", ".join(f"{k} {np.percentile([r.timings[k] for r in resps], 50):.6f} s"
+                    for k in ("queue_wait_s", "batch_form_s", "bind_s", "execute_s"))
+        + f", measure_s {np.percentile(raw['measure_s'], 50):.6f} s (per batch); "
+        f"{len(sizes)} batches, coalesce factor {sum(sizes) / len(sizes):.4f}; rows run "
+        f"{rows:.0f} for {rows - padding:.0f} requested rows (padded-row share "
+        f"{padding / max(rows, 1):.4f}); peak device memory {gib(peak)} ({card})")
+    loops = sum(c["loop_s"] for calls in spies.values() for c in calls)
+    log("  batches (structure, entry, rows, launches, stage loop s): "
+        + "; ".join(f"{b[0]} {b[1]} {b[2]} {b[3]} {b[4]:.4f}" for b in batches)
+        + f"; stage loops {loops:.3f} s of the burst's {wall:.3f} s: the device idle at least "
+        f"{1 - loops / wall:.4f} of it")
+    log(f"  no solver call, no shm program scheduled ({after[3]} in the process), no cache "
+        f"miss; launches of the burst {launches}")
+
+    # every response against the same binding run alone on the same engine
+    t0 = time.time()
+    worst_amp, worst_exp, bitwise = 0.0, 0.0, True
+    for req, resp in zip(reqs, resps):
+        name = next(k for k, s in syms.items() if s is req.circuit) if req.params is not None \
+            else ("qft" if req.circuit is concrete["qft"][0] else "ising")
+        eng = engines[name]
+        if req.params is not None:
+            pt = dict(zip(eng.param_names, np.asarray(req.params, dtype=np.float64)))
+            call, row = next((c, i) for c in spies[name] if c["points"] is not None
+                             for i, p in enumerate(c["points"]) if p == pt)
+            alone = eng.run_packed(params=pt)
+        else:
+            call, row = spies[name][0], 0
+            alone = eng.run() if req.wants_state else eng.run_packed()
+        got, want = call["sample"][row], alone.reshape(-1)[::stride].cpu()
+        err = max_err(got, want)
+        bitwise = bitwise and torch.equal(got, want)
+        worst_amp = max(worst_amp, err)
+        require(err < SERVE_ATOL, f"{name} request {req.request_id}: served amplitudes differ "
+                                  f"from the run alone by {err}")
+        if req.wants_state:
+            require(abs(resp.amp0 - complex(alone.reshape(-1)[0].item())) < SERVE_ATOL,
+                    f"{name}: amp0 differs from the run alone")
+        else:
+            want_res = measure_to_result(
+                measurer_for(alone, eng.measurement_frame, eng), backend="cuda",
+                shots=req.shots, seed=req.seed, marginals=req.marginals,
+                observables=req.observables)
+            for k, v in want_res.expectations.items():
+                e = abs(resp.result.expectations[k] - v)
+                worst_exp = max(worst_exp, e)
+                require(e < SERVE_ATOL, f"{name}: <{k}> differs from the run alone by {e}")
+            for q, m in want_res.marginals.items():
+                require(float(np.abs(resp.result.marginals[q] - m).max()) < SERVE_ATOL,
+                        f"{name}: marginal {q} differs from the run alone")
+            if req.shots:
+                require(resp.result.counts() == want_res.counts(),
+                        f"{name}: the served shots differ from the run alone's")
+        del alone
+    log(f"  every response against its binding run alone on the same engine ({time.time() - t0:.1f}"
+        f" s): every {stride}th amplitude of each row max |diff| {worst_amp:.3e} (bit for bit "
+        f"{bitwise}), expectations max |diff| {worst_exp:.3e}, marginals within {SERVE_ATOL}, the "
+        f"{len(SERVE['shot_requests'])} shot requests' counts equal")
+
+    # the first point of each structure against the dense per-gate oracle
+    t0 = time.time()
+    fids = {}
+    for name in structures:
+        eng = engines[name]
+        if name in syms:
+            first = next(r for r in reqs if r.circuit is syms[name])
+            bound = syms[name].bind(dict(zip(eng.param_names, first.params)))
+            state = eng.run(params=dict(zip(eng.param_names, first.params)))
+        else:
+            bound = concrete[name][0]
+            state = eng.run()
+        fids[name] = fidelity(state, dense_simulate(bound, device=device))
+        del state
+        require(fids[name] >= FIDELITY_MIN, f"served {name} fidelity {fids[name]}")
+    log("  first point of each structure against the dense oracle on the " + device + ": "
+        + ", ".join(f"{k} {v:.9f}" for k, v in fids.items()) + f" ({time.time() - t0:.1f} s)")
+
+    # every kernel op of one served batch against its plain version
+    eng = engines["isingparam"]
+    call = max(spies["isingparam"], key=lambda c: c["rows"])
+    worst = hold_sweep_ops(ops, ref, eng, eng.backend.pass_of(call["rows"],
+                                                             eng.sweep_tables(call["points"])),
+                           seed=43, what=f"served isingparam({n}) batch of {call['rows']}")
+    del spies
+
+    # faults and the front end, on the same warm service
+    async def faults_and_front_end():
+        async with svc:
+            good = [param_request(100 + i, "isingparam", tenant="free") for i in range(3)]
+            bad = param_request(103, "isingparam", params=np.array([0.1, 0.2, 0.3]))
+            got = await asyncio.gather(*[svc.submit_nowait(r) for r in good + [bad]],
+                                       return_exceptions=True)
+            require(all(not isinstance(g, Exception) and g.batch_size == 4 for g in got[:3])
+                    and isinstance(got[3], ValueError),
+                    f"a malformed rider must fail alone: {[type(g).__name__ for g in got]}")
+            eng = engines["isingparam"]
+            counts = eng.op_counts()
+            per_run = {"fused": counts.get("fused", 0), "shm": counts.get("shm", 0)}
+            nan_reqs = [param_request(110 + i, "isingparam") for i in range(4)]
+            before = ops.kernel_call_counts()
+            with faults.inject(faults.FaultPlan(seed=5).add(
+                    "nan_amplitudes", count=1, site="engine.run_sweep")) as plan:
+                nan_resps = await asyncio.gather(*[svc.submit_nowait(r) for r in nan_reqs])
+            retried = launches_since(ops, before)
+            require(plan.fires == {"nan_amplitudes": 1}, f"the NaN fired {plan.fires}")
+            require(retried == {k: 2 * v for k, v in per_run.items()},
+                    f"the poisoned row must be re-run once through the kernels: {retried}, "
+                    f"a batch launches {per_run}")
+            require(all(r.provenance and r.provenance["integrity_retries"] == 1
+                        and r.provenance["integrity_recovered"] == 1 for r in nan_resps),
+                    "integrity_retries must be in every response's provenance")
+            worst_nan = 0.0
+            for req, resp in zip(nan_reqs, nan_resps):
+                alone = eng.run_packed(params=dict(zip(eng.param_names, req.params)))
+                want = measurer_for(alone, eng.measurement_frame, eng).expectation(SERVE_OBS)
+                worst_nan = max(worst_nan, abs(next(iter(resp.result.expectations.values()))
+                                               - want))
+                del alone
+            require(worst_nan < SERVE_ATOL, f"the recovered batch differs by {worst_nan}")
+            for key in ("integrity_retries", "integrity_recovered"):
+                eng.provenance.pop(key)
+            log(f"  a rider with 3 parameters in a batch of 4 failed alone (ValueError); a NaN "
+                f"in one row of a served batch of 4 recovered by one re-run through the kernels "
+                f"({retried} launches with the batch's), expectations within {worst_nan:.3e} "
+                f"of the runs alone, integrity_retries 1 in each response's provenance")
+            ghz = FAMILIES["ghz"](n)
+            seen = []
+            with _built_engines() as rec, faults.inject(faults.FaultPlan(seed=2).add(
+                    "pallas_lowering_error", site="engine.init")) as plan:
+                for _ in range(svc.cfg.breaker_threshold):
+                    try:
+                        await svc.submit(SimRequest(circuit=ghz, L=L, R=R))
+                    except PallasLoweringError as e:
+                        seen.append(e)
+                try:
+                    await svc.submit(SimRequest(circuit=ghz, L=L, R=R))
+                    quarantined = None
+                except CircuitQuarantined as e:
+                    quarantined = e
+            require(len(seen) == svc.cfg.breaker_threshold and all(e.injected for e in seen),
+                    "each build must fail typed (PallasLoweringError)")
+            require(quarantined is not None and quarantined.retry_after > 0,
+                    "the structure must be quarantined with a retry_after")
+            require(rec.seen == [("cuda", True)] * svc.cfg.breaker_threshold,
+                    f"engines attempted {rec.seen}: no plain versions, no other backend")
+            log(f"  pallas_lowering_error at engine.init x{len(seen)}: PallasLoweringError each "
+                f"time, then CircuitQuarantined (retry_after {quarantined.retry_after:.1f} s); "
+                f"engines attempted {rec.seen}")
+
+            server = await asyncio.start_server(lambda r, w: handle_client(svc, r, w),
+                                                "127.0.0.1", 0)
+            port = server.sockets[0].getsockname()[1]
+            try:
+                reader, writer = await asyncio.open_connection("127.0.0.1", port)
+                valid = param_request(120, "isingparam", tenant="gold")
+                lines = [json.dumps({"id": 1, "family": "isingparam", "n": n, "L": L, "R": R,
+                                     "params": list(map(float, valid.params)),
+                                     "observables": [SERVE_OBS], "tenant": "gold"}),
+                         "{not json", json.dumps({"cmd": "stats"})]
+                writer.write(("\n".join(lines) + "\n").encode())
+                await writer.drain()
+                replies = [json.loads(await asyncio.wait_for(reader.readline(), 120))
+                           for _ in lines]
+                writer.close()
+            finally:
+                server.close()
+                await server.wait_closed()
+            answer = next(r for r in replies if r.get("rid") == 1)
+            malformed = next(r for r in replies if r.get("error") == "bad_json")
+            snap = next(r for r in replies if "stats" in r)
+            require(answer["ok"] and answer["batch_size"] == 1 and answer["cache_hit"],
+                    f"the valid line: {answer}")
+            alone = eng.run_packed(params=dict(zip(eng.param_names, valid.params)))
+            want = measurer_for(alone, eng.measurement_frame, eng).expectation(SERVE_OBS)
+            del alone
+            require(abs(next(iter(answer["expectations"].values())) - want) < SERVE_ATOL,
+                    "the front end's expectation differs from the run alone")
+            require(not malformed["ok"] and malformed["rid"] is None and snap["ok"]
+                    and snap["stats"]["warm_pool"]["size"] == 4,
+                    f"the malformed line and stats: {malformed}, {snap.get('ok')}")
+            log(f"  front end on 127.0.0.1:{port}: the valid line answered (expectation "
+                f"{next(iter(answer['expectations'].values())):.6f}, as the run alone), the "
+                f"malformed line {malformed['error']}, stats answered "
+                f"(warm pool {snap['stats']['warm_pool']['size']} engines)")
+
+    asyncio.run(faults_and_front_end())
+
+    # each served structure's warm run under the calibration and the analytic constants
+    runs = {}
+    for name in structures:
+        eng = engines[name]
+        circ, cl = (syms[name], L) if name in syms else concrete[name]
+        pt = None
+        if name in syms:
+            first = next(r for r in reqs if r.circuit is syms[name])
+            pt = dict(zip(eng.param_names, first.params))
+        t0 = time.time()
+        ana = engine_for(circ, cl, R, 0, cost_model=DEFAULT_COST_MODEL, cache=None,
+                         device=device)
+        build_s = time.time() - t0
+        out = {}
+        for label, e in (("calibrated", eng), ("analytic", ana)):
+            e.run(params=pt)  # warm
+            sync(device)
+            t0 = time.time()
+            state = e.run(params=pt)
+            sync(device)
+            out[label] = (time.time() - t0, state, plan_line(e))
+        fid = fidelity(out["calibrated"][1], out["analytic"][1])
+        require(fid >= FIDELITY_MIN, f"{name}: calibrated and analytic states differ ({fid})")
+        runs[name] = {k: v[0] for k, v in out.items()}
+        log(f"  {name}: warm run calibrated {out['calibrated'][0]:.4f} s ({out['calibrated'][2]})"
+            f", analytic {out['analytic'][0]:.4f} s ({out['analytic'][2]}; planned in "
+            f"{build_s:.1f} s); ratio {out['calibrated'][0] / out['analytic'][0]:.3f}; fidelity "
+            f"between them {fid:.9f} ({card})")
+        del out, state, ana
+    del engines
+    svc.pool.cache.clear()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "worst": worst, "runs": runs, "wall_s": wall,
+            "peak_bytes": peak}
+
+
 def width_rows(ops, ref, probe, ks, n: int) -> list:
     """``fused_apply`` rows at widths ``ks`` that no plan launched (the
     profile's k on bits 0..k-1 of one shard of 2^n): against the plain
@@ -2138,6 +2578,15 @@ def main() -> None:
     paths["ising28_faults"] = faults_phase(ops, card)["launches"]
     log(f"  the calibration, calibrated, autotune and faults phases took "
         f"{time.time() - t_cal:.1f}s")
+
+    t_serve = time.time()
+    log("== serving: SimulationService on the card, isingparam({n}) and su2param({n}, "
+        "reps={su2param_reps}) L={L} R={R}, qft({n}), ising({main_n}); max batch 8, max wait "
+        "5 ms, tenants gold:4 free:1".format(**SERVE))
+    serve = serve_phase(ops, ref, card)
+    paths["serve28"] = serve["launches"]
+    worst.append(serve["worst"])
+    log(f"  the serving phase took {time.time() - t_serve:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

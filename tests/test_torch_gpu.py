@@ -549,3 +549,53 @@ def test_kernel_build_failure_surfaces_typed_at_engine_construction(cuda, monkey
         engine_for(FAMILIES["ising"](12), 10, 2, 0, cache=None, device=cuda)
     assert isinstance(ei.value, BackendBuildError)
     assert isinstance(ei.value.__cause__, RuntimeError)
+
+
+@pytest.mark.gpu
+def test_served_batch_is_one_launch_per_op_on_card(cuda):
+    """A service on the card (its defaults: the device, the hand kernels)
+    serves 4 ``isingparam(20)`` requests as one batch: one kernel launch
+    per compiled op for all 4 rows, no shm program scheduled once warm, and
+    each row's amplitude and expectation against the point run alone on
+    the same engine."""
+    import asyncio
+
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.serve import ServeConfig, SimRequest, SimulationService
+
+    sym = PARAM_FAMILIES["isingparam"](20)
+    points = np.random.default_rng(4).uniform(-1.5, 1.5, (5, 2))
+    obs = "Z0 Z1 + 0.5*X2"
+
+    async def go():
+        async with SimulationService(ServeConfig(R=2, max_batch_size=4,
+                                                 max_wait_ms=200.0)) as svc:
+            assert svc.pool.device.type == "cuda" and svc.cfg.use_kernels
+            await svc.submit(SimRequest(circuit=sym, params=points[4]))  # warm: plan, build
+            await asyncio.gather(*[svc.submit(SimRequest(circuit=sym, params=p))
+                                   for p in points[:4]])  # warm: the 4-row sweep
+            ops.reset_kernel_counters()
+            sched = ops.SCHEDULE_CALLS["shm"]
+            digests = [svc.submit_nowait(SimRequest(circuit=sym, params=p)) for p in points[:4]]
+            measured = [svc.submit_nowait(SimRequest(circuit=sym, params=p, observables=(obs,)))
+                        for p in points[:4]]
+            digests, measured = await asyncio.gather(asyncio.gather(*digests),
+                                                     asyncio.gather(*measured))
+            return svc, digests, measured, ops.kernel_call_counts(), sched
+
+    svc, digests, measured, launches, sched = asyncio.run(asyncio.wait_for(go(), 600))
+    eng = svc.pool.engines()[0]
+    counts = eng.op_counts()
+    assert [r.batch_size for r in digests + measured] == [4] * 8
+    # two batches (digest rows and packed measured rows), one launch per op each
+    assert launches == {"fused": 2 * counts.get("fused", 0), "shm": 2 * counts.get("shm", 0)}
+    assert sum(launches.values()) > 0 and ops.SCHEDULE_CALLS["shm"] == sched
+    from repro_torch.sim.measure import Frame, measure_to_result, measurer_for
+
+    for p, d, m in zip(points[:4], digests, measured):
+        alone = eng.run(params=p)
+        assert abs(d.amp0 - complex(alone[0].item())) < 1e-5
+        want = measure_to_result(measurer_for(alone, Frame.identity(20)), backend="cuda",
+                                 observables=[obs])
+        for k, v in want.expectations.items():
+            assert abs(m.result.expectations[k] - v) < 1e-5

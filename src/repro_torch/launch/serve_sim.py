@@ -1,4 +1,4 @@
-"""Async multi-tenant **simulation** serving driver (the Atlas engine).
+"""Async multi-tenant **simulation** serving front end (the Atlas engine).
 
 This fronts :class:`repro_torch.serve.SimulationService`: concurrent
 requests are grouped by structural CircuitKey and coalesced into single

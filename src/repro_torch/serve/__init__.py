@@ -7,7 +7,7 @@ Entry points:
 
 * :class:`SimulationService` + :class:`ServeConfig` — the asyncio loop.
 * :class:`SimRequest` / :class:`SimResponse` — the request/response shapes.
-* ``python -m repro_torch.launch.serve_sim`` — TCP front-end / demo driver.
+* ``python -m repro_torch.launch.serve_sim`` — TCP front end and demo.
 """
 
 from .batcher import (  # noqa: F401

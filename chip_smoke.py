@@ -17,6 +17,20 @@ held against the dense per-gate oracle on the card; every kernel op of each
 of them is held against its plain version as that path launches it (its
 shard count, operand tables and variant indices).
 
+Then the explicit-collective backend: the main path's ``ising(30)`` plan on
+4 spawned ranks of one gloo group (one 2 GiB shard each, all on the one
+card) through ``ShardMapExecutor`` with the hand kernels, against the same
+plan on ``CudaBackend``: kernel launches per rank, every shard through every
+256th amplitude and a checksum of its bits (within 1e-6, and whether bit
+for bit), each remap's m, permute, bytes per rank against Eq. 2 and
+seconds, peak device memory per rank, and 1024 shots, the marginal
+``(0, 1, 2)`` and ``<Z0 Z1 + 0.5*X29>`` (plus an X term on a device qubit
+when qubit 29 is local in the plan's last layout) through
+``ShardedMeasurer`` against ``TorchMeasurer`` on the in-card state; the
+first and last rank hold every kernel op at their shard and variants
+against its plain version. Then world size 1 over NCCL: ``qft(28)`` at
+L=28 through ``ShardMapExecutor`` bit for bit against ``CudaBackend``.
+
 Then adjoint gradients: the ``--vqe`` loop on ``isingparam(30)`` L=28 R=2
 (three Adam steps; every gate, derivative and Pauli application of each
 reverse sweep one ``fused_apply`` launch), its first gradient held against
@@ -203,6 +217,16 @@ SERVE_CONFIG = {"max_batch_size": 8, "max_wait_ms": 5.0, "cache_size": 4,
                 "tenant_weights": {"gold": 4.0, "free": 1.0}}
 SERVE_OBS = "Z0 Z1 + 0.5*X2"
 SERVE_ATOL = 1e-5  # a served row against the same binding run alone
+# the explicit-collective backend: the main path's ising(30) plan (L=28,
+# R=2) on 4 ranks of one gloo group, each holding one 2^28 shard (2 GiB) on
+# the one card (NCCL refuses two ranks on one GPU), held shard by shard
+# against the in-card run through every STRIDE-th amplitude and a checksum
+# of every bit, measured against TorchMeasurer on the in-card state; then
+# world size 1 over NCCL (qft(28), L=28: no collective runs) bit for bit
+SHARDMAP = {"ranks": 4, "stride": 1 << 8, "shots": 1024, "seed": 0, "marginal": (0, 1, 2),
+            "observable": "Z0 Z1 + 0.5*X29", "atol": 1e-6, "timeout": 600}
+SHARDMAP_NCCL = {"n": 28, "L": 28}
+RENDEZVOUS_DIR = os.path.join(HERE, "build", "rendezvous")
 
 
 def require(ok: bool, msg: str) -> None:
@@ -500,6 +524,249 @@ def trace_run(run, untraced_s: float, what: str = "run_packed") -> None:
         "by kernel:")
     for ms, count, key in rows[:10]:
         log(f"    {ms:9.2f} ms  x{count:<3d} {key[:100]}")
+
+
+def shard_fingerprint(shard: torch.Tensor, stride: int) -> dict:
+    """Every ``stride``-th amplitude of a shard (on the host) and a checksum
+    of all its bits: the plain and the position-weighted sums of its 32-bit
+    words, in int64 (wrapping), summed on the card in chunks."""
+    words = torch.view_as_real(shard.reshape(-1)).view(torch.int32).view(-1)
+    plain = weighted = 0
+    chunk = 1 << 26
+    for lo in range(0, words.numel(), chunk):
+        w = words[lo:lo + chunk].to(torch.int64)
+        pos = torch.arange(lo, lo + w.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+        plain += int(w.sum())
+        weighted += int((w * pos).sum())
+    return {"sample": shard.reshape(-1)[::stride].cpu().numpy(), "checksum": (plain, weighted)}
+
+
+def shardmap_rank(rank: int, circuit, plan, spec: dict, device: str = "cuda") -> dict:
+    """One rank of the shardmap phase (a spawned process, in a gloo group
+    with the others): ``ShardMapExecutor`` with the hand kernels on its
+    2^L shard on the card, a cold and a warm ``run_packed`` (kernel
+    launches, collectives and each remap's bytes and seconds, peak device
+    memory), its shard's fingerprint, the measurement through
+    ``ShardedMeasurer``, and on the first and last rank every kernel op of
+    the plan against its plain version at the rank's shard and variants.
+    ``device="cpu"`` dry-runs it on the host (no memory figures)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sim import collective
+    from repro_torch.sim.measure import measurer_for
+    from repro_torch.sim.shardmap_executor import ShardMapExecutor
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    t0 = time.time()
+    ex = ShardMapExecutor(circuit, plan, device=device)
+    out = {"build_s": time.time() - t0, "runs": []}
+    shard = None
+    for _ in range(2):  # cold (step tables, index tensors), then warm
+        shard = None
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_counters()
+        collective.reset_collective_counters()
+        dist.barrier()
+        t0 = time.perf_counter()
+        shard = ex.run_packed()
+        sync(device)
+        dist.barrier()
+        out["runs"].append({"seconds": time.perf_counter() - t0,
+                            "launches": ops.kernel_call_counts(),
+                            "by_k": ops.fused_call_counts_by_k(),
+                            "collectives": collective.collective_counts(),
+                            "trace": list(ex.backend.trace),
+                            "peak": torch.cuda.max_memory_allocated() if cuda else 0})
+    out["fingerprint"] = shard_fingerprint(shard, spec["stride"])
+    m = measurer_for(shard, ex.measurement_frame, ex.engine)
+    collective.reset_collective_counters()
+    t0 = time.perf_counter()
+    out["samples"] = m.sample(spec["shots"], seed=spec["seed"])
+    out["sample_s"] = time.perf_counter() - t0
+    out["sample_traffic"] = collective.collective_counts()
+    t0 = time.perf_counter()
+    out["marginal"] = m.marginal(spec["marginal"])
+    collective.reset_collective_counters()
+    out["value"] = m.expectation(spec["observable"])
+    out["expect_traffic"] = collective.collective_counts()
+    out["marginal_expect_s"] = time.perf_counter() - t0
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    del m, shard
+    if cuda:
+        torch.cuda.empty_cache()
+    out["worst"] = None
+    if rank in (0, dist.get_world_size() - 1):
+        gen = torch.Generator(device=device).manual_seed(17 + rank)
+        x = torch.randn(1 << plan.L, dtype=torch.complex64, device=device, generator=gen)
+        out["worst"] = hold_ops(ops, ref, ex.engine, ex.backend.pass_of(), x,
+                                f"rank {rank}'s kernel ops")
+    return out
+
+
+def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda") -> dict:
+    """The explicit-collective backend at the main path's width: ``plan``
+    (``ising(30)``, L=28, R=2) on ``CudaBackend`` first (launches, every
+    shard's fingerprint, shots/marginal/expectation through
+    ``TorchMeasurer``), then on 4 spawned ranks of one gloo group through
+    ``ShardMapExecutor`` (:func:`shardmap_rank`), held to it: launches per
+    rank, each shard within SHARDMAP["atol"] (and whether bit for bit), the
+    same shots and values within the tolerance, and each remap's bytes
+    against Eq. 2. ``device="cpu"`` dry-runs it on the host at a small
+    plan."""
+    from repro_torch.sim.engine import ExecutionEngine
+    from repro_torch.sim.measure import PauliSum, measurer_for
+    from repro_torch.sim.ranks import run_ranks
+
+    spec, world, L = dict(SHARDMAP), SHARDMAP["ranks"], plan.L
+    require(1 << (plan.R + plan.G) == world, f"the plan needs {1 << (plan.R + plan.G)} ranks")
+    shard_bytes = 8 << L
+    eng = ExecutionEngine(circuit, plan, device=device)
+    eng.run_packed()  # warm-up: step tables, index tensors
+    sync(device)
+    ops.reset_kernel_counters()
+    t0 = time.perf_counter()
+    state = eng.run_packed()
+    sync(device)
+    cuda_s = time.perf_counter() - t0
+    want = launches_match(ops, eng, "CudaBackend run of the plan")
+    frame = eng.measurement_frame
+    on_device = [frame.layout[p] for p in range(L, frame.n)]
+    terms = PauliSum.parse(spec["observable"]).terms
+    if not any(p in "XY" and frame.phys_of[q] >= L for t in terms for q, p in t.ops):
+        spec["observable"] += f" + 0.25*X{on_device[0]}"  # so a term needs the permute
+    log(f"  qubits on device bits (physical {L}..{frame.n - 1}): {on_device}; observable "
+        f"{spec['observable']}")
+    fps = [shard_fingerprint(state[d << L:(d + 1) << L], spec["stride"]) for d in range(world)]
+    tm = measurer_for(state, frame)
+    t0 = time.perf_counter()
+    samples = tm.sample(spec["shots"], seed=spec["seed"])
+    marg = tm.marginal(spec["marginal"])
+    value = tm.expectation(spec["observable"])
+    torch_measure_s = time.perf_counter() - t0
+    del state, tm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    found = run_ranks(shardmap_rank, world, RENDEZVOUS_DIR, args=(circuit, plan, spec, device),
+                      timeout=spec["timeout"], init_timeout=300,
+                      threads=None if device == "cuda" else 1)
+    wall_s = time.time() - t0
+    warm = [f["runs"][1] for f in found]
+    log(f"  {world} ranks (gloo; the exchanges hand gloo the CUDA shards): spawned, built "
+        f"and run in {wall_s:.1f} s; engine build "
+        + ", ".join(f"{f['build_s']:.2f}" for f in found) + " s")
+    log(f"  run_packed: cold {max(f['runs'][0]['seconds'] for f in found):.3f} s, warm "
+        f"{max(w['seconds'] for w in warm):.3f} s, against CudaBackend {cuda_s:.3f} s ({card})")
+    for i, t in enumerate(warm[0]["trace"]):
+        a2a = shard_bytes - (shard_bytes >> t["m"]) if t["m"] else 0
+        sent = [w["trace"][i]["bytes_sent"] for w in warm]
+        secs = [w["trace"][i]["seconds"] for w in warm]
+        log(f"  remap {t['slot']}: m={t['m']}, permute {t['permute']}; bytes sent per rank "
+            f"{sent} (Eq. 2: {a2a} in the all-to-all + at most {shard_bytes if t['permute'] else 0}"
+            f" in the permute); seconds "
+            + ", ".join(f"{s:.3f}" for s in secs))
+        require(all(a2a <= b <= a2a + (shard_bytes if t["permute"] else 0) for b in sent),
+                f"remap {t['slot']}: bytes sent {sent} break Eq. 2")
+    for d, w in enumerate(warm):
+        require({k: w["launches"][k] for k in ("fused", "shm")}
+                == {k: want[k] for k in ("fused", "shm")} and w["by_k"] == want["by_k"],
+                f"rank {d}: launches {w['launches']} {w['by_k']} != CudaBackend's {want}")
+    log(f"  launches per rank: {warm[0]['launches']}, fused by k {warm[0]['by_k']} "
+        f"(CudaBackend's: {want}); collectives per rank: "
+        + "; ".join(str({k: v for k, v in w['collectives'].items() if v}) for w in warm))
+    log("  peak device memory per rank: run " + ", ".join(gib(w["peak"]) for w in warm)
+        + "; with the measurement " + ", ".join(gib(f["peak"]) for f in found))
+    if device == "cuda":  # a rank holds its shard and one remap buffer
+        require(all(w["peak"] <= 2 * shard_bytes + (1 << 30) for w in warm),
+                "a rank held more than two shards during the run")
+    errs, bitwise = [], []
+    for d, f in enumerate(found):
+        errs.append(float(np.abs(f["fingerprint"]["sample"] - fps[d]["sample"]).max()))
+        bitwise.append(bool(np.array_equal(f["fingerprint"]["sample"], fps[d]["sample"])
+                            and f["fingerprint"]["checksum"] == fps[d]["checksum"]))
+    log(f"  shards against CudaBackend's: max |d| " + ", ".join(f"{e:.3e}" for e in errs)
+        + f"; bit for bit {bitwise}")
+    require(max(errs) <= spec["atol"], f"a shard differs by {max(errs)} > {spec['atol']}")
+    for d, f in enumerate(found):
+        require(np.array_equal(f["samples"], found[0]["samples"])
+                and np.array_equal(f["marginal"], found[0]["marginal"])
+                and f["value"] == found[0]["value"], f"rank {d} measured otherwise than rank 0")
+    marg_err = float(np.abs(found[0]["marginal"] - marg).max())
+    value_err = abs(found[0]["value"] - value)
+    same_shots = bool(np.array_equal(found[0]["samples"], samples))
+    log(f"  ShardedMeasurer: {spec['shots']} shots the same as TorchMeasurer's: {same_shots}; "
+        f"marginal {spec['marginal']} max |d| {marg_err:.3e}; <{spec['observable']}> = "
+        f"{found[0]['value']:.9f} (TorchMeasurer {value:.9f}, |d| {value_err:.3e}); sampling "
+        f"{max(f['sample_s'] for f in found):.3f} s (rows sent to rank 0: "
+        f"{sum(f['sample_traffic']['send'] for f in found)}), marginal and expectation "
+        f"{max(f['marginal_expect_s'] for f in found):.3f} s (TorchMeasurer all three "
+        f"{torch_measure_s:.3f} s); the expectation's permutes per rank "
+        f"{[f['expect_traffic']['permute'] for f in found]}")
+    require(same_shots, "ShardedMeasurer's shots differ from TorchMeasurer's for the seed")
+    require(marg_err <= spec["atol"] and value_err <= spec["atol"],
+            "ShardedMeasurer's marginal or expectation differs from TorchMeasurer's")
+    require(all(f["expect_traffic"]["permute"] >= 1 for f in found),
+            "the X term on a device bit must permute shards")
+    worst = {k: max(f["worst"][k] for f in found if f["worst"] is not None)
+             for k in ("fused", "shm")}
+    launches = {k: sum(w["launches"][k] for w in warm) for k in ("fused", "shm")}
+    by_k = {k: world * c for k, c in want["by_k"].items()}
+    return {"launches": dict(launches, by_k=by_k), "worst": worst, "wall_s": wall_s}
+
+
+def shardmap_nccl_phase(ops, card: str, n: int, L: int, backend: str = "nccl",
+                        device: str = "cuda") -> dict:
+    """World size 1 over NCCL, in this process: ``qft(n)`` at L=n (R=G=0,
+    so no collective runs) through ``ShardMapExecutor`` against
+    ``CudaBackend`` on the same plan, bit for bit, one launch per op
+    (``backend="gloo", device="cpu"`` dry-runs it on the host)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from repro_torch.core.generators import FAMILIES
+    from repro_torch.core.partition import partition
+    from repro_torch.sim import collective
+    from repro_torch.sim.engine import ExecutionEngine
+    from repro_torch.sim.shardmap_executor import ShardMapExecutor
+
+    circ = FAMILIES["qft"](n)
+    plan = partition(circ, L, 0, 0)
+    eng = ExecutionEngine(circ, plan, device=device)
+    eng.run()
+    want = eng.run()
+    sync(device)
+    os.makedirs(RENDEZVOUS_DIR, exist_ok=True)
+    rendezvous = os.path.join(RENDEZVOUS_DIR, f"nccl-{os.getpid()}")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    dist.init_process_group(backend, init_method=f"file://{rendezvous}", rank=0, world_size=1,
+                            timeout=timedelta(seconds=300))
+    try:
+        ex = ShardMapExecutor(circ, plan, device=device)
+        ex.run()
+        sync(device)
+        ops.reset_kernel_counters()
+        collective.reset_collective_counters()
+        t0 = time.perf_counter()
+        got = ex.run()
+        sync(device)
+        secs = time.perf_counter() - t0
+        launches = launches_match(ops, ex.engine, "shardmap over NCCL, world size 1",
+                                  kinds=("shm",))
+        moved = {k: v for k, v in collective.collective_counts().items() if v}
+        bitwise = bool(torch.equal(got, want))
+        log(f"  qft({n}) L={L}: backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}; run {secs:.4f} s; collectives {moved or 'none'}; bit for "
+            f"bit CudaBackend's: {bitwise} ({card})")
+        require(bitwise, "the NCCL world-size-1 run differs from CudaBackend's")
+        require(not moved, f"world size 1 ran collectives: {moved}")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches}
 
 
 def launches_match(ops, engine, what: str, per_op: int = 1, kinds=("fused", "shm")) -> dict:
@@ -2470,6 +2737,7 @@ def main() -> None:
 
     log("== kernel figures on the main path's ops")
     kernels = figures(ops, ref, probe, run.engine, gen, sweep_err, launches, launches_by_k)
+    main_plan = (run.engine.circuit, run.engine.plan)
     del run
     torch.cuda.empty_cache()
 
@@ -2501,6 +2769,18 @@ def main() -> None:
     paths["qft28_batch3"] = batch["launches"]
     worst.append(batch["worst"])
     torch.cuda.empty_cache()
+
+    t_shardmap = time.time()
+    log("== shardmap: the main path's plan on {ranks} ranks of one gloo group, one 2^28 shard "
+        "each".format(**SHARDMAP))
+    shardmap = shardmap_phase(ops, card, *main_plan)
+    paths["ising30_shardmap4"] = shardmap["launches"]
+    worst.append(shardmap["worst"])
+    torch.cuda.empty_cache()
+    log("== shardmap over NCCL, world size 1: qft({n}) L={L}".format(**SHARDMAP_NCCL))
+    paths["qft28_shardmap_nccl1"] = shardmap_nccl_phase(ops, card, **SHARDMAP_NCCL)["launches"]
+    torch.cuda.empty_cache()
+    log(f"  the shardmap phases took {time.time() - t_shardmap:.1f}s")
 
     t_grad = time.time()
     log("== VQE: " + " ".join(VQE_PATH))

@@ -19,6 +19,13 @@ The twin of ``repro/sim/engine.py`` for the meshless single-device case:
   ``2^L`` amplitudes and streams every shard through the device once a
   stage, through the same op application (and so the same kernels) as
   :class:`CudaBackend`; remaps are bit permutations on the host;
+* :class:`ShardMapBackend` is the explicit-collective path: one
+  ``torch.distributed`` rank per device of the bit-mesh runs the stage loop
+  on its ``2^L`` shard through the same kernels, and each inter-stage remap
+  is the reference's choreography (:class:`RemapPlan`, copied with
+  :func:`_build_remap_plan`): a local transpose, one grouped all-to-all,
+  one permute of the residual device bits, a local transpose
+  (:mod:`repro_torch.sim.collective` moves the bytes);
 * :class:`DenseBackend` is the per-gate oracle behind the same API;
 * ``value_and_grad`` / ``grad_sweep`` differentiate ``<ψ(θ)|H|ψ(θ)>`` by
   the adjoint reverse sweep (:mod:`repro_torch.sim.adjoint`) over the
@@ -53,8 +60,9 @@ The reference's degradation ladder keeps only its planning rungs here
 backend or kernel that fails to build raises its typed error
 (``XlaTraceError`` from a backend's setup, ``PallasLoweringError`` when the
 kernels do not build or load). The fault sites are the reference's, named
-as in :mod:`repro_torch.sim.faults`. Not in this module yet: the
-multi-device backends.
+as in :mod:`repro_torch.sim.faults`. Not in this module: the reference's
+meshed ``PjitBackend`` (GSPMD has no torch twin), and gradients on the
+shardmap backend (ROADMAP A11c).
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import optimize as copt
 from ..core.circuit import Circuit
@@ -82,9 +91,10 @@ from .apply import apply_matrix_bits, mul_bits_, permute_bits
 from .compile import (
     CompiledCircuit, Op, RemapSpec, StageProgram, bind_tensors, bind_tensors_sweep, compile_plan,
 )
-from . import faults, profiler
+from . import collective, faults, profiler
 from .faults import (
-    FaultError, IntegrityError, KernelizationError, PallasLoweringError, StagingError,
+    BackendBuildError, FaultError, IntegrityError, KernelizationError, PallasLoweringError,
+    StagingError,
 )
 from .journal import RunJournal, StragglerMonitor
 from .shard_store import ShardStore, StorageConfig
@@ -150,6 +160,155 @@ def to_frame(psi: torch.Tensor, frame) -> torch.Tensor:
     return permute_bits(psi.reshape(-1), layout, [layout[p] for p in frame.flip_bits])
 
 
+# ======================================================================
+# Explicit-collective remap choreography (shardmap backend)
+# ======================================================================
+
+
+@dataclass
+class RemapPlan:
+    """Host-precomputed choreography for one inter-stage remap."""
+
+    local_flip_axes: Tuple[int, ...]  # view axes to flip (old local pending flips)
+    pre_perm: Tuple[int, ...]  # local transpose before a2a (view axes)
+    a2a_axes: Tuple[str, ...]  # mesh axis names (desc bit order), may be empty
+    m: int
+    ppermute: Optional[Tuple[Tuple[int, int], ...]]  # full-group (src, dst) pairs
+    post_flip_axes: Tuple[int, ...]  # chunk axes to flip after a2a (flipped
+    # old nonlocal bits that moved into the local tier)
+    post_perm: Tuple[int, ...]  # local transpose after a2a (view axes)
+
+
+def _build_remap_plan(spec: RemapSpec, n: int, L: int) -> RemapPlan:
+    src = spec.src_bit_of
+    flips = set(spec.flip_bits)
+    nonlocal_bits = list(range(L, n))
+
+    s_out = sorted({src[p] for p in nonlocal_bits if src[p] < L}, reverse=True)
+    s_in = sorted({src[p] for p in range(L) if src[p] >= L}, reverse=True)
+    m = len(s_out)
+    assert len(s_in) == m, "local<->nonlocal exchange must be balanced"
+
+    # --- step A: local flips (old local bits with pending flips)
+    local_flip_axes = tuple(L - 1 - s for s in sorted(flips) if s < L)
+
+    # --- step B: pre-transpose: [S_out desc..., remaining local desc...]
+    remaining = [b for b in range(L - 1, -1, -1) if b not in s_out]
+    pre_order_bits = list(s_out) + remaining  # bit ids, new axis order
+    pre_perm = tuple(L - 1 - b for b in pre_order_bits)
+
+    # --- step C/D: after a2a, device bit s_in[t] holds old local bit s_out[t];
+    # local chunk bit (m-1-t) holds old nonlocal bit s_in[t].
+    holder = {s: s for s in nonlocal_bits if s not in s_in}
+    for t in range(m):
+        holder[("chunk", t)] = s_in[t]  # local chunk slot t holds old bit s_in[t]
+        holder[s_in[t]] = s_out[t]  # device axis s_in[t] now holds old local bit
+
+    # ppermute: new device bit p must hold old bit src[p]
+    cur_of = {}  # old bit -> device bit currently holding it
+    for s in nonlocal_bits:
+        cur_of[holder[s]] = s
+    perm_map = {}  # for each device bit position p: source device bit h
+    flip_out = set()
+    for p in nonlocal_bits:
+        h = cur_of[src[p]]
+        perm_map[p] = h
+        if src[p] in flips and src[p] >= L:
+            flip_out.add(p)
+    # flips on old nonlocal bits that move INTO the local tier: apply after
+    # the a2a, when the bit has become local chunk axis t (free local flip).
+    post_flip_axes = tuple(t for t in range(m) if s_in[t] in flips)
+
+    identity = all(perm_map[p] == p for p in nonlocal_bits) and not flip_out
+    pairs: Optional[Tuple[Tuple[int, int], ...]] = None
+    if not identity:
+        nb = n - L
+        pair_list = []
+        for d in range(1 << nb):
+            # device rank d: mesh axes desc bit order => rank bit (p-L) is bit p
+            tgt = 0
+            for p in nonlocal_bits:
+                bit = (d >> (perm_map[p] - L)) & 1
+                if p in flip_out:
+                    bit ^= 1
+                tgt |= bit << (p - L)
+            pair_list.append((d, tgt))
+        pairs = tuple(pair_list)
+
+    # --- step E: final local transpose
+    # current local axes (after a2a, viewed as (2,)*L):
+    #   axes 0..m-1   <- old nonlocal bits s_in[0..m-1] (chunk bits desc)
+    #   axes m..L-1   <- `remaining` old local bits (desc order)
+    cur_axis_of_old_bit = {}
+    for t in range(m):
+        cur_axis_of_old_bit[s_in[t]] = t
+    for j, b in enumerate(remaining):
+        cur_axis_of_old_bit[b] = m + j
+    post = []
+    for i in range(L):  # new view axis i <- new local bit L-1-i
+        p = L - 1 - i
+        post.append(cur_axis_of_old_bit[src[p]])
+    return RemapPlan(
+        local_flip_axes=local_flip_axes,
+        pre_perm=pre_perm,
+        a2a_axes=tuple(f"b{s}" for s in s_in),
+        m=m,
+        ppermute=pairs,
+        post_flip_axes=post_flip_axes,
+        post_perm=tuple(post),
+    )
+
+
+def _view_step(perm: Tuple[int, ...], flip_axes: Tuple[int, ...], L: int):
+    """A flip of ``(2,)*L`` view axes followed by a transpose, as the
+    ``(src_bit_of, flip_bits)`` of :func:`permute_bits` (view axis ``a`` is
+    index bit ``L - 1 - a``)."""
+    return ([L - 1 - perm[L - 1 - q] for q in range(L)], [L - 1 - a for a in flip_axes])
+
+
+def remap_pre(x: torch.Tensor, rp: RemapPlan, L: int) -> torch.Tensor:
+    """The local step before the exchange: ``rp``'s local flips and
+    ``pre_perm`` on the flat ``[2^L]`` shard, as a new ``[2^m, 2^(L-m)]``
+    tensor whose rows are the values of the ``m`` outgoing bits."""
+    src, flips = _view_step(rp.pre_perm, rp.local_flip_axes, L)
+    return permute_bits(x, src, flips).view(1 << rp.m, -1)
+
+
+def remap_post(x: torch.Tensor, rp: RemapPlan, L: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The local step after the exchange: ``post_flip_axes``, then
+    ``post_perm``, from the exchanged ``[2^m, 2^(L-m)]`` tensor to the flat
+    ``[2^L]`` shard of the new layout (into ``out`` when given)."""
+    src, flips = _view_step(rp.post_perm, rp.post_flip_axes, L)
+    return permute_bits(x.reshape(-1), src, flips, out=out)
+
+
+def remap_local(x: torch.Tensor, rp: RemapPlan, L: int) -> torch.Tensor:
+    """A remap with nothing to exchange (``m == 0``, no permute): the pre
+    and post steps composed into one pass over the shard."""
+    pre_src, pre_flips = _view_step(rp.pre_perm, rp.local_flip_axes, L)
+    post_src, post_flips = _view_step(rp.post_perm, rp.post_flip_axes, L)
+    flips = set(pre_flips) ^ {pre_src[b] for b in post_flips}
+    return permute_bits(x, [pre_src[post_src[q]] for q in range(L)], sorted(flips))
+
+
+def remap_exchange(x: torch.Tensor, rp: RemapPlan, rank: int, L: int, transport,
+                   spare: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exchange of rank ``rank``: the grouped all-to-all of the
+    pre-step's ``[2^m, 2^(L-m)]`` rows, then the residual permute of the
+    whole shard, through ``transport``
+    (:class:`repro_torch.sim.collective.Transport`). ``spare`` is a buffer of
+    ``x``'s size; each collective writes into whichever of the two does not
+    hold its input. Returns ``(result, the other buffer)``."""
+    peers, pair = collective.exchange_pattern(rp, rank, L)
+    cur = x
+    if peers is not None:
+        cur, spare = transport.all_to_all(cur, peers, spare.view(cur.shape)), cur
+    if pair is not None:
+        cur, spare = transport.permute(cur, pair[0], pair[1], spare.view(cur.shape)), cur
+    return cur, spare
+
+
 def _shm_operands(op: Op, select: Callable):
     """Collect the (local_bits, tensor) operand list for one shm group.
 
@@ -207,6 +366,8 @@ class Backend:
 
     name = "?"
     engine: "ExecutionEngine"
+    # False where each process holds only its shard of the state (shardmap)
+    holds_whole_state = True
 
     def setup(self, engine: "ExecutionEngine") -> None:
         self.engine = engine
@@ -254,6 +415,17 @@ class Backend:
     def execute_batch(self, states: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
         return torch.stack([self.execute(states[b], apply_final)
                             for b in range(states.shape[0])])
+
+    def finalize(self, packed: torch.Tensor) -> torch.Tensor:
+        """The final remap of a ``run_packed`` result (``[2^n]``, or a
+        ``[B, 2^n]`` batch of them), as a new tensor."""
+        rows = packed.shape[0] if packed.dim() == 2 else 1
+        out = apply_remap(packed.reshape(-1), self.engine.cc.final_remap, rows)
+        return out.view(packed.shape)
+
+    def norms(self, rows: torch.Tensor) -> torch.Tensor:
+        """The 2-norm of each of the ``[P, N]`` output rows (the guard's)."""
+        return ExecutionEngine._sq_norms(rows).sqrt()
 
 
 @dataclass
@@ -1009,10 +1181,158 @@ class DenseBackend(Backend):
         return psi if apply_final else to_frame(psi, eng.measurement_frame)
 
 
+class ShardMapBackend(CudaBackend):
+    """The explicit-collective path: the twin of the reference's
+    ``ShardMapBackend``, one ``torch.distributed`` rank per device of the
+    bit-mesh. Rank ``d`` holds shard ``d``, the ``2^L`` amplitudes whose
+    device bits (physical bits ``p >= L``, bit ``p - L`` of ``d``) spell
+    ``d``, on the engine's device, and runs the stage loop on it: ``fused``
+    ops and ``shm`` groups through the hand kernels (:meth:`CudaBackend.apply_ops`
+    on one shard, a dep-batched op reading the variant its rank's bits
+    select), ``diag``/``scalar`` ops as tensor code. Each inter-stage remap
+    is the reference's choreography (:func:`remap_pre`, :func:`remap_exchange`,
+    :func:`remap_post`): a local transpose, one grouped all-to-all, one
+    permute, a local transpose; the rank holds two shard buffers.
+
+    ``group``: the process group of the bit-mesh (the default group when
+    None); its size must be ``2^(R+G)``. ``run``, ``run_packed`` and
+    ``finalize`` return the rank's shard. Every rank of the group makes the
+    same calls in the same order. Batches run one element at a time, as in
+    the reference; there is no fused sweep or gradient. ``trace`` holds the
+    last run's remaps: slot, ``m``, whether a permute ran, the bytes this
+    rank sent, and seconds."""
+
+    name = "shardmap"
+    holds_whole_state = False
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def setup(self, engine: "ExecutionEngine") -> None:
+        super().setup(engine)
+        n, L, nb = engine.n, engine.L, engine.R + engine.G
+        if not (dist.is_available() and dist.is_initialized()):
+            raise BackendBuildError("the shardmap backend needs an initialised torch.distributed "
+                                    "process group, one rank per device of the bit-mesh")
+        world = dist.get_world_size(self.group)
+        if world != 1 << nb:
+            raise BackendBuildError(f"the shardmap bit-mesh needs {1 << nb} ranks (2^(R+G)), "
+                                    f"the process group has {world}")
+        try:
+            self.transport = collective.Transport(self.group, engine.device)
+        except ValueError as e:
+            raise BackendBuildError(str(e)) from e
+        self.rank = self.transport.rank
+        cc = engine.cc
+        self._plans: Dict = {}
+        if cc.initial_remap is not None:
+            self._plans["init"] = _build_remap_plan(cc.initial_remap, n, L)
+        for i, prog in enumerate(cc.programs):
+            if prog.remap_after is not None:
+                self._plans[i] = _build_remap_plan(prog.remap_after, n, L)
+        if cc.final_remap is not None:
+            self._plans["final"] = _build_remap_plan(cc.final_remap, n, L)
+        # the variant each op reads on this rank's shard (structural: a
+        # rebind keeps every table's variant count)
+        self._shard_vidx = {}
+        for uid, T in engine.consts.items():
+            dep = self._dep.get(uid)
+            v = int(dep[self.rank]) if dep is not None and T.shape[0] > 1 else 0
+            self._shard_vidx[uid] = kops.to_device(np.array([v], dtype=np.int32), engine.device)
+        self.trace: List[Dict] = []
+
+    def supports_fused_sweep(self) -> bool:
+        return False
+
+    def supports_fused_grad(self) -> bool:
+        return False
+
+    def _shard(self, psi: torch.Tensor) -> torch.Tensor:
+        """This rank's ``2^L`` slice of the last axis of ``psi``, a new
+        contiguous tensor on the engine's device."""
+        eng = self.engine
+        lo = self.rank << eng.L
+        return psi[..., lo:lo + (1 << eng.L)].to(
+            device=eng.device, dtype=eng.dtype, copy=True).contiguous()
+
+    def prepare(self, psi0, batch: bool = False) -> torch.Tensor:
+        """This rank's shard of the logical initial state(s): ``|0…0⟩`` puts
+        1 on rank 0 only; a ``[2^n]`` ``psi0`` (or a ``[B, 2^n]`` batch)
+        gives each rank its amplitudes ``[d·2^L, (d+1)·2^L)``."""
+        eng = self.engine
+        if batch:
+            x = self._shard(torch.as_tensor(psi0).reshape(-1, 1 << eng.n))
+            if x.shape[0] == 0:
+                raise ValueError("empty batch")
+            return x
+        if psi0 is None:
+            x = torch.zeros(1 << eng.L, dtype=eng.dtype, device=eng.device)
+            if self.rank == 0:
+                x[0] = 1.0
+            return x
+        psi = torch.as_tensor(psi0).reshape(-1)
+        if psi.numel() != 1 << eng.n:
+            raise ValueError(f"psi0 has {psi.numel()} amplitudes, expected 2^{eng.n}")
+        return self._shard(psi)
+
+    def remap(self, x: torch.Tensor, slot, reuse: bool = False) -> torch.Tensor:
+        """Remap ``slot``'s choreography on this rank's shard ``x``; with
+        ``reuse`` the exchange may overwrite ``x``."""
+        rp, L, dev = self._plans[slot], self.engine.L, self.engine.device
+        _sync(dev)
+        t0 = time.perf_counter()
+        sent = collective.COLLECTIVE_CALLS["bytes_sent"]
+        if rp.m == 0 and rp.ppermute is None:
+            out = remap_local(x, rp, L)
+        else:
+            pre = remap_pre(x, rp, L)
+            cur, spare = remap_exchange(pre, rp, self.rank, L, self.transport,
+                                        x if reuse else torch.empty_like(x))
+            out = remap_post(cur, rp, L, out=spare.view(-1))
+        _sync(dev)
+        self.trace.append({
+            "slot": slot, "m": rp.m, "permute": rp.ppermute is not None,
+            "bytes_sent": collective.COLLECTIVE_CALLS["bytes_sent"] - sent,
+            "seconds": time.perf_counter() - t0})
+        return out
+
+    def pass_of(self, rows: int = 1,
+                sweep_consts: Optional[Dict[int, torch.Tensor]] = None) -> _Pass:
+        """What a run reads: this rank's one shard, each op at the variant
+        the rank's device bits select."""
+        if rows != 1 or sweep_consts is not None:
+            raise ValueError("the shardmap backend runs one state at a time")
+        return _Pass(1, self.engine.consts, False, self._members, self._shard_vidx)
+
+    def execute(self, state: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
+        ps = self.pass_of()
+        self.trace = []
+        held = [state]  # no frame keeps the initial shard: a remap reuses it
+        del state
+        return self.engine.stage_loop(held.pop(), lambda v, prog: self.apply_ops(v, prog, ps),
+                                      lambda v, slot, spec: self.remap(v, slot, reuse=True),
+                                      apply_final)
+
+    def execute_batch(self, states: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
+        """One run per element: the collectives preclude one pass over all."""
+        return Backend.execute_batch(self, states, apply_final)
+
+    def finalize(self, packed: torch.Tensor) -> torch.Tensor:
+        rows = packed.reshape(-1, 1 << self.engine.L)
+        return torch.stack([self.remap(r, "final") for r in rows]).view(packed.shape)
+
+    def norms(self, rows: torch.Tensor) -> torch.Tensor:
+        """Each row's norm over the whole state: the rank's float64 sums of
+        squares, summed over the ranks, so every rank takes the same
+        decision (a NaN on one rank is a NaN on all)."""
+        return self.transport.all_reduce_sum(ExecutionEngine._sq_norms(rows)).sqrt()
+
+
 BACKENDS: Dict[str, Callable[[], Backend]] = {
     "cuda": CudaBackend,
     "offload": OffloadBackend,
     "dense": DenseBackend,
+    "shardmap": ShardMapBackend,
 }
 
 
@@ -1027,7 +1347,9 @@ class ExecutionEngine:
     ``device="cpu"`` to run on the CPU. ``backend``: ``"cuda"`` (the
     planned path with the state on the device), ``"offload"`` (the planned
     path with the state in host memory, streamed through the device stage
-    by stage) or ``"dense"`` (the per-gate oracle)."""
+    by stage), ``"shardmap"`` (one ``torch.distributed`` rank per device
+    of the bit-mesh, each holding its ``2^L`` shard: :class:`ShardMapBackend`)
+    or ``"dense"`` (the per-gate oracle)."""
 
     def __init__(
         self,
@@ -1228,16 +1550,16 @@ class ExecutionEngine:
                     self.bind_circuit(prev)
 
     @staticmethod
-    def _norms(rows: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
-        """The 2-norm of every row of ``rows`` (``[P, N]``), reduced where the
-        rows live, ``chunk`` amplitudes of a row at a time, the squares
-        summed in float64. A non-finite amplitude makes its row's norm
-        non-finite."""
+    def _sq_norms(rows: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+        """The squared 2-norm of every row of ``rows`` (``[P, N]``), reduced
+        where the rows live, ``chunk`` amplitudes of a row at a time, the
+        squares summed in float64. A non-finite amplitude makes its row's
+        norm non-finite."""
         acc = torch.zeros(rows.shape[0], dtype=torch.float64, device=rows.device)
         for i in range(0, rows.shape[1], chunk):
             part = torch.view_as_real(rows[:, i:i + chunk])
             acc += part.square().sum(dim=(1, 2), dtype=torch.float64)
-        return acc.sqrt()
+        return acc
 
     @staticmethod
     def _norm_ok(norm: float, expected: float, rtol: float = 1e-2) -> bool:
@@ -1245,10 +1567,15 @@ class ExecutionEngine:
 
     def _norm_of(self, arr) -> float:
         arr = torch.as_tensor(arr)
-        return float(self._norms(arr.reshape(1, -1))[0])
+        return float(self._sq_norms(arr.reshape(1, -1)).sqrt()[0])
 
     def _expected_norm(self, psi0) -> float:
         return 1.0 if psi0 is None else self._norm_of(psi0)
+
+    def _out_norm(self, out: torch.Tensor) -> float:
+        """The norm of a run's output as the backend reduces it (a shard's
+        across every rank on the shardmap backend)."""
+        return float(self.backend.norms(out.reshape(1, -1))[0])
 
     def _guard(self, out: torch.Tensor, psi0, apply_final: bool = True,
                bound: Optional[Circuit] = None) -> torch.Tensor:
@@ -1257,12 +1584,12 @@ class ExecutionEngine:
         re-run the plan ONCE (:meth:`_rerun`); if that is poisoned too,
         raise a typed :class:`IntegrityError`."""
         expected = self._expected_norm(psi0)
-        norm = self._norm_of(out)
+        norm = self._out_norm(out)
         if self._norm_ok(norm, expected):
             return out
         self.provenance["integrity_retries"] = self.provenance.get("integrity_retries", 0) + 1
         retry = self._rerun(self.bound_circuit if bound is None else bound, psi0, apply_final)
-        if not self._norm_ok(self._norm_of(retry), expected):
+        if not self._norm_ok(self._out_norm(retry), expected):
             raise IntegrityError(
                 f"state norm {norm:.6g} != {expected:.6g} and the retry is also poisoned — "
                 "numerically corrupt circuit/binding")
@@ -1379,7 +1706,7 @@ class ExecutionEngine:
         output; a row whose retry is poisoned too raises."""
         flat = out.reshape(out.shape[0], -1)
         expected = self._expected_norm(psi0)
-        norms = self._norms(flat).tolist()
+        norms = self.backend.norms(flat).tolist()
         bad = [i for i in range(len(points)) if not self._norm_ok(norms[i], expected)]
         if not bad:
             return out
@@ -1387,7 +1714,7 @@ class ExecutionEngine:
             self.provenance.get("integrity_retries", 0) + len(bad))
         for i in bad:
             retry = self._rerun(self.circuit.bind(points[i]), psi0, apply_final)
-            if not self._norm_ok(self._norm_of(retry), expected):
+            if not self._norm_ok(self._out_norm(retry), expected):
                 raise IntegrityError(f"sweep row {i}: norm check failed and the retry is also "
                                      "poisoned")
             flat[i].copy_(retry)
@@ -1412,9 +1739,7 @@ class ExecutionEngine:
         ``[B, 2^n]`` batch of them (the final remap)."""
         if self.cc.final_remap is None:
             return packed
-        rows = packed.shape[0] if packed.dim() == 2 else 1
-        out = apply_remap(packed.reshape(-1), self.cc.final_remap, rows)
-        return out.view(packed.shape)
+        return self.backend.finalize(packed)
 
     @property
     def measurement_frame(self):
@@ -1441,6 +1766,12 @@ class ExecutionEngine:
                 self.adjoint_builds += 1
             return prog
 
+    def _require_whole_states(self, what: str) -> None:
+        if not self.backend.holds_whole_state:
+            raise NotImplementedError(
+                f"{what} is not ported to the {self.backend.name} backend yet (ROADMAP A11c): "
+                "the adjoint sweep needs whole states, and each rank holds one shard")
+
     def _on_device(self, states: torch.Tensor) -> torch.Tensor:
         """A run's output as the reverse sweep takes it: ``[rows, 2^n]`` on
         the engine's device. An offload run's host state is uploaded (the
@@ -1456,6 +1787,7 @@ class ExecutionEngine:
         parameters. ``params`` (optional) rebinds first; gradients are
         ordered by :attr:`param_names` (float64). No solver call and no new
         adjoint program after the first call per observable."""
+        self._require_whole_states("value_and_grad")
         with self.lock:
             if params is not None:
                 self.bind(params)
@@ -1474,6 +1806,7 @@ class ExecutionEngine:
         the reverse sweeps run on all P states at once (every gate
         application one launch for all P), otherwise point by point. Either
         way through one cached adjoint program."""
+        self._require_whole_states("grad_sweep")
         points = self._sweep_points(params_batch)
         if not points:
             raise ValueError("empty params_batch")
@@ -1520,12 +1853,17 @@ def _resolve_cost_model(cm: Optional[CostModel], device: DeviceLike = None) -> C
 
 def _placement_fingerprint(device: DeviceLike) -> Tuple:
     """Where an engine's tensors live: its device, with the index made
-    explicit. Engines on two devices never share a cache entry."""
+    explicit, and in a ``torch.distributed`` job the default group's size,
+    this process's rank and the group's backend. Engines on two devices, or
+    two ranks, never share a cache entry."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index
     if index is None and dev.type == "cuda":
         index = torch.cuda.current_device() if torch.cuda.is_available() else 0
-    return (dev.type, index)
+    mesh = ()
+    if dist.is_available() and dist.is_initialized():
+        mesh = (dist.get_world_size(), dist.get_rank(), str(dist.get_backend()))
+    return (dev.type, index) + mesh
 
 
 @dataclass(frozen=True)

@@ -17,9 +17,11 @@ physical layout (``run_packed`` skips the final remap), and a
 :class:`PauliSum`, :class:`Frame`, the :class:`Measurer` base class,
 :class:`DenseMeasurer` (the host oracle path) and the complex128 oracles
 :func:`expectation_np` / :func:`marginal_np` are copied from the reference;
-:class:`TorchMeasurer` replaces its ``ShardedMeasurer``, and
-:class:`StreamingMeasurer` measures the offload backend's host state one
-shard at a time, as the reference's does. Batches and sweeps
+:class:`TorchMeasurer` measures a state held whole on one device (the
+single-device case of the reference's ``ShardedMeasurer``),
+:class:`ShardedMeasurer` the shardmap backend's state, one shard per
+``torch.distributed`` rank, and :class:`StreamingMeasurer` the offload
+backend's host state one shard at a time, as the reference's does. Batches and sweeps
 (:func:`measure_batch`, :func:`measure_sweep`) measure element ``b`` / point
 ``p`` with seed ``seed + b`` / ``seed + p``, as the reference does.
 """
@@ -36,7 +38,7 @@ import torch
 from ..core import gates as G
 from ..core.circuit import Circuit
 from ..kernels.ops import to_device
-from .apply import apply_matrix_bits, n_bits_of, sum_bits
+from .apply import apply_matrix_bits, n_bits_of, permute_bits, sum_bits
 from .result import SimulationResult
 
 # basis-change matrices: V with V† Z V = P  =>  <psi|P|psi> = sum |V psi|^2 * sign
@@ -638,6 +640,123 @@ class StreamingMeasurer(Measurer):
         return total
 
 
+class ShardedMeasurer(Measurer):
+    """Measurer over the shardmap backend's state: the twin of the
+    reference's ``ShardedMeasurer`` (which measures the same state held
+    across the bit-mesh). Each rank holds its ``2^L`` shard ``d`` (physical
+    bits ``p >= L`` spell ``d``) and calls every method in the same order
+    as the others; every rank returns the same result. What reaches one
+    place is what the reference's docstring says: the ``2^(R+G)`` float64
+    masses (gathered on every rank), one float64 ``2^L`` row per distinct
+    sampled shard (sent by its owner to rank 0, which draws the shots and
+    broadcasts them), and ``2^|subset|`` marginals.
+
+    A Pauli term is ``<ψ|P|ψ> = i^{#Y} Σ_j (-1)^{|j ∧ (y|z)|}
+    conj(ψ[j ⊕ (x|y)]) ψ[j]`` summed over each rank's ``j``: a term with
+    X/Y on device bits of mask ``M`` has rank ``d`` receive the shard of
+    rank ``d ⊕ M`` (one permute of one shard per rank, no gather); Z-only
+    terms and local X/Y terms move no shard. Shots for a seed are those of
+    the reference: the masses are summed as :class:`TorchMeasurer` sums
+    them and the local CDF is built from :func:`_probs64`."""
+
+    def __init__(self, shard: torch.Tensor, frame: Frame, transport):
+        super().__init__(frame)
+        self.shard = shard.reshape(-1)
+        if self.shard.numel() != 1 << frame.L or transport.world != frame.n_shards:
+            raise ValueError(f"a shard of {self.shard.numel()} amplitudes on {transport.world} "
+                             f"ranks is not a 2^{frame.n} state in 2^{frame.L}-shards")
+        self.t = transport
+        self.rank = transport.rank
+
+    def _gather_sum(self, part: np.ndarray) -> np.ndarray:
+        """Every rank's ``part`` summed in rank order (the same bits on every
+        rank)."""
+        parts = self.t.all_gather(part)
+        total = parts[0].copy()
+        for p in parts[1:]:
+            total += p
+        return total
+
+    def _shard_masses(self) -> np.ndarray:
+        local = _abs2(self.shard).sum(dtype=torch.float64).reshape(1).cpu().numpy()
+        return np.concatenate(self.t.all_gather(local))
+
+    def _sampled_shards(self, shots: int, seed: int) -> np.ndarray:
+        """The shard of each shot, as :meth:`Measurer.sample` draws it."""
+        rng = np.random.default_rng(seed)
+        u = rng.random((shots, 2))
+        masses = self.shard_masses()
+        cdf = np.cumsum(masses / masses.sum())
+        cdf[-1] = 1.0
+        return np.clip(np.searchsorted(cdf, u[:, 0], side="right"), 0, masses.size - 1)
+
+    def sample(self, shots: int, seed: int = 0) -> np.ndarray:
+        if self.rank == 0:
+            logical = super().sample(shots, seed)  # rows arrive in _local_probs
+        else:
+            if self.rank in set(self._sampled_shards(shots, seed).tolist()):
+                self.t.send(_probs64(self.shard.cpu()), 0)
+            logical = np.empty(shots, dtype=np.int64)
+        return self.t.broadcast(logical, 0)
+
+    def _local_probs(self, shard_id: int) -> np.ndarray:
+        # rank 0 only: its own row, or the owner's
+        if shard_id == 0:
+            return _probs64(self.shard.cpu())
+        return self.t.recv(np.empty(1 << self.frame.L, dtype=np.float64), shard_id)
+
+    def _marginal_phys(self, keep_bits: Tuple[int, ...]) -> np.ndarray:
+        L = self.frame.L
+        loc = tuple(b for b in keep_bits if b < L)
+        pos = {b: j for j, b in enumerate(keep_bits)}
+        base = sum(1 << pos[b] for b in keep_bits if b >= L and (self.rank >> (b - L)) & 1)
+        spread = np.zeros(1 << len(loc), dtype=np.int64)
+        for ll in range(1 << len(loc)):
+            for jl, b in enumerate(loc):
+                if (ll >> jl) & 1:
+                    spread[ll] |= 1 << pos[b]
+        out = np.zeros(1 << len(keep_bits), dtype=np.float64)
+        out[base + spread] = sum_bits(_abs2(self.shard), loc).cpu().numpy()
+        return self._gather_sum(out)
+
+    def _expect_term_phys(self, sign_bits, xy) -> float:
+        L = self.frame.L
+        y_bits = set()
+        for b, mat in xy:
+            if np.array_equal(mat, _BASIS_CHANGE["Y"]):
+                y_bits.add(b)
+            elif not np.array_equal(mat, _BASIS_CHANGE["X"]):
+                raise ValueError(f"bit {b}: not the X or Y basis change")
+        flip = [b for b, _ in xy]
+        signs = [s for s in sign_bits if s not in flip or s in y_bits]  # the Y and Z bits
+        dev_mask = sum(1 << (b - L) for b in flip if b >= L)
+        own = self.shard
+        partner = own
+        if dev_mask:  # the shard of rank d ^ M, one permute
+            other = self.rank ^ dev_mask
+            partner = self.t.permute(own, other, other, torch.empty_like(own))
+        loc_flip = [b for b in flip if b < L]
+        if loc_flip:
+            partner = permute_bits(partner, list(range(L)), loc_flip)
+        a, b = torch.view_as_real(partner).unbind(-1), torch.view_as_real(own).unbind(-1)
+        # Re or Im of conj(partner[j ^ f]) * own[j], as i^{#Y} picks
+        if len(y_bits) % 2 == 0:
+            vals = torch.mul(a[0], b[0]).addcmul_(a[1], b[1])
+        else:
+            vals = torch.mul(a[0], b[1]).addcmul_(a[1], b[0], value=-1.0)
+        del partner, a
+        sign_loc = tuple(s for s in signs if s < L)
+        marg = sum_bits(vals, sign_loc).cpu().numpy()
+        parity = np.zeros(marg.size, dtype=np.int64)
+        for j in range(len(sign_loc)):
+            parity ^= (np.arange(marg.size) >> j) & 1
+        local = float(np.sum(np.where(parity, -marg, marg)))
+        dev_parity = sum((self.rank >> (s - L)) & 1 for s in signs if s >= L)
+        # i^{#Y} times the real or imaginary part taken above
+        local *= (-1.0) ** dev_parity * (1.0, -1.0, -1.0, 1.0)[len(y_bits) % 4]
+        return float(self._gather_sum(np.array([local]))[0])
+
+
 class DenseMeasurer(Measurer):
     """Host numpy measurer over a flat state (the oracle path; the ``ref``
     backend of :func:`simulate_and_measure`). Shard masses are summed as
@@ -699,9 +818,12 @@ def measurer_for(state, frame: Frame, engine=None) -> Measurer:
     backend is a host state in shards, streamed through the engine's device
     (:class:`StreamingMeasurer`); any other tensor is measured where it
     lies (:class:`TorchMeasurer`), a numpy array on the host
-    (:class:`DenseMeasurer`)."""
+    (:class:`DenseMeasurer`). On the shardmap backend ``state`` is this
+    rank's shard, measured with the other ranks (:class:`ShardedMeasurer`)."""
     if engine is not None and engine.backend.name == "offload":
         return StreamingMeasurer(state, frame, engine.device)
+    if engine is not None and engine.backend.name == "shardmap":
+        return ShardedMeasurer(state, frame, engine.backend.transport)
     if isinstance(state, torch.Tensor):
         return TorchMeasurer(state, frame)
     return DenseMeasurer(state, frame)
@@ -741,7 +863,7 @@ def measure_to_result(
     return result
 
 
-_BACKENDS = ("ref", "cuda", "offload")
+_BACKENDS = ("ref", "cuda", "offload", "shardmap")
 
 
 def simulate_and_measure(
@@ -765,9 +887,11 @@ def simulate_and_measure(
     """Simulate ``circuit`` and consume the state through measurement only.
 
     Backends: ``'ref'`` (the dense per-gate oracle on ``device``, measured
-    on the host), ``'cuda'`` (the planned engine on ``device``) and
+    on the host), ``'cuda'`` (the planned engine on ``device``),
     ``'offload'`` (the planned engine with its state in host memory,
-    streamed through ``device``). The planned backends measure in the final
+    streamed through ``device``) and ``'shardmap'`` (this rank's shard of
+    the planned engine over the default process group; every rank calls it
+    and gets the same result). The planned backends measure in the final
     stage's layout: the final remap is skipped. ``params`` binds a
     parameterized circuit first. ``device`` defaults to CUDA."""
     import time

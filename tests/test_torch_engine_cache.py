@@ -292,7 +292,14 @@ def test_simulate_and_measure_matches_reference(backend):
     for key in want.expectations:
         assert abs(got.expectations[key] - want.expectations[key]) < 1e-5
     with pytest.raises(ValueError, match="unknown backend"):
-        TM.simulate_and_measure(_port(sym), backend="shardmap", device="cpu", params=params)
+        TM.simulate_and_measure(_port(sym), backend="pjit", device="cpu", params=params)
+    # the shardmap backend is the port's now; outside a process group it
+    # refuses to build, typed
+    from repro_torch.sim.faults import BackendBuildError
+
+    with pytest.raises(BackendBuildError, match="process group"):
+        TM.simulate_and_measure(_port(sym), backend="shardmap", plan=_plan(plan),
+                                device="cpu", params=params)
 
 
 def test_dense_measurer_shots_equal_torch_measurer():

@@ -599,3 +599,41 @@ def test_served_batch_is_one_launch_per_op_on_card(cuda):
                                  observables=[obs])
         for k, v in want.expectations.items():
             assert abs(m.result.expectations[k] - v) < 1e-5
+
+
+@pytest.mark.gpu
+def test_shardmap_world_size_one_over_nccl_on_card(cuda, tmp_path):
+    """The shardmap backend under an NCCL group of one rank (the transport a
+    multi-card node uses; R=G=0, so no collective runs) on the card, with
+    the hand kernels: bit for bit ``CudaBackend``'s state on the same plan,
+    one launch per compiled op, nothing sent."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core.generators import random_circuit
+    from repro_torch.core.partition import partition
+    from repro_torch.sim import collective
+    from repro_torch.sim.engine import ExecutionEngine
+    from repro_torch.sim.shardmap_executor import ShardMapExecutor
+
+    circ = random_circuit(18, 160, seed=2)
+    plan = partition(circ, 18, 0, 0)
+    want = ExecutionEngine(circ, plan, device=cuda).run()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=120))
+    try:
+        ex = ShardMapExecutor(circ, plan, device=cuda)
+        assert ex.backend.name == "shardmap" and ex.backend.transport.backend == "nccl"
+        ops.reset_kernel_counters()
+        collective.reset_collective_counters()
+        got = ex.run()
+        torch.cuda.synchronize()
+        counts = ex.op_counts()
+        assert ops.kernel_call_counts() == {"fused": counts.get("fused", 0),
+                                            "shm": counts.get("shm", 0)}
+        assert sum(ops.kernel_call_counts().values()) > 0
+        assert collective.collective_counts()["bytes_sent"] == 0
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

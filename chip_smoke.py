@@ -30,6 +30,14 @@ when qubit 29 is local in the plan's last layout) through
 first and last rank hold every kernel op at their shard and variants
 against its plain version. Then world size 1 over NCCL: ``qft(28)`` at
 L=28 through ``ShardMapExecutor`` bit for bit against ``CudaBackend``.
+Then the multi-process entry point, ``repro_torch.launch.simulate
+--executor shardmap`` under ``torchrun`` (a subprocess with a timeout,
+after this process frees its device memory): the main path's ``ising(30)``
+plan on 4 gloo ranks of the one card, its printed program held to the
+in-card plan's, each rank's launches to it, each remap's printed bytes to
+Eq. 2, and the marginal ``(0, 1, 2)`` and ``<Z0 Z1 + 0.5*X29 + 0.25*X0>``
+to ``TorchMeasurer`` on the in-card state; then ``isingparam(28)`` at world
+size 1 over NCCL, its marginal bit for bit a ``CudaBackend`` engine's.
 
 Then adjoint gradients: the ``--vqe`` loop on ``isingparam(30)`` L=28 R=2
 (three Adam steps; every gate, derivative and Pauli application of each
@@ -44,8 +52,8 @@ against the complex128 oracle on the host; ``grad_sweep`` of 4 bindings of
 ``value_and_grad`` of ``isingparam(28)`` L=24 R=4 through the offload
 backend against the in-card one.
 
-Then host offload: the pinned link rates; ``ising(32)`` L=28 R=4 through
-``--executor offload`` — a 32 GiB pinned host state in 16 shards of 2 GiB,
+Then host offload: the pinned link rates; ``ising(31)`` L=27 R=4 through
+``--executor offload`` — a 16 GiB pinned host state in 16 shards of 1 GiB,
 every stage streamed through the card shard by shard, one launch per op
 and shard — with per-stage GB/s against the link bounds, the host remaps,
 the measurement split, the peak device memory (at most four shards), the
@@ -57,15 +65,15 @@ of 4 ``isingparam(28)`` bindings against the in-card ones, their kernel ops
 on shard 0 against the plain versions.
 
 Then the offload backend's shard store and stage checkpoints: the spill
-directory's disk and the host's memory; ``ising(32)`` L=28 R=4 through
-``--executor offload --storage bf16`` with a DRAM budget of half the 16 GiB
+directory's disk and the host's memory; ``ising(30)`` L=26 R=4 through
+``--executor offload --storage bf16`` with a DRAM budget of half the 4 GiB
 at rest (the rest spilled to disk under ``build/``), held shard by shard
 within its own error bound against the in-card run of the same plan, with
 its stage, out-of-core remap and spill figures; on that state, Pauli terms
 with 2 and 3 non-local X/Y qubits through the streaming measurer (its peak
 device memory, and the values against the same terms on the in-card state);
-``ising(30)`` L=26 R=4 through the int8 tier, spilled, under the same checks;
-and ``ising(30)`` L=26 R=4 with ``--checkpoint-dir``, killed by an injected
+``ising(29)`` L=25 R=4 through the int8 tier, spilled, under the same checks;
+and ``ising(28)`` L=24 R=4 with ``--checkpoint-dir``, killed by an injected
 ``shard_transfer_error`` inside stage 1 and resumed in a fresh engine to the
 uninterrupted run's state bit for bit, that run held against the in-card
 run of its plan and its kernel ops on shards 0 and 15 against their plain
@@ -155,22 +163,29 @@ ENGINE_PATH = ["--circuit", "isingparam", "--n", "30", "--L", "28", "--R", "2", 
 REBIND = {"J": 0.9, "h": 0.2}
 SWEEP = {"n": 28, "L": 26, "R": 2, "P": 16}  # [16, 2^28] complex64: 2^32 amplitudes, 32 GiB
 BATCH = {"n": 28, "L": 26, "R": 2, "B": 3}  # qft(28), basis states 0, 1, 2
-# 16 shards of 2 GiB: a 32 GiB pinned host state, the largest the card's
-# host (about 100 GB) holds beside the second state a host remap writes
-OFFLOAD_PATH = ["--circuit", "ising", "--n", "32", "--L", "28", "--R", "4", "--executor",
-                "offload", "--shots", "64", "--marginal", "0,1,2",
+# 16 shards of 1 GiB: a 16 GiB pinned host state. ising(32) (32 GiB, the
+# largest the card's host of about 100 GB holds beside the second state a
+# host remap writes) ran here until the torchrun phases needed its time;
+# the shots sample a host float64 CDF of each distinct shard they hit, so 4
+# shots (not 64, which hit 14 of the 16 shards) keep that cost to a few
+OFFLOAD_SHOTS = 4
+OFFLOAD_PATH = ["--circuit", "ising", "--n", "31", "--L", "27", "--R", "4", "--executor",
+                "offload", "--shots", str(OFFLOAD_SHOTS), "--marginal", "0,1,2",
                 "--observable", "Z0 Z1 + 0.5*X2"]
 PERGATE = {"n": 26, "L": 22, "R": 4}  # qft(26): staged offload against the per-gate baseline
 OFFLOAD_ROWS = {"n": 28, "L": 26, "R": 2, "B": 2, "P": 4}
 FIDELITY_MIN = 1 - 1e-5
-# the shard store: ising(32) at rest in bf16 (16 GiB) with half of it in a
-# DRAM budget, the rest on disk; ising(30) in int8 (2 GiB at rest) with half
-# spilled. int8 loses ~0.75% of a shard's norm per encode and a run encodes
-# every shard three times, which the default tolerance (0.05) does not
-# allow: the int8 run takes 0.25.
-STORE = {"tier": "bf16", "n": 32, "L": 28, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
-STORE_INT8 = {"tier": "int8", "n": 30, "L": 26, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
-CHECKPOINT = {"n": 30, "L": 26, "R": 4}
+# the shard store: ising(30) at rest in bf16 (4 GiB) with half of it in a
+# DRAM budget, the rest on disk; ising(29) in int8 (0.5 GiB at rest) with
+# half spilled. int8 loses ~0.75% of a shard's norm per encode and a run
+# encodes every shard three times, which the default tolerance (0.05) does
+# not allow: the int8 run takes 0.25. The store and checkpoint runs are cut
+# by two qubits each (from ising(32) L=28, ising(30) L=26 and ising(30)
+# L=26; 16 shards each, as before) to pay for the torchrun phases within
+# the smoke's time
+STORE = {"tier": "bf16", "n": 30, "L": 26, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
+STORE_INT8 = {"tier": "int8", "n": 29, "L": 25, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
+CHECKPOINT = {"n": 28, "L": 24, "R": 4}
 # adjoint gradients: the reference's tolerances (tests/test_grad.py) for a
 # float32 sweep against another sweep or an oracle, and central differences
 # of the on-card energy (their truncation error at eps 1e-2 is 1.8e-4 of
@@ -227,6 +242,23 @@ SHARDMAP = {"ranks": 4, "stride": 1 << 8, "shots": 1024, "seed": 0, "marginal": 
             "observable": "Z0 Z1 + 0.5*X29", "atol": 1e-6, "timeout": 600}
 SHARDMAP_NCCL = {"n": 28, "L": 28}
 RENDEZVOUS_DIR = os.path.join(HERE, "build", "rendezvous")
+# the multi-process entry point: the CLI under torchrun. The main path's
+# ising(30) plan on 4 gloo ranks on the one card (no shots: the shardmap
+# phase holds the sharded shots), held to the in-card plan and TorchMeasurer
+# on the in-card state; then isingparam(28) at world size 1 over NCCL, held
+# bit for bit to a CudaBackend engine of the same plan. Both run before the
+# calibration phase, so every rank plans on the analytic constants.
+SHARDMAP_CLI = {"ranks": 4, "marginal": (0, 1, 2), "observable": "Z0 Z1 + 0.5*X29 + 0.25*X0",
+                "atol": 1e-6, "timeout": 600}
+SHARDMAP_CLI_PATH = ["--circuit", "ising", "--qubits", "30", "--L", "28", "--R", "2", "--executor",
+                     "shardmap", "--dist-backend", "gloo", "--marginal", "0,1,2",
+                     "--observable", SHARDMAP_CLI["observable"]]
+SHARDMAP_CLI_NCCL = {"n": 28, "bind": {"J": 0.35, "h": 0.8}, "marginal": (0, 1, 2),
+                     "timeout": 300}
+SHARDMAP_CLI_NCCL_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "28", "--engine",
+                          "--bind", "J=0.35", "--bind", "h=0.8", "--marginal", "0,1,2",
+                          "--executor", "shardmap"]
+RESULTS_DIR = os.path.join(HERE, "build", "results")
 
 
 def require(ok: bool, msg: str) -> None:
@@ -769,6 +801,168 @@ def shardmap_nccl_phase(ops, card: str, n: int, L: int, backend: str = "nccl",
     return {"launches": launches}
 
 
+def torchrun(nproc: int, argv: list, timeout: float, device: str = "cuda") -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc-per-node nproc
+    -m repro_torch.launch.simulate argv --result-json ...`` in its own
+    session (on a timeout the whole group, torchrun and its workers, is
+    killed): ``(stdout, the JSON rank 0 wrote, seconds)``; raises unless
+    every rank exited 0. Only rank 0 prints, so stdout is its lines. The
+    argv spells ``--n`` as ``--qubits``: the card's Python takes ``--n``
+    after the script name for an abbreviation of torchrun's options."""
+    import signal
+
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    out_json = os.path.join(RESULTS_DIR, f"cli-{nproc}-{os.getpid()}-{time.time_ns()}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(nproc), "-m", "repro_torch.launch.simulate", *argv, "--result-json", out_json]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    log("  " + " ".join(cmd[1:]))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise RuntimeError(f"torchrun overran {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
+    seconds = time.time() - t0
+    require(proc.returncode == 0,
+            f"torchrun exited {proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}")
+    with open(out_json) as f:
+        doc = json.load(f)
+    os.remove(out_json)
+    return out, doc, seconds
+
+
+def cli_launches(doc: dict, what: str) -> dict:
+    """Each rank's launches (the CLI's ``--result-json``) equal the compiled
+    program's ops, both kernels ran on every rank and the fused ones match
+    the plan's widths; summed over the ranks."""
+    counts = doc["op_counts"]
+    for d, c in enumerate(doc["launches"]):
+        require((c["fused"], c["shm"]) == (counts.get("fused", 0), counts.get("shm", 0))
+                and c["fused"] > 0 and c["shm"] > 0,
+                f"{what}: rank {d} launched {c}, the compiled program is {counts}")
+    by_k: dict = {}
+    for c in doc["launches"]:
+        for k, v in c["by_k"].items():
+            by_k[int(k)] = by_k.get(int(k), 0) + v
+    return {"fused": sum(c["fused"] for c in doc["launches"]),
+            "shm": sum(c["shm"] for c in doc["launches"]), "by_k": by_k}
+
+
+def shardmap_cli_phase(card: str, circuit, plan, device: str = "cuda",
+                       observable: str = SHARDMAP_CLI["observable"]) -> dict:
+    """The CLI under ``torchrun`` on 4 gloo ranks of the one card:
+    ``SHARDMAP_CLI_PATH``, the main path's plan (``ising(30)``, L=28, R=2).
+    Held: the printed program to the in-card plan's op counts; each rank's
+    launches to them; one printed line per remap, each m=2 remap sending
+    Eq. 2's bytes on every rank; each rank's peak device memory to two
+    shards and 1 GiB; the marginal and the expectation to
+    ``TorchMeasurer``'s on the in-card state within SHARDMAP_CLI["atol"].
+    ``device="cpu"`` dry-runs it on the host at a small plan of ``ising``
+    with R=2 (n and L taken from the plan; ``observable`` on its qubits)."""
+    from repro_torch.sim.engine import ExecutionEngine
+    from repro_torch.sim.measure import measurer_for
+
+    spec, world, L = SHARDMAP_CLI, SHARDMAP_CLI["ranks"], plan.L
+    eng = ExecutionEngine(circuit, plan, device=device)
+    counts = eng.op_counts()
+    state = eng.run_packed()
+    tm = measurer_for(state, eng.measurement_frame)
+    marg = tm.marginal(spec["marginal"])
+    value = tm.expectation(observable)
+    del tm, state, eng
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the ranks need the card's memory
+    argv = list(SHARDMAP_CLI_PATH)
+    argv[argv.index("--qubits") + 1] = str(circuit.n_qubits)
+    argv[argv.index("--L") + 1] = str(L)
+    argv[argv.index("--observable") + 1] = observable
+    out, doc, seconds = torchrun(world, argv, spec["timeout"], device)
+    printed = [ln for ln in out.splitlines() if "program:" in ln]
+    want_program = ", ".join(f"{v} {k}" for k, v in sorted(counts.items()))
+    require(len(printed) == 1 and printed[0].endswith("program: " + want_program)
+            and doc["op_counts"] == counts,
+            f"the CLI's program {printed} {doc['op_counts']} is not the in-card plan's {counts}")
+    launches = cli_launches(doc, "shardmap CLI")
+    shard_bytes = 8 << L
+    lines = [ln for ln in out.splitlines() if ln.startswith("  remap ")]
+    require(len(lines) == len(doc["remaps"]) and doc["remaps"],
+            f"one printed line per remap: {lines} against {doc['remaps']}")
+    for r, line in zip(doc["remaps"], lines):
+        a2a = shard_bytes - (shard_bytes >> r["m"]) if r["m"] else 0
+        perm = shard_bytes if r["permute"] else 0
+        sent = [int(b) for b in line.split("bytes sent per rank [")[1].split("]")[0].split(",")]
+        require(sent == r["bytes_sent"] and len(sent) == world
+                and all(a2a <= b <= a2a + perm for b in sent),
+                f"remap {r['slot']}: bytes sent {sent} break Eq. 2 ({a2a} + at most {perm})")
+        require(r["m"] != 2 or r["permute"] or all(b == a2a for b in sent),
+                f"remap {r['slot']}: an m=2 remap sends {a2a} bytes a rank, not {sent}")
+    res = doc["results"][0]
+    got_marg = np.asarray(res["marginals"][",".join(map(str, spec["marginal"]))])
+    (key, got_value), = res["expectations"].items()
+    marg_err = float(np.abs(got_marg - marg).max())
+    value_err = abs(got_value - value)
+    log(f"  {world} ranks through the CLI in {seconds:.1f} s (torchrun, imports, planning, "
+        f"build, run, measurement); run_packed {doc['seconds']:.3f} s; {want_program}; launches "
+        f"per rank {doc['launches'][0]}")
+    for line in lines:
+        log("  " + line.strip())
+    log("  peak device memory per rank to the end of the run: "
+        + ", ".join(gib(p) for p in doc["peaks"]) + f" ({card})")
+    if device == "cuda":  # a rank holds its shard and one remap buffer
+        require(all(p <= 2 * shard_bytes + (1 << 30) for p in doc["peaks"]),
+                "a rank held more than two shards during the CLI's run")
+    log(f"  marginal {spec['marginal']} max |d| {marg_err:.3e}; <{key}> = {got_value:.9f} "
+        f"(TorchMeasurer on the in-card state {value:.9f}, |d| {value_err:.3e}) ({card})")
+    require(marg_err <= spec["atol"] and value_err <= spec["atol"],
+            "the CLI's marginal or expectation differs from TorchMeasurer's on the in-card state")
+    return {"launches": launches, "seconds": seconds}
+
+
+def shardmap_cli_nccl_phase(card: str, device: str = "cuda",
+                            n: int = SHARDMAP_CLI_NCCL["n"]) -> dict:
+    """The CLI under ``torchrun`` at world size 1 over NCCL
+    (``SHARDMAP_CLI_NCCL_PATH``: ``isingparam(28)`` at L=28, no collective
+    runs), held to a ``CudaBackend`` engine of the same plan in this
+    process: the op counts, one launch per op, and the marginal bit for
+    bit. ``device="cpu"`` dry-runs it over gloo at a small ``n``."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.measure import measurer_for
+
+    spec = SHARDMAP_CLI_NCCL
+    argv = list(SHARDMAP_CLI_NCCL_PATH)
+    argv[argv.index("--qubits") + 1] = argv[argv.index("--L") + 1] = str(n)
+    eng = engine_for(PARAM_FAMILIES["isingparam"](n), n, 0, 0, device=device, cache=None)
+    eng.bind(spec["bind"])
+    marg = measurer_for(eng.run_packed(), eng.measurement_frame).marginal(spec["marginal"])
+    counts = eng.op_counts()
+    del eng
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out, doc, seconds = torchrun(1, argv, spec["timeout"], device)
+    backend = "nccl" if device == "cuda" else "gloo"
+    require(f"torch.distributed {backend}, world size 1;" in out,
+            f"the CLI did not run at world size 1 over {backend}:\n{out[-2000:]}")
+    require(doc["op_counts"] == counts, f"the CLI's program {doc['op_counts']} is not {counts}")
+    launches = cli_launches(doc, "shardmap CLI over NCCL")
+    got = np.asarray(doc["results"][0]["marginals"][",".join(map(str, spec["marginal"]))])
+    bitwise = bool(np.array_equal(got, marg))
+    log(f"  world size 1 through the CLI in {seconds:.1f} s; run_packed {doc['seconds']:.4f} s; "
+        f"launches {doc['launches'][0]}; remaps {len(doc['remaps'])}; marginal "
+        f"{spec['marginal']} bit for bit CudaBackend's: {bitwise} ({card})")
+    require(bitwise, "the NCCL world-size-1 CLI's marginal differs from CudaBackend's")
+    require(not doc["remaps"], "world size 1 ran a remap")
+    return {"launches": launches, "seconds": seconds}
+
+
 def launches_match(ops, engine, what: str, per_op: int = 1, kinds=("fused", "shm")) -> dict:
     """The kernel launches since the last reset equal the engine's compiled
     ops times ``per_op`` (one launch per op whatever the number of states;
@@ -1118,8 +1312,8 @@ def stage_lines(be, rates: dict, card: str, what: str) -> list:
 
 
 def offload_phase(simulate, ops, ref, probe, card: str, rates: dict, fused: dict) -> dict:
-    """``ising(32)`` L=28 R=4 through ``--executor offload``: a 32 GiB
-    pinned host state in 16 shards of 2 GiB, streamed through the hand
+    """``ising(31)`` L=27 R=4 through ``--executor offload``: a 16 GiB
+    pinned host state in 16 shards of 1 GiB, streamed through the hand
     kernels stage by stage, then measured shard by shard. Checks one
     launch per op and shard, the run's peak device memory (at most four
     shards above what the engine keeps), every kernel op on shard 0 and
@@ -1143,9 +1337,9 @@ def offload_phase(simulate, ops, ref, probe, card: str, rates: dict, fused: dict
     shard_bytes = 8 << L
     launches = launches_match(ops, eng, "offload path", per_op=S)
     res = run.result
-    require(res.samples.shape == (64,) and bool(np.all((res.samples >= 0)
-                                                       & (res.samples < 1 << eng.n))),
-            "offload path: shots must be 64 basis-state indices")
+    require(res.samples.shape == (OFFLOAD_SHOTS,)
+            and bool(np.all((res.samples >= 0) & (res.samples < 1 << eng.n))),
+            f"offload path: shots must be {OFFLOAD_SHOTS} basis-state indices")
     marg = res.marginals[(0, 1, 2)]
     require(marg.shape == (8,) and bool(np.all(np.isfinite(marg))) and abs(marg.sum() - 1) < 1e-4,
             "offload path: the marginal must be a finite distribution over 8 outcomes")
@@ -1167,7 +1361,8 @@ def offload_phase(simulate, ops, ref, probe, card: str, rates: dict, fused: dict
         f"{gib(meas_peak)} ({card})")
     m = clock.seconds
     log(f"  measured in {sum(m.values()):.3f} s: shard masses {m['masses']:.3f} s, sampling "
-        f"64 shots {m['sampling']:.3f} s ({len(np.unique(res.samples >> L))} distinct shards, "
+        f"{OFFLOAD_SHOTS} shots {m['sampling']:.3f} s ({len(np.unique(res.samples >> L))} "
+        "distinct shards, "
         f"each a host float64 CDF of 2^{L} amplitudes), marginal {m['marginal']:.3f} s, "
         f"expectation {m['expectation']:.3f} s; the CLI call {cli_s:.1f} s ({card})")
 
@@ -2780,6 +2975,13 @@ def main() -> None:
     log("== shardmap over NCCL, world size 1: qft({n}) L={L}".format(**SHARDMAP_NCCL))
     paths["qft28_shardmap_nccl1"] = shardmap_nccl_phase(ops, card, **SHARDMAP_NCCL)["launches"]
     torch.cuda.empty_cache()
+    log("== shardmap CLI under torchrun: {ranks} gloo ranks on the one card, ".format(
+        **SHARDMAP_CLI) + " ".join(SHARDMAP_CLI_PATH))
+    paths["ising30_shardmap4_cli"] = shardmap_cli_phase(card, *main_plan)["launches"]
+    log("== shardmap CLI under torchrun, world size 1 over NCCL: "
+        + " ".join(SHARDMAP_CLI_NCCL_PATH))
+    paths["isingparam28_shardmap1_cli"] = shardmap_cli_nccl_phase(card)["launches"]
+    torch.cuda.empty_cache()
     log(f"  the shardmap phases took {time.time() - t_shardmap:.1f}s")
 
     t_grad = time.time()
@@ -2804,7 +3006,7 @@ def main() -> None:
         + f"({card})")
     log("== offload path: " + " ".join(OFFLOAD_PATH))
     off = offload_phase(simulate, ops, ref, probe, card, rates, fused)
-    paths["ising32_offload"] = off["launches"]
+    paths["ising31_offload"] = off["launches"]
     worst.append(off["worst"])
     log("== per-gate offload baseline: qft({n}) L={L} R={R}".format(**PERGATE))
     pg = pergate_phase(ops, ref, probe, card, fused, **PERGATE)
@@ -2823,16 +3025,16 @@ def main() -> None:
     free_disk = host_check()
     log("== shard store: ising({n}) L={L} R={R}, {tier}, half at rest on disk".format(**STORE))
     store = store_phase(simulate, ops, ref, probe, card, fused, free_disk, xy=True, **STORE)
-    paths["ising32_store_bf16"] = store["launches"]
+    paths["ising30_store_bf16"] = store["launches"]
     worst.append(store["worst"])
     log("== shard store: ising({n}) L={L} R={R}, {tier}, half at rest on disk".format(**STORE_INT8))
     store8 = store_phase(simulate, ops, ref, probe, card, fused, free_disk, **STORE_INT8)
-    paths["ising30_store_int8"] = store8["launches"]
+    paths["ising29_store_int8"] = store8["launches"]
     worst.append(store8["worst"])
     log("== stage checkpoints: ising({n}) L={L} R={R}, killed in stage 1 and resumed"
         .format(**CHECKPOINT))
     ckpt = checkpoint_phase(card, ops, ref, **CHECKPOINT)
-    paths["ising30_checkpoint_resumed"] = ckpt["launches"]
+    paths["ising28_checkpoint_resumed"] = ckpt["launches"]
     worst.append(ckpt["worst"])
     log(f"  the store and checkpoint phases took {time.time() - t_store:.1f}s")
 

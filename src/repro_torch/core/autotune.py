@@ -229,6 +229,13 @@ def autotune_engine(
         replay_us[cand.name] = best
         engines[cand.name] = eng
 
+    # on the shardmap backend every rank replays every candidate, each timing
+    # its own share: the choice reads the slowest rank's time, so every rank
+    # installs the same plan (on one device the times are left as they are)
+    names = list(replay_us)
+    slowest = engines[names[0]].backend.slowest([replay_us[k] for k in names])
+    replay_us = {k: float(v) for k, v in zip(names, slowest)}
+
     # hysteresis: a challenger must beat the default by >= min_speedup or
     # the default keeps the slot — replay noise must never install a plan
     # that is merely *measured* faster once but is not actually faster

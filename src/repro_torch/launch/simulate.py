@@ -1,8 +1,9 @@
-"""End-to-end quantum circuit simulation on one device (the CLI).
+"""End-to-end quantum circuit simulation (the CLI).
 
-The paths of ``repro/launch/simulate.py`` that run on one device: generate
-a circuit, partition it (ILP staging + DP kernelization), compile the plan,
-run the staged engine, then measure. Runs on CUDA unless ``--device cpu``.
+The paths of ``repro/launch/simulate.py``: generate a circuit, partition it
+(ILP staging + DP kernelization), compile the plan, run the staged engine,
+then measure. Runs on CUDA unless ``--device cpu``; ``--executor shardmap``
+runs on several processes, one per device of the bit-mesh.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 22 \\
@@ -54,12 +55,34 @@ ILP comm weights), install the fastest under the default key, then run:
   PYTHONPATH=src python -m repro_torch.launch.simulate --circuit qft --n 10 \
       --L 8 --R 2 --autotune --check --device cpu
 
-Not in the port yet, and refused: the ``shardmap`` executor.
+The explicit-collective executor: one process per device of the 2^(R+G)
+bit-mesh, each holding one 2^L shard, started by ``torchrun`` (``python -m
+torch.distributed.run``). Every path above but ``--vqe`` (gradients on
+shards are not ported yet) runs on it; only rank 0 prints, with one line
+per remap and each rank's kernel launches. ``--dist-backend`` is ``nccl``
+on CUDA (one rank per card) and ``gloo`` on the CPU by default; several
+ranks on one card need ``gloo``. Under ``torchrun`` spell ``--n`` as
+``--qubits``: some Python versions' argparse takes ``--n`` after the script
+name for an abbreviation of torchrun's own options and stops. On 8 CPU
+processes, on one card, and on four cards over NCCL:
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \\
+      -m repro_torch.launch.simulate --circuit qft --qubits 10 --L 7 --R 2 --G 1 \\
+      --executor shardmap --device cpu --check
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.simulate --circuit ising --qubits 30 --L 28 --R 2 \\
+      --executor shardmap --dist-backend gloo --marginal 0,1,2
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.simulate --circuit ising --qubits 30 --L 28 --R 2 \\
+      --executor shardmap --shots 1024 --result-json result.json
+(``--result-json``: rank 0 writes the run's figures and results as JSON,
+since a worker's return value does not reach the caller.)
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import time
 from dataclasses import dataclass, field
@@ -71,6 +94,7 @@ import torch
 from ..core.generators import FAMILIES, PARAM_FAMILIES
 from ..core.partition import SimulationPlan, partition
 from ..device import resolve_device
+from ..kernels import ops as kops
 from ..sim.engine import DEFAULT_CACHE, ExecutionEngine, engine_for
 from ..sim.measure import (
     Frame, StreamingMeasurer, measure_batch, measure_sweep, measure_to_result, measurer_for,
@@ -79,6 +103,7 @@ from ..sim.offload import PerGateOffloadExecutor
 from ..sim.shard_store import StorageConfig
 from ..sim.result import SimulationResult
 from ..sim.statevector import fidelity, simulate_np
+from . import dist as launch_dist
 
 CHECK_MAX_QUBITS = 24  # --check builds a host complex128 state
 
@@ -88,10 +113,16 @@ class SimulateRun:
     """What one run of the CLI produced: the engine (its compiled program and
     device), the plan, the state it ended with (the packed final-stage
     layout when it measured, logical order otherwise; ``[B, 2^n]`` for a
-    batch or a sweep), the measurement result(s), the simulation's wall
-    time, the --check fidelity of each state, and on the engine path the
-    seconds to get the engine (plan, compile and upload on a cache miss)
-    and to bind the --bind parameters."""
+    batch or a sweep; on the shardmap backend this rank's ``2^L`` shard of
+    each, ``[2^L]`` or ``[B, 2^L]``), the measurement result(s), the
+    simulation's wall time, the --check fidelity of each state (the same
+    on every rank), and on the engine path the seconds to get the engine
+    (plan, compile and upload on a cache miss) and to bind the --bind
+    parameters. ``launches``: the kernel launches of the simulation on
+    each rank (one entry on one device); ``peaks``: each rank's peak
+    device memory in bytes up to the end of the simulation (0 on the CPU);
+    ``remaps``: on the shardmap backend, each remap of the last run with
+    the bytes each rank sent and the slowest rank's seconds."""
 
     engine: ExecutionEngine
     plan: SimulationPlan
@@ -110,6 +141,9 @@ class SimulateRun:
     theta: Optional[np.ndarray] = None
     param_names: Tuple[str, ...] = ()
     grad_seconds: List[float] = field(default_factory=list)
+    launches: List[dict] = field(default_factory=list)
+    peaks: List[int] = field(default_factory=list)
+    remaps: List[dict] = field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -194,19 +228,138 @@ def _print_results(results) -> None:
         print(f"  [{i}] " + "; ".join(bits))
 
 
+def _launch_counts() -> np.ndarray:
+    """This process's kernel launches so far: ``fused``, ``shm``, then the
+    ``fused`` ones at k = 1..7."""
+    c, by_k = kops.kernel_call_counts(), kops.fused_call_counts_by_k()
+    return np.array([c["fused"], c["shm"]]
+                    + [by_k.get(k, 0) for k in range(1, kops.FUSED_MAX_BITS + 1)], dtype=np.int64)
+
+
+def _report_ranks(ex: ExecutionEngine, run: SimulateRun, before: np.ndarray) -> None:
+    """Each rank's kernel launches since ``before`` and peak device memory
+    into ``run.launches`` and ``run.peaks`` and, on the shardmap backend,
+    the last run's remaps into ``run.remaps``, printed there. On the
+    shardmap backend every rank calls it (it gathers over the ranks, as
+    host tensors)."""
+    peak = torch.cuda.max_memory_allocated(ex.device) if ex.device.type == "cuda" else 0
+    mine = np.append(_launch_counts() - before, peak)
+    per_rank = [mine]
+    if ex.backend.name == "shardmap":
+        tr, trace = ex.backend.transport, ex.backend.trace
+        per_rank = tr.all_gather(mine)
+        figs = tr.all_gather(np.array([[t["bytes_sent"], t["seconds"]] for t in trace],
+                                      dtype=np.float64).reshape(-1, 2))
+        run.remaps = [{"slot": t["slot"], "m": t["m"], "permute": t["permute"],
+                       "bytes_sent": [int(f[i, 0]) for f in figs],
+                       "seconds": max(float(f[i, 1]) for f in figs)}
+                      for i, t in enumerate(trace)]
+    run.peaks = [int(c[-1]) for c in per_rank]
+    run.launches = [{"fused": int(c[0]), "shm": int(c[1]),
+                     "by_k": {k: int(c[1 + k]) for k in range(1, kops.FUSED_MAX_BITS + 1)
+                              if c[1 + k]}} for c in per_rank]
+    if ex.backend.name == "shardmap":
+        print("kernel launches per rank: " + "; ".join(
+            f"{d}: {c['fused']} fused {c['by_k']}, {c['shm']} shm"
+            for d, c in enumerate(run.launches)))
+        if any(run.peaks):
+            print("peak device memory per rank: "
+                  + ", ".join(f"{p / 2**30:.2f} GiB" for p in run.peaks))
+        for r in run.remaps:
+            print(f"  remap {r['slot']}: m={r['m']}, permute {r['permute']}; bytes sent per rank "
+                  f"{r['bytes_sent']}; {r['seconds']:.3f}s (slowest rank)")
+
+
+def _gather_rows(tr, rows: torch.Tensor) -> Optional[np.ndarray]:
+    """Rank 0: the ``[B, 2^n]`` logical rows whose ``[B, 2^L]`` shards the
+    ranks hold (after the final remap rank ``d`` holds amplitudes
+    ``[d·2^L, (d+1)·2^L)``); None on the other ranks."""
+    part = np.ascontiguousarray(rows.detach().cpu().numpy())
+    wire = part.view(np.float32)  # point-to-point takes no complex tensors
+    if tr.rank:
+        tr.send(wire, 0)
+        return None
+    return np.concatenate([part] + [tr.recv(wire, src).view(np.complex64)
+                                    for src in range(1, tr.world)], axis=1)
+
+
+def _fidelities(ex: ExecutionEngine, states: torch.Tensor, reference) -> List[float]:
+    """--check: the fidelity of each logical state of ``states`` (``[2^n]``
+    or ``[B, 2^n]``) against ``reference(i)``. On the shardmap backend
+    ``states`` are this rank's shards: rank 0 gathers them, computes and
+    broadcasts, so every rank returns the same list."""
+    rows = states.reshape(-1, states.shape[-1])
+    if ex.backend.name != "shardmap":
+        return [fidelity(rows[i], reference(i)) for i in range(rows.shape[0])]
+    tr = ex.backend.transport
+    whole = _gather_rows(tr, rows)
+    f = np.zeros(rows.shape[0])
+    if whole is not None:
+        f = np.array([fidelity(whole[i], reference(i)) for i in range(whole.shape[0])])
+    return [float(v) for v in tr.broadcast(f, 0)]
+
+
+def _basis(n: int, b: int) -> np.ndarray:
+    psi = np.zeros(1 << n, dtype=np.complex64)
+    psi[b % (1 << n)] = 1.0
+    return psi
+
+
+def _basis_rows(B: int, n: int):
+    """The batch of basis states ``|b mod 2^n>``, b < B, as ``rows(lo, hi)``:
+    amplitudes ``[lo, hi)`` of each row (a shardmap rank builds only its
+    own ``2^L`` columns)."""
+    def rows(lo: int, hi: int) -> np.ndarray:
+        out = np.zeros((B, hi - lo), dtype=np.complex64)
+        idx = np.arange(B) % (1 << n)
+        hit = np.nonzero((idx >= lo) & (idx < hi))[0]
+        out[hit, idx[hit] - lo] = 1.0
+        return out
+    return rows
+
+
+def _write_json(path: str, run: SimulateRun) -> None:
+    """``--result-json``: the run's figures and results."""
+    ex = run.engine
+
+    def result(r: SimulationResult) -> dict:
+        return {"samples": None if r.samples is None else r.samples.tolist(),
+                "marginals": {",".join(map(str, q)): m.tolist() for q, m in r.marginals.items()},
+                "expectations": dict(r.expectations)}
+
+    doc = {"n": ex.n, "L": ex.L, "R": ex.R, "G": ex.G, "backend": ex.backend.name,
+           "device": str(ex.device), "op_counts": ex.op_counts(), "seconds": run.seconds,
+           "build_seconds": run.build_seconds, "fidelities": run.fidelities,
+           "launches": run.launches, "peaks": run.peaks, "remaps": run.remaps,
+           "energies": run.energies,
+           "results": [result(r) for r in ([run.result] if run.result else run.results)]}
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 def main(argv=None) -> SimulateRun:
     ap = argparse.ArgumentParser()
     ap.add_argument("--circuit", default="qft", choices=sorted(FAMILIES) + sorted(PARAM_FAMILIES))
-    ap.add_argument("--n", type=int, default=16)
+    ap.add_argument("--n", "--qubits", dest="n", type=int, default=16,
+                    help="qubits (--qubits under torchrun: some Python versions' argparse "
+                         "rejects --n after the script name there, as an abbreviation of "
+                         "torchrun's own --nnodes and --nproc-per-node)")
     ap.add_argument("--L", type=int, default=0, help="local qubits (0: n-R-G)")
     ap.add_argument("--R", type=int, default=0)
     ap.add_argument("--G", type=int, default=0)
-    ap.add_argument("--executor", default="cuda", choices=["cuda", "offload", "pergate", "dense"],
+    ap.add_argument("--executor", default="cuda",
+                    choices=["cuda", "offload", "shardmap", "pergate", "dense"],
                     help="cuda: the planned path through the hand-written kernels "
                          "(on --device); offload: the same with the state in host memory, "
-                         "streamed through --device stage by stage; pergate: the per-gate "
-                         "offload baseline (one pass over the host state per gate); dense: "
-                         "the per-gate oracle behind the engine API (implies --engine)")
+                         "streamed through --device stage by stage; shardmap: one process per "
+                         "device of the 2^(R+G) bit-mesh, each with one 2^L shard, started by "
+                         "torchrun; pergate: the per-gate offload baseline (one pass over the "
+                         "host state per gate); dense: the per-gate oracle behind the engine "
+                         "API (implies --engine)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--executor shardmap: the torch.distributed backend (default nccl "
+                         "on cuda, one rank per card; gloo on cpu). Several ranks on one "
+                         "card need gloo")
     ap.add_argument("--staging", default="ilp", choices=["ilp", "greedy"])
     ap.add_argument("--kernelizer", default="dp", choices=["dp", "ordered", "greedy"])
     ap.add_argument("--opt", dest="opt", action="store_true",
@@ -262,6 +415,9 @@ def main(argv=None) -> SimulateRun:
                          "resume a killed run of the same circuit, binding and initial "
                          "state from DIR (implies --engine; not with --storage)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--result-json", default=None, metavar="FILE.json",
+                    help="write the run's figures and results as JSON (rank 0 under "
+                         "--executor shardmap)")
     args = ap.parse_args(argv)
     if args.executor == "pergate" and (args.engine or args.autotune or args.batch > 1
                                        or args.sweep is not None or args.vqe is not None):
@@ -289,8 +445,43 @@ def main(argv=None) -> SimulateRun:
             ap.error("--checkpoint-dir requires --executor offload")
         if storage is not None:
             ap.error("--checkpoint-dir and --storage are mutually exclusive")
+    ctx = None
+    if args.executor == "shardmap":
+        if args.vqe is not None:
+            ap.error("--vqe needs gradients on shards, which the shardmap executor does not "
+                     "have yet (ROADMAP A11c)")
+        try:
+            ctx = launch_dist.join(args.dist_backend, args.device)
+        except launch_dist.LaunchError as e:
+            ap.error(str(e))
+    elif args.dist_backend is not None:
+        ap.error("--dist-backend needs --executor shardmap")
+    try:
+        # only rank 0 prints
+        quiet = ctx is not None and ctx.rank != 0
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            run = _simulate(ap, args, storage, ctx)
+        if args.result_json is not None and not quiet:
+            _write_json(args.result_json, run)
+        return run
+    finally:
+        if ctx is not None:
+            ctx.close()
 
-    device = resolve_device(args.device)
+
+def _simulate(ap, args, storage, ctx: Optional[launch_dist.RankContext]) -> SimulateRun:
+    """``main`` after the flags are checked and the process is in its job."""
+    if ctx is None:
+        device = resolve_device(args.device)
+    else:
+        nb = args.R + args.G
+        if ctx.world != 1 << nb:
+            ap.error(f"--executor shardmap with R={args.R}, G={args.G} runs one rank per device "
+                     f"of a 2^{nb} bit-mesh: launch {1 << nb} ranks (torchrun --nproc-per-node "
+                     f"{1 << nb}), not {ctx.world}")
+        device = ctx.device
+        print(f"torch.distributed {ctx.backend}, world size {ctx.world}; devices by rank: "
+              + ", ".join(ctx.devices()))
     n = args.n
     L = args.L or (n - args.R - args.G)
     if args.check and n > CHECK_MAX_QUBITS:
@@ -387,10 +578,11 @@ def main(argv=None) -> SimulateRun:
     if args.sweep is not None:
         points = _load_sweep(args.sweep)
         P = len(points)
-        _sync(device)
-        t0 = time.time()
         run = SimulateRun(engine=ex, plan=plan, state=None, result=None, seconds=0.0,
                           build_seconds=build_s, bind_seconds=bind_s)
+        before = _launch_counts()
+        _sync(device)
+        t0 = time.time()
         if measuring:
             run.results = measure_sweep(ex, points, shots=args.shots, seed=args.seed,
                                         marginals=marginals, observables=args.observable)
@@ -398,6 +590,7 @@ def main(argv=None) -> SimulateRun:
             print(f"sweep of {P} bindings simulated+measured in {run.seconds:.3f}s "
                   f"({run.seconds / P:.3f}s/point)")
             _print_results(run.results)
+            _report_ranks(ex, run, before)
             return run
         run.state = ex.run_sweep(None, points)
         _sync(device)
@@ -405,21 +598,23 @@ def main(argv=None) -> SimulateRun:
         print(f"sweep of {P} bindings in {run.seconds:.3f}s ({run.seconds / P:.3f}s/point, "
               "one structural compile)")
         _print_offload(ex)
+        _report_ranks(ex, run, before)
         if args.check:
-            for p, pt in enumerate(points):
-                run.fidelities.append(fidelity(run.state[p], simulate_np(ref_circ.bind(pt))))
-                print(f"  fidelity[{p}] vs dense reference: {run.fidelities[-1]:.6f}")
+            run.fidelities = _fidelities(ex, run.state,
+                                         lambda p: simulate_np(ref_circ.bind(points[p])))
+            for p, f in enumerate(run.fidelities):
+                print(f"  fidelity[{p}] vs dense reference: {f:.6f}")
         return run
 
     # ------------------------------------------------------- batched path
     if args.batch > 1:
         B = args.batch
-        psi0s = np.zeros((B, 2**n), dtype=np.complex64)
-        psi0s[np.arange(B), np.arange(B) % (2**n)] = 1.0
-        _sync(device)
-        t0 = time.time()
+        psi0s = _basis_rows(B, n)
         run = SimulateRun(engine=ex, plan=plan, state=None, result=None, seconds=0.0,
                           build_seconds=build_s, bind_seconds=bind_s)
+        before = _launch_counts()
+        _sync(device)
+        t0 = time.time()
         if measuring:
             run.results = measure_batch(ex, psi0s, shots=args.shots, seed=args.seed,
                                         marginals=marginals, observables=args.observable)
@@ -427,6 +622,7 @@ def main(argv=None) -> SimulateRun:
             print(f"batch of {B} simulated+measured in {run.seconds:.3f}s "
                   f"({run.seconds / B:.3f}s/state)")
             _print_results(run.results)
+            _report_ranks(ex, run, before)
             return run
         run.state = ex.run_batch(psi0s)
         _sync(device)
@@ -434,13 +630,16 @@ def main(argv=None) -> SimulateRun:
         print(f"batch of {B} simulated in {run.seconds:.3f}s ({run.seconds / B:.3f}s/state, "
               f"{B * circ.n_gates / run.seconds:,.0f} gates/s)")
         _print_offload(ex)
+        _report_ranks(ex, run, before)
         if args.check:
-            for b in range(B):
-                run.fidelities.append(fidelity(run.state[b], reference(ref_circ, psi0s[b])))
-                print(f"  fidelity[{b}] vs dense reference: {run.fidelities[-1]:.6f}")
+            run.fidelities = _fidelities(ex, run.state,
+                                         lambda b: reference(ref_circ, _basis(n, b)))
+            for b, f in enumerate(run.fidelities):
+                print(f"  fidelity[{b}] vs dense reference: {f:.6f}")
         return run
 
     # ------------------------------------------------------ single state
+    before = _launch_counts()
     _sync(device)
     t0 = time.time()
     out = ex.run_packed() if measuring else ex.run()
@@ -449,17 +648,16 @@ def main(argv=None) -> SimulateRun:
     print(f"simulated in {dt:.3f}s ({circ.n_gates / dt:,.0f} gates/s, "
           f"{2**n / dt / 1e6:,.1f} Mamps/s)")
     _print_offload(ex)
-
-    res = None
-    if measuring:
-        res = _measure(measurer_for(out, ex.measurement_frame, ex),
-                       f"{ex.backend.name}-{device.type}", args, marginals)
-
-    run = SimulateRun(engine=ex, plan=plan, state=out, result=res, seconds=dt,
+    run = SimulateRun(engine=ex, plan=plan, state=out, result=None, seconds=dt,
                       build_seconds=build_s, bind_seconds=bind_s)
+    _report_ranks(ex, run, before)
+
+    if measuring:
+        run.result = _measure(measurer_for(out, ex.measurement_frame, ex),
+                              f"{ex.backend.name}-{device.type}", args, marginals)
     if args.check:
         logical = ex.finalize(out) if measuring else out
-        run.fidelity = fidelity(logical, reference(ref_circ))
+        run.fidelity = _fidelities(ex, logical, lambda _: reference(ref_circ))[0]
         run.fidelities.append(run.fidelity)
         print(f"fidelity vs dense reference: {run.fidelity:.6f}")
     return run
@@ -473,7 +671,6 @@ def _vqe(args, ex: ExecutionEngine, plan: SimulationPlan, build_s, bind_s) -> Si
     no entry of the structural cache, schedule no ``shm`` program and build
     no adjoint program: each is checked, and a breach raises."""
     from ..core import kernelization, staging
-    from ..kernels import ops as kops
     from ..optim.adamw import AdamWConfig, init as adam_init, update as adam_update
 
     names = ex.param_names

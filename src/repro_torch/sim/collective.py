@@ -130,8 +130,16 @@ class Transport:
     # ------------------------------------------------------- small results
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over the ranks of a small tensor, on ``t``'s device."""
+        return self._all_reduce(t, dist.ReduceOp.SUM)
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise maximum over the ranks of a small tensor, on ``t``'s
+        device."""
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         w = t.to(self.wire).clone()
-        dist.all_reduce(w, group=self.group)
+        dist.all_reduce(w, op=op, group=self.group)
         COLLECTIVE_CALLS["all_reduce"] += 1
         return w.to(t.device)
 

@@ -74,7 +74,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field, fields as _dc_fields
-from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -309,6 +309,35 @@ def remap_exchange(x: torch.Tensor, rp: RemapPlan, rank: int, L: int, transport,
     return cur, spare
 
 
+def batch_columns(psi0s, n: int, lo: int, hi: int) -> torch.Tensor:
+    """Amplitudes ``[lo, hi)`` of every row of a batch of initial states:
+    ``psi0s`` is a ``[B, 2^n]`` array, or a callable ``rows(lo, hi)`` that
+    builds only those columns (``[B, hi - lo]``), so a shardmap rank need
+    not hold whole rows on its host."""
+    if callable(psi0s):
+        return torch.as_tensor(psi0s(lo, hi)).reshape(-1, hi - lo)
+    return torch.as_tensor(psi0s).reshape(-1, 1 << n)[:, lo:hi]
+
+
+def _program_digest(cc: CompiledCircuit) -> np.ndarray:
+    """What a compiled program makes a rank do, hashed: its widths, every
+    op's kind, bits and variant count (``shm`` members included), every
+    stage's layout and every remap's spec. Ranks with different digests
+    would issue different collectives."""
+    def op(o: Op):
+        return (o.kind, tuple(map(int, o.local_bits)), tuple(map(int, o.dep_bits)),
+                tuple(o.tensor.shape), tuple(op(m) for m in o.gates))
+
+    def spec(r: Optional[RemapSpec]):
+        return None if r is None else (tuple(map(int, r.src_bit_of)),
+                                       tuple(map(int, r.flip_bits)))
+
+    sig = (cc.n, cc.L, cc.R, cc.G, spec(cc.initial_remap), spec(cc.final_remap),
+           tuple((tuple(op(o) for o in p.ops), tuple(map(int, p.layout)), spec(p.remap_after))
+                 for p in cc.programs))
+    return np.frombuffer(hashlib.sha256(repr(sig).encode()).digest(), dtype=np.uint8).copy()
+
+
 def _shm_operands(op: Op, select: Callable):
     """Collect the (local_bits, tensor) operand list for one shm group.
 
@@ -394,8 +423,8 @@ class Backend:
     def prepare(self, psi0, batch: bool = False) -> torch.Tensor:
         eng = self.engine
         if batch:
-            x = torch.as_tensor(psi0).to(device=eng.device, dtype=eng.dtype)
-            x = x.reshape(-1, 1 << eng.n).clone()  # the run updates its state in place
+            x = batch_columns(psi0, eng.n, 0, 1 << eng.n).to(device=eng.device, dtype=eng.dtype)
+            x = x.clone()  # the run updates its state in place
             if x.shape[0] == 0:
                 raise ValueError("empty batch")
             return x
@@ -426,6 +455,12 @@ class Backend:
     def norms(self, rows: torch.Tensor) -> torch.Tensor:
         """The 2-norm of each of the ``[P, N]`` output rows (the guard's)."""
         return ExecutionEngine._sq_norms(rows).sqrt()
+
+    def slowest(self, values: Sequence[float]) -> Sequence[float]:
+        """Each of ``values`` (this process's times) at its largest over the
+        processes that run the engine together: the values themselves on
+        one device."""
+        return values
 
 
 @dataclass
@@ -974,7 +1009,7 @@ class OffloadBackend(CudaBackend):
         eng = self.engine
         src = None
         if batch:
-            src = torch.as_tensor(psi0).to(dtype=eng.dtype).reshape(-1, 1 << eng.n)
+            src = batch_columns(psi0, eng.n, 0, 1 << eng.n).to(dtype=eng.dtype)
             if src.shape[0] == 0:
                 raise ValueError("empty batch")
         elif psi0 is not None:
@@ -1195,7 +1230,10 @@ class ShardMapBackend(CudaBackend):
     permute, a local transpose; the rank holds two shard buffers.
 
     ``group``: the process group of the bit-mesh (the default group when
-    None); its size must be ``2^(R+G)``. ``run``, ``run_packed`` and
+    None); its size must be ``2^(R+G)``, and every rank must have compiled
+    the same program (checked at setup, before any other collective: a rank
+    that planned otherwise would issue other collectives and hang or
+    corrupt the state). ``run``, ``run_packed`` and
     ``finalize`` return the rank's shard. Every rank of the group makes the
     same calls in the same order. Batches run one element at a time, as in
     the reference; there is no fused sweep or gradient. ``trace`` holds the
@@ -1214,15 +1252,21 @@ class ShardMapBackend(CudaBackend):
         if not (dist.is_available() and dist.is_initialized()):
             raise BackendBuildError("the shardmap backend needs an initialised torch.distributed "
                                     "process group, one rank per device of the bit-mesh")
-        world = dist.get_world_size(self.group)
-        if world != 1 << nb:
-            raise BackendBuildError(f"the shardmap bit-mesh needs {1 << nb} ranks (2^(R+G)), "
-                                    f"the process group has {world}")
         try:
             self.transport = collective.Transport(self.group, engine.device)
         except ValueError as e:
             raise BackendBuildError(str(e)) from e
         self.rank = self.transport.rank
+        digests = self.transport.all_gather(_program_digest(engine.cc))
+        differ = [r for r, d in enumerate(digests) if not np.array_equal(d, digests[0])]
+        if differ:
+            raise BackendBuildError(
+                f"the ranks compiled different programs: ranks {differ} differ from rank 0 "
+                "(each rank planned otherwise; give every rank the same plan)")
+        world = self.transport.world
+        if world != 1 << nb:
+            raise BackendBuildError(f"the shardmap bit-mesh needs {1 << nb} ranks (2^(R+G)), "
+                                    f"the process group has {world}")
         cc = engine.cc
         self._plans: Dict = {}
         if cc.initial_remap is not None:
@@ -1258,10 +1302,14 @@ class ShardMapBackend(CudaBackend):
     def prepare(self, psi0, batch: bool = False) -> torch.Tensor:
         """This rank's shard of the logical initial state(s): ``|0…0⟩`` puts
         1 on rank 0 only; a ``[2^n]`` ``psi0`` (or a ``[B, 2^n]`` batch)
-        gives each rank its amplitudes ``[d·2^L, (d+1)·2^L)``."""
+        gives each rank its amplitudes ``[d·2^L, (d+1)·2^L)``. A batch may
+        be a callable ``rows(lo, hi)`` (:func:`batch_columns`): the rank
+        then builds only its own ``[B, 2^L]`` columns."""
         eng = self.engine
         if batch:
-            x = self._shard(torch.as_tensor(psi0).reshape(-1, 1 << eng.n))
+            lo = self.rank << eng.L
+            x = batch_columns(psi0, eng.n, lo, lo + (1 << eng.L)).to(
+                device=eng.device, dtype=eng.dtype, copy=True).contiguous()
             if x.shape[0] == 0:
                 raise ValueError("empty batch")
             return x
@@ -1326,6 +1374,12 @@ class ShardMapBackend(CudaBackend):
         squares, summed over the ranks, so every rank takes the same
         decision (a NaN on one rank is a NaN on all)."""
         return self.transport.all_reduce_sum(ExecutionEngine._sq_norms(rows)).sqrt()
+
+    def slowest(self, values: Sequence[float]) -> np.ndarray:
+        """The largest of each value over the ranks, so that every rank
+        decides alike on times it took alone."""
+        return self.transport.all_reduce_max(
+            torch.as_tensor(np.asarray(values, dtype=np.float64))).numpy()
 
 
 BACKENDS: Dict[str, Callable[[], Backend]] = {
@@ -1646,7 +1700,9 @@ class ExecutionEngine:
         return self._guard(out, psi0, False, bound) if verify else out
 
     def run_batch(self, psi0s, apply_final: bool = True) -> torch.Tensor:
-        """Run a batch of initial states ``psi0s: [B, 2^n]`` (any B).
+        """Run a batch of initial states ``psi0s: [B, 2^n]`` (any B), or a
+        callable ``rows(lo, hi)`` giving amplitudes ``[lo, hi)`` of each row
+        (:func:`batch_columns`; a shardmap rank asks only for its own).
         Returns ``[B, 2^n]`` in logical order, or in the last stage's
         physical layout when ``apply_final=False`` (measure each element
         with :func:`repro_torch.sim.measure.measure_batch`)."""

@@ -637,3 +637,33 @@ def test_shardmap_world_size_one_over_nccl_on_card(cuda, tmp_path):
         assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_shardmap_cli_at_world_size_one_over_nccl_under_torchrun(cuda, tmp_path):
+    """``repro_torch.launch.simulate --executor shardmap`` launched by
+    ``torchrun`` as one process over NCCL (the default backend on the card)
+    with the hand kernels: the state checked against the dense reference,
+    one launch per compiled op, no remap, and only rank 0's lines."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out_json = tmp_path / "result.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "repro_torch.launch.simulate", "--circuit", "qft", "--qubits", "20", "--L", "20",
+         "--executor", "shardmap", "--check", "--result-json", str(out_json)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "torch.distributed nccl, world size 1; devices by rank: cuda:0" in proc.stdout
+    assert "fidelity vs dense reference: 1.000000" in proc.stdout
+    doc = json.loads(out_json.read_text())
+    counts = doc["op_counts"]
+    assert doc["backend"] == "shardmap" and doc["device"] == "cuda:0" and not doc["remaps"]
+    assert [(c["fused"], c["shm"]) for c in doc["launches"]] == [
+        (counts.get("fused", 0), counts.get("shm", 0))]
+    assert sum(counts.values()) > 0

@@ -37,7 +37,19 @@ plan on 4 gloo ranks of the one card, its printed program held to the
 in-card plan's, each rank's launches to it, each remap's printed bytes to
 Eq. 2, and the marginal ``(0, 1, 2)`` and ``<Z0 Z1 + 0.5*X29 + 0.25*X0>``
 to ``TorchMeasurer`` on the in-card state; then ``isingparam(28)`` at world
-size 1 over NCCL, its marginal bit for bit a ``CudaBackend`` engine's.
+size 1 over NCCL, its marginal bit for bit a ``CudaBackend`` engine's. Then
+gradients on the shardmap backend: ``--vqe`` (one Adam step, two
+value_and_grad calls) of ``isingparam(30)`` L=28 R=2 under ``torchrun`` on
+4 gloo ranks, each sweeping its own 2 GiB shard back through the plan's
+stages (every ``U†``, ``∂U`` and local Pauli op one ``fused_apply``
+launch), held to one ``CudaBackend`` value_and_grad of the same plan (value
+within 1e-5, gradient within 1e-4), with each rank's launches, sweep bytes
+against their bound, inverse remaps against Eq. 2, peak (four shards and 1
+GiB) and the first call's split (forward, λ, sweep kernels, sweep remaps);
+``fused_apply`` at k=1 and k=2 on one 2^28 shard timed beside its plain
+version and torch.matmul. The shardmap phase's ranks also run a sharded
+value_and_grad of ``isingparam(28)`` and hold a sample of its sweep's
+launches on ranks 0 and 3 against the plain version.
 
 Then adjoint gradients: the ``--vqe`` loop on ``isingparam(30)`` L=28 R=2
 (three Adam steps; every gate, derivative and Pauli application of each
@@ -259,6 +271,19 @@ SHARDMAP_CLI_NCCL_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "2
                           "--bind", "J=0.35", "--bind", "h=0.8", "--marginal", "0,1,2",
                           "--executor", "shardmap"]
 RESULTS_DIR = os.path.join(HERE, "build", "results")
+# gradients on the shardmap backend: the CLI's --vqe under torchrun on 4
+# gloo ranks of the one card, isingparam(30) at L=28 R=2 (one 2 GiB shard a
+# rank), one Adam step (two value_and_grad calls), held to one CudaBackend
+# value_and_grad of the same plan at the first angles. The observable is
+# VQE_OBS plus a term with X and Y on the last stage's two device qubits
+# (the sweep builds λ in that stage's frame), so λ needs the permute. The
+# shardmap phase's ranks run a sharded value_and_grad of isingparam(28)
+# L=26 and hold a sample of its sweep's k=1 and k=2 launches on ranks 0 and
+# 3 against the plain version.
+SHARDMAP_VQE = {"ranks": 4, "n": 30, "L": 28, "R": 2, "timeout": 600, "value_atol": 1e-5,
+                "grad_atol": 1e-4, "sample_n": 28, "sample_L": 26, "sample_seed": 43}
+SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "30", "--L", "28", "--R", "2",
+                     "--executor", "shardmap", "--dist-backend", "gloo", "--vqe-steps", "1"]
 
 
 def require(ok: bool, msg: str) -> None:
@@ -635,10 +660,79 @@ def shardmap_rank(rank: int, circuit, plan, spec: dict, device: str = "cuda") ->
         x = torch.randn(1 << plan.L, dtype=torch.complex64, device=device, generator=gen)
         out["worst"] = hold_ops(ops, ref, ex.engine, ex.backend.pass_of(), x,
                                 f"rank {rank}'s kernel ops")
+        del x
+    del ex
+    if cuda:
+        torch.cuda.empty_cache()
+    out["grad"] = grad_sample_rank(rank, spec["grad"], device)
     return out
 
 
-def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda") -> dict:
+def grad_sample_rank(rank: int, spec: dict, device: str) -> dict:
+    """One rank's sharded ``value_and_grad`` of ``isingparam(spec["n"])`` at
+    L=``spec["L"]``, R=2 (``ShardedAdjointProgram``), and on the first and
+    last rank a sample of its reverse sweep's ``fused_apply`` launches as
+    the sweep makes them (the rank's blocks at its variant, its local bits,
+    one shard): the first ``U†`` and ``∂U`` of each width and kind of gate
+    (a gate all on device bits is a scalar on bit 0) and each local Pauli
+    op of λ, against the plain version."""
+    import torch.distributed as dist
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.core.partition import partition
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sim.engine import ExecutionEngine
+
+    sym = PARAM_FAMILIES["isingparam"](spec["n"])
+    L = spec["L"]
+    eng = ExecutionEngine(sym, partition(sym, L, 2, 0), device=device, backend="shardmap")
+    theta = np.random.default_rng(spec["seed"]).uniform(0.0, 2 * np.pi, len(sym.param_names))
+    obs = spec["obs"]
+    dist.barrier()
+    t0 = time.perf_counter()
+    value, grads = eng.value_and_grad(obs, params=theta)
+    out = {"value": value, "grads": grads, "seconds": time.perf_counter() - t0,
+           "worst": None, "sampled": []}
+    if rank not in (0, dist.get_world_size() - 1):
+        return out
+    prog = eng.adjoint_program(obs)
+    inv, d = prog.tensors(eng.bound_circuit)
+    sample, seen, ii, di = [], set(), 0, 0
+    for walk, _ in reversed(prog._stages):
+        for gid, _, _, bits, scalar in reversed(walk):
+            slots = len(sym.gates[gid].param_slots)
+            key = (len(bits), scalar, bool(slots))
+            if key not in seen:
+                seen.add(key)
+                name = f"{sym.gates[gid].name}{sym.gates[gid].qubits}" + (" (scalar)" if scalar
+                                                                          else "")
+                sample.append((f"U† of {name}", inv[ii], bits))
+                if slots:
+                    sample.append((f"dU of {name}", d[di + slots - 1], bits))
+            ii += 1
+            di += slots
+    for factor, mask, local in prog._terms:
+        for b, u in local:
+            sample.append((f"Pauli on bit {b}", u[0].cpu().numpy(), (b,)))
+    gen = torch.Generator(device=device).manual_seed(29 + rank)
+    x = torch.randn(1 << L, dtype=torch.complex64, device=device, generator=gen)
+    vidx = torch.zeros(1, dtype=torch.int32, device=device)
+    worst = 0.0
+    for label, mat, bits in sample:
+        u = torch.from_numpy(np.ascontiguousarray(mat, dtype=np.complex64)).to(device)
+        u = u.reshape(1, *mat.shape)
+        err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
+                      ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
+        require(err < ATOL, f"rank {rank}: the sweep's fused_apply on {label} disagrees with "
+                            "its plain version")
+        out["sampled"].append((label, len(bits), list(bits), err))
+        worst = max(worst, err)
+    out["worst"] = worst
+    return out
+
+
+def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda",
+                   grad_n: int = SHARDMAP_VQE["sample_n"],
+                   grad_L: int = SHARDMAP_VQE["sample_L"]) -> dict:
     """The explicit-collective backend at the main path's width: ``plan``
     (``ising(30)``, L=28, R=2) on ``CudaBackend`` first (launches, every
     shard's fingerprint, shots/marginal/expectation through
@@ -646,13 +740,18 @@ def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda") -> dict:
     ``ShardMapExecutor`` (:func:`shardmap_rank`), held to it: launches per
     rank, each shard within SHARDMAP["atol"] (and whether bit for bit), the
     same shots and values within the tolerance, and each remap's bytes
-    against Eq. 2. ``device="cpu"`` dry-runs it on the host at a small
-    plan."""
+    against Eq. 2. Then on the same ranks a sharded ``value_and_grad`` of
+    ``isingparam(grad_n)`` at L=``grad_L`` (:func:`grad_sample_rank`): the
+    same answer on every rank, and the sweep's sampled launches on the first
+    and last rank against the plain version. ``device="cpu"`` dry-runs it
+    on the host at a small plan (and a small ``grad_n``)."""
     from repro_torch.sim.engine import ExecutionEngine
     from repro_torch.sim.measure import PauliSum, measurer_for
     from repro_torch.sim.ranks import run_ranks
 
     spec, world, L = dict(SHARDMAP), SHARDMAP["ranks"], plan.L
+    spec["grad"] = {"n": grad_n, "L": grad_L, "seed": SHARDMAP_VQE["sample_seed"],
+                    "obs": f"{VQE_OBS} + 0.25*X{grad_n - 1} Y{grad_n - 2} - 0.3*Y1 X0"}
     require(1 << (plan.R + plan.G) == world, f"the plan needs {1 << (plan.R + plan.G)} ranks")
     shard_bytes = 8 << L
     eng = ExecutionEngine(circuit, plan, device=device)
@@ -743,8 +842,20 @@ def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda") -> dict:
             "ShardedMeasurer's marginal or expectation differs from TorchMeasurer's")
     require(all(f["expect_traffic"]["permute"] >= 1 for f in found),
             "the X term on a device bit must permute shards")
+    grads = [f["grad"] for f in found]
+    for d, g in enumerate(grads):
+        require(g["value"] == grads[0]["value"] and np.array_equal(g["grads"], grads[0]["grads"])
+                and np.isfinite(g["value"]), f"rank {d}'s sharded value_and_grad differs")
+    for d in (0, world - 1):
+        log(f"  rank {d}: the sweep's launches of isingparam({grad_n}) L={grad_L} against the "
+            "plain version: " + "; ".join(f"{label} k={k} bits {bits} {err:.3e}"
+                                         for label, k, bits, err in grads[d]["sampled"]))
+    log(f"  isingparam({grad_n}) L={grad_L} value_and_grad on {world} ranks: "
+        f"{max(g['seconds'] for g in grads):.3f} s (slowest rank), value "
+        f"{grads[0]['value']:+.9f}, gradient {grads[0]['grads']} ({card})")
     worst = {k: max(f["worst"][k] for f in found if f["worst"] is not None)
              for k in ("fused", "shm")}
+    worst["fused"] = max([worst["fused"]] + [g["worst"] for g in grads if g["worst"] is not None])
     launches = {k: sum(w["launches"][k] for w in warm) for k in ("fused", "shm")}
     by_k = {k: world * c for k, c in want["by_k"].items()}
     return {"launches": dict(launches, by_k=by_k), "worst": worst, "wall_s": wall_s}
@@ -961,6 +1072,139 @@ def shardmap_cli_nccl_phase(card: str, device: str = "cuda",
     require(bitwise, "the NCCL world-size-1 CLI's marginal differs from CudaBackend's")
     require(not doc["remaps"], "world size 1 ran a remap")
     return {"launches": launches, "seconds": seconds}
+
+
+def shardmap_vqe_phase(ops, ref, probe, card: str, device: str = "cuda",
+                       n: int = SHARDMAP_VQE["n"], L: int = SHARDMAP_VQE["L"]) -> dict:
+    """Gradients on the shardmap backend through the CLI under ``torchrun``:
+    ``SHARDMAP_VQE_PATH`` (``isingparam(n)`` at L, R=2, one Adam step) on 4
+    gloo ranks of the one card. First, in this process, the target: one
+    ``CudaBackend`` ``value_and_grad`` of the same plan at the first angles.
+    Held from rank 0's ``--result-json``: the first value and gradient to
+    it; each rank's launches to the forward plan's ops plus the sweep's (two
+    ``fused_apply`` per gate, one per slot and per local Pauli op); each
+    rank's sweep bytes within its bound, and each inverse remap's to Eq. 2;
+    each rank's peak within four shards and 1 GiB; one adjoint program
+    built in two calls. Then ``fused_apply`` at k=1 and k=2 on one 2^L
+    shard (the sweep's launches, padded), timed beside its plain version
+    and one torch.matmul: the returned ``rows`` (for ``fused["by_k"]``).
+    ``device="cpu"`` dry-runs it on the host at a small ``n`` and ``L``."""
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+
+    spec, world = SHARDMAP_VQE, SHARDMAP_VQE["ranks"]
+    sym = PARAM_FAMILIES["isingparam"](n)
+    eng = engine_for(sym, L, spec["R"], 0, device=device, cache=None)
+    dev = eng.cc.programs[-1].layout[L:]
+    obs = f"{VQE_OBS} + 0.25*X{dev[1]} Y{dev[0]}"
+    theta0 = np.random.default_rng(VQE_SEED).uniform(0.0, 2 * np.pi, 2).astype(np.float32)
+    counts = eng.op_counts()
+    n_gates = len(eng.circuit.gates)
+    n_slots = sum(len(g.param_slots) for g in eng.circuit.gates)
+    sync(device)
+    t0 = time.perf_counter()
+    want_v, want_g = eng.value_and_grad(obs, params=theta0)
+    sync(device)
+    card_s = time.perf_counter() - t0
+    k_gates = {}
+    for g, bound in zip(eng.circuit.gates, eng.bound_circuit.gates):  # for the timings
+        if g.param_slots:
+            k_gates.setdefault(len(g.qubits), bound)
+    phys_of = {q: p for p, q in enumerate(eng.cc.programs[-1].layout)}
+    del eng
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    argv = list(SHARDMAP_VQE_PATH)
+    argv[argv.index("--qubits") + 1] = str(n)
+    argv[argv.index("--L") + 1] = str(L)
+    argv += ["--vqe", obs]
+    out, doc, seconds = torchrun(world, argv, spec["timeout"], device)
+    require(doc["op_counts"] == counts,
+            f"the CLI's program {doc['op_counts']} is not the in-card plan's {counts}")
+    v0, g0 = doc["energies"][0], np.asarray(doc["first_grad"])
+    dv, dg = abs(v0 - want_v), float(np.abs(g0 - want_g).max())
+    shard = 8 << L
+    sweeps = doc["sweeps"]
+    log(f"  {world} ranks through the CLI in {seconds:.1f} s (torchrun, imports, planning, "
+        f"build, two value_and_grad calls); observable {obs}; program {counts}")
+    log(f"  first value {v0:+.9f} and gradient {g0} against CudaBackend's {want_v:+.9f} and "
+        f"{want_g} ({card_s:.3f} s): |d| {dv:.3e}, {dg:.3e}")
+    require(dv <= spec["value_atol"] and dg <= spec["grad_atol"],
+            "the sharded value_and_grad differs from CudaBackend's")
+    log(f"  value_and_grad seconds {doc['grad_seconds']} (the first builds the adjoint "
+        f"program) on {world} gloo ranks, against {card_s:.3f} s on CudaBackend ({card})")
+    for d, w in enumerate(sweeps):
+        log(f"  rank {d}: forward {w['forward_s']:.3f} s, λ {w['lambda_s']:.3f} s, sweep kernels "
+            f"{w['kernels_s']:.3f} s, sweep remaps {w['remaps_s']:.3f} s; sweep bytes sent "
+            f"{w['bytes_sent']}, received {w['bytes_received']} (bound {w['bound']}); launches "
+            f"{doc['launches'][d]}; peak {gib(doc['peaks'][d])}")
+    for d, (c, w) in enumerate(zip(doc["launches"], sweeps)):
+        want_f = counts.get("fused", 0) + 2 * n_gates + n_slots + w["pauli_launches"]
+        require(c["fused"] == want_f and c["shm"] == counts.get("shm", 0)
+                and sum(c["by_k"].values()) == c["fused"],
+                f"rank {d} launched {c}: forward {counts} + sweep {2 * n_gates + n_slots} + "
+                f"{w['pauli_launches']} Pauli ops")
+        require(0 < w["bytes_sent"] <= w["bound"] and w["bytes_received"] <= w["bound"],
+                f"rank {d}: the sweep moved {w['bytes_sent']}/{w['bytes_received']} bytes, "
+                f"bound {w['bound']}")
+        if device == "cuda":  # ψ, λ, μ and one remap buffer
+            require(doc["peaks"][d] <= 4 * shard + (1 << 30),
+                    f"rank {d} held {gib(doc['peaks'][d])}, more than four shards and 1 GiB")
+    undo = [r for r in doc["remaps"] if str(r["slot"]).startswith("undo ")]
+    require(undo, "the sweep ran no inverse remap")
+    for r in undo:
+        a2a = shard - (shard >> r["m"]) if r["m"] else 0
+        perm = shard if r["permute"] else 0
+        log(f"  remap {r['slot']}: m={r['m']}, permute {r['permute']}; bytes sent per rank "
+            f"{r['bytes_sent']}; {r['seconds']:.3f} s (slowest rank)")
+        require(all(a2a <= b <= a2a + perm for b in r["bytes_sent"]),
+                f"remap {r['slot']}: bytes sent {r['bytes_sent']} break Eq. 2")
+    require(doc["adjoint_builds"] == 1 and len(doc["grad_seconds"]) == 2
+            and "no adjoint program built" in out,
+            "the second value_and_grad built an adjoint program")
+    by_k: dict = {}
+    for c in doc["launches"]:
+        for k, v in c["by_k"].items():
+            by_k[int(k)] = by_k.get(int(k), 0) + v
+    launches = {"fused": sum(c["fused"] for c in doc["launches"]),
+                "shm": sum(c["shm"] for c in doc["launches"]), "by_k": by_k}
+    rows = []
+    if device == "cuda":
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        x = torch.randn(1 << L, dtype=torch.complex64, device="cuda", generator=gen)
+        vidx = torch.zeros(1, dtype=torch.int32, device="cuda")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for k in (1, 2):
+                g = k_gates[k]
+                bits = tuple(phys_of[q] for q in g.qubits)
+                if max(bits) >= L:
+                    bits = tuple(range(k))
+                u = torch.from_numpy(np.ascontiguousarray(g.inverse_matrix, dtype=np.complex64))
+                u = u.to("cuda").reshape(1, 1 << k, 1 << k)
+                err = max_err(ops.fused_apply(x.clone(), u, vidx, bits, L),
+                              ref.fused_apply_ref(x.clone(), u, vidx, bits, L))
+                require(err < ATOL, f"fused_apply at k={k} on a 2^{L} shard disagrees with its "
+                                    "plain version")
+                ms = probe.time_ms(lambda: ops.fused_apply(x, u, vidx, bits, L))
+                plain_ms = probe.time_ms(lambda: ref.fused_apply_ref(x, u, vidx, bits, L), reps=3)
+                xt, ut = x.view(-1, 1 << k), u[0].transpose(0, 1).contiguous()
+                matmul_ms = probe.time_ms(lambda: torch.matmul(xt, ut))
+                cmacs = (1 << k) * (1 << L)
+                what = f"shardmap sweep, 2^{L} shard of n={n}"
+                row = entry("fused_apply", by_k.get(k, 0), err, ms, plain_ms,
+                            2 * shard + u.numel() * 8 + 4, TF32_PASSES * KARATSUBA_OPS * cmacs,
+                            TF32_OPS_PER_S, 8 * cmacs, matmul_ms,
+                            f"{what}: k={k} bits={list(bits)} V=1 (padded to I x U on 4 bits)")
+                rows.append(by_k_row(dict(row, k=k, path=what)))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del x
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows, "seconds": seconds,
+            "grad_seconds": doc["grad_seconds"]}
 
 
 def launches_match(ops, engine, what: str, per_op: int = 1, kinds=("fused", "shm")) -> dict:
@@ -2982,6 +3226,11 @@ def main() -> None:
         + " ".join(SHARDMAP_CLI_NCCL_PATH))
     paths["isingparam28_shardmap1_cli"] = shardmap_cli_nccl_phase(card)["launches"]
     torch.cuda.empty_cache()
+    log("== shardmap gradients under torchrun: {ranks} gloo ranks on the one card, ".format(
+        **SHARDMAP_VQE) + " ".join(SHARDMAP_VQE_PATH) + " --vqe <VQE_OBS + X/Y on device qubits>")
+    shardmap_vqe = shardmap_vqe_phase(ops, ref, probe, card)
+    paths["isingparam30_shardmap4_vqe"] = shardmap_vqe["launches"]
+    torch.cuda.empty_cache()
     log(f"  the shardmap phases took {time.time() - t_shardmap:.1f}s")
 
     t_grad = time.time()
@@ -2989,6 +3238,7 @@ def main() -> None:
     vqe = vqe_phase(simulate, ops, ref, probe, card, fused)
     paths["isingparam30_vqe"] = vqe["launches"]
     worst.append(vqe["worst"])
+    fused["by_k"] += shardmap_vqe["rows"]  # after the n=30 sweep's rows at the same widths
     log("== gradient oracle: su2param({n}, reps={reps}) L={L} R={R}".format(**ORACLE))
     paths["su2param20_grad"] = oracle_phase(ops, card, **ORACLE)["launches"]
     log("== grad_sweep: isingparam({n}) L={L} R={R}, P={P} bindings".format(**GRAD_SWEEP))

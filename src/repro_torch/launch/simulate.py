@@ -57,14 +57,15 @@ ILP comm weights), install the fastest under the default key, then run:
 
 The explicit-collective executor: one process per device of the 2^(R+G)
 bit-mesh, each holding one 2^L shard, started by ``torchrun`` (``python -m
-torch.distributed.run``). Every path above but ``--vqe`` (gradients on
-shards are not ported yet) runs on it; only rank 0 prints, with one line
-per remap and each rank's kernel launches. ``--dist-backend`` is ``nccl``
-on CUDA (one rank per card) and ``gloo`` on the CPU by default; several
-ranks on one card need ``gloo``. Under ``torchrun`` spell ``--n`` as
-``--qubits``: some Python versions' argparse takes ``--n`` after the script
-name for an abbreviation of torchrun's own options and stops. On 8 CPU
-processes, on one card, and on four cards over NCCL:
+torch.distributed.run``). Every path above runs on it, ``--vqe`` too (each
+rank sweeps its own shard back through the plan's stages); only rank 0
+prints, with one line per remap and each rank's kernel launches.
+``--dist-backend`` is ``nccl`` on CUDA (one rank per card) and ``gloo`` on
+the CPU by default; several ranks on one card need ``gloo``. Under
+``torchrun`` spell ``--n`` as ``--qubits``: some Python versions' argparse
+takes ``--n`` after the script name for an abbreviation of torchrun's own
+options and stops. On 8 CPU processes, on one card, and on four cards over
+NCCL:
   PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \\
       -m repro_torch.launch.simulate --circuit qft --qubits 10 --L 7 --R 2 --G 1 \\
       --executor shardmap --device cpu --check
@@ -74,6 +75,9 @@ processes, on one card, and on four cards over NCCL:
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.simulate --circuit ising --qubits 30 --L 28 --R 2 \\
       --executor shardmap --shots 1024 --result-json result.json
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.simulate --circuit isingparam --qubits 30 --L 28 --R 2 \\
+      --executor shardmap --dist-backend gloo --vqe "Z0 Z1 + 0.25*X5 Y4" --vqe-steps 1
 (``--result-json``: rank 0 writes the run's figures and results as JSON,
 since a worker's return value does not reach the caller.)
 """
@@ -136,11 +140,16 @@ class SimulateRun:
     bind_seconds: Optional[float] = None
     # --vqe: <H> after the first value_and_grad and after each step, the
     # final angles (ordered by param_names), and the seconds of each
-    # value_and_grad call (the first one first)
+    # value_and_grad call (the first one first); on the shardmap backend,
+    # the first call's gradient, and each rank's figures of its sweep
+    # (``ShardedAdjointProgram.last_sweep`` with the forward run's seconds
+    # and the sweep's byte bound)
     energies: List[float] = field(default_factory=list)
     theta: Optional[np.ndarray] = None
     param_names: Tuple[str, ...] = ()
     grad_seconds: List[float] = field(default_factory=list)
+    first_grad: Optional[np.ndarray] = None
+    sweeps: List[dict] = field(default_factory=list)
     launches: List[dict] = field(default_factory=list)
     peaks: List[int] = field(default_factory=list)
     remaps: List[dict] = field(default_factory=list)
@@ -331,7 +340,9 @@ def _write_json(path: str, run: SimulateRun) -> None:
            "device": str(ex.device), "op_counts": ex.op_counts(), "seconds": run.seconds,
            "build_seconds": run.build_seconds, "fidelities": run.fidelities,
            "launches": run.launches, "peaks": run.peaks, "remaps": run.remaps,
-           "energies": run.energies,
+           "energies": run.energies, "grad_seconds": run.grad_seconds,
+           "first_grad": None if run.first_grad is None else run.first_grad.tolist(),
+           "sweeps": run.sweeps, "adjoint_builds": ex.adjoint_builds,
            "results": [result(r) for r in ([run.result] if run.result else run.results)]}
     with open(path, "w") as f:
         json.dump(doc, f)
@@ -447,9 +458,6 @@ def main(argv=None) -> SimulateRun:
             ap.error("--checkpoint-dir and --storage are mutually exclusive")
     ctx = None
     if args.executor == "shardmap":
-        if args.vqe is not None:
-            ap.error("--vqe needs gradients on shards, which the shardmap executor does not "
-                     "have yet (ROADMAP A11c)")
         try:
             ctx = launch_dist.join(args.dist_backend, args.device)
         except launch_dist.LaunchError as e:
@@ -669,7 +677,10 @@ def _vqe(args, ex: ExecutionEngine, plan: SimulationPlan, build_s, bind_s) -> Si
     from angles drawn with ``--vqe-seed``; one value_and_grad before the
     first step and one after each. The iterations must run no solver, miss
     no entry of the structural cache, schedule no ``shm`` program and build
-    no adjoint program: each is checked, and a breach raises."""
+    no adjoint program: each is checked, and a breach raises. The first
+    call's launches (and peak) per rank are reported; on the shardmap
+    backend every rank runs the loop alike, and the first call's sweep
+    figures of every rank are gathered into ``run.sweeps``."""
     from ..core import kernelization, staging
     from ..optim.adamw import AdamWConfig, init as adam_init, update as adam_update
 
@@ -690,9 +701,14 @@ def _vqe(args, ex: ExecutionEngine, plan: SimulationPlan, build_s, bind_s) -> Si
         run.energies.append(value)
         return value, grads
 
+    before = _launch_counts()
     value, grads = step_grad()
+    run.first_grad = np.asarray(grads, dtype=np.float64)
     print(f"VQE over {len(names)} params, H = {args.vqe}; first value+grad (incl. the "
           f"adjoint program's build) in {run.grad_seconds[0]:.3f}s")
+    _report_ranks(ex, run, before)
+    if ex.backend.name == "shardmap":
+        _report_sweeps(ex, run, args.vqe)
 
     def warm_counts():
         return (dict(staging.SOLVER_CALLS), dict(kernelization.SOLVER_CALLS),
@@ -715,6 +731,26 @@ def _vqe(args, ex: ExecutionEngine, plan: SimulationPlan, build_s, bind_s) -> Si
           f"({run.seconds / max(args.vqe_steps, 1):.3f}s/step; no solver call, no structural-"
           "cache miss, no shm program scheduled, no adjoint program built)")
     return run
+
+
+def _report_sweeps(ex: ExecutionEngine, run: SimulateRun, observable: str) -> None:
+    """The shardmap backend's first sweep on every rank (each rank calls
+    it): its forward run's, λ's, the gate applications' and the inverse
+    remaps' seconds, and the bytes it sent and received against the
+    sweep's bound, into ``run.sweeps`` and printed."""
+    prog = ex.adjoint_program(observable)
+    keys = ("forward_s", "lambda_s", "kernels_s", "remaps_s", "bytes_sent", "bytes_received",
+            "bound", "pauli_launches")
+    mine = dict(prog.last_sweep, forward_s=ex.timings["run_packed"]["last_us"] / 1e6,
+                bound=prog.sweep_bytes_bound(), pauli_launches=prog.pauli_launches)
+    rows = ex.backend.transport.all_gather(np.array([mine[k] for k in keys], dtype=np.float64))
+    run.sweeps = [{k: (int(v) if k in ("bytes_sent", "bytes_received", "bound",
+                                       "pauli_launches") else float(v))
+                   for k, v in zip(keys, row)} for row in rows]
+    for d, w in enumerate(run.sweeps):
+        print(f"  sweep on rank {d}: forward {w['forward_s']:.3f}s, lambda {w['lambda_s']:.3f}s, "
+              f"gates {w['kernels_s']:.3f}s, inverse remaps {w['remaps_s']:.3f}s; bytes sent "
+              f"{w['bytes_sent']}, received {w['bytes_received']} (bound {w['bound']})")
 
 
 def _measure(measurer, backend: str, args, marginals) -> SimulationResult:

@@ -29,8 +29,8 @@ travel as host tensors over gloo and as device tensors over NCCL, as the
 transport decides when it is built.
 
 :data:`COLLECTIVE_CALLS` counts the transport's collectives by kind and the
-bytes this rank sent to other ranks, as ``KERNEL_CALLS`` counts the kernels'
-launches.
+bytes this rank sent to and received from other ranks in the exchanges and
+point-to-point calls, as ``KERNEL_CALLS`` counts the kernels' launches.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-COLLECTIVE_CALLS = {"all_to_all": 0, "permute": 0, "bytes_sent": 0, "all_reduce": 0,
-                    "all_gather": 0, "broadcast": 0, "send": 0}
+COLLECTIVE_CALLS = {"all_to_all": 0, "permute": 0, "bytes_sent": 0, "bytes_received": 0,
+                    "all_reduce": 0, "all_gather": 0, "broadcast": 0, "send": 0}
 
 
 def reset_collective_counters() -> None:
@@ -112,6 +112,7 @@ class Transport:
         dist.all_to_all_single(out, x, splits, splits, group=self.group)
         COLLECTIVE_CALLS["all_to_all"] += 1
         COLLECTIVE_CALLS["bytes_sent"] += x.nbytes - x[0].nbytes  # the own row stays
+        COLLECTIVE_CALLS["bytes_received"] += out.nbytes - out[0].nbytes
         return out
 
     def permute(self, x: torch.Tensor, dst: int, src: int, out: torch.Tensor) -> torch.Tensor:
@@ -125,6 +126,8 @@ class Transport:
         COLLECTIVE_CALLS["permute"] += 1
         if dst != self.rank:
             COLLECTIVE_CALLS["bytes_sent"] += x.nbytes
+        if src != self.rank:
+            COLLECTIVE_CALLS["bytes_received"] += out.nbytes
         return out
 
     # ------------------------------------------------------- small results
@@ -168,6 +171,7 @@ class Transport:
     def recv(self, like: np.ndarray, src: int) -> np.ndarray:
         t = torch.from_numpy(np.empty_like(like)).to(self.wire)
         dist.recv(t, self._global(src), group=self.group)
+        COLLECTIVE_CALLS["bytes_received"] += t.nbytes
         return t.cpu().numpy()
 
     def _global(self, rank: int) -> int:

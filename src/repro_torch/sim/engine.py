@@ -29,7 +29,9 @@ The twin of ``repro/sim/engine.py`` for the meshless single-device case:
 * :class:`DenseBackend` is the per-gate oracle behind the same API;
 * ``value_and_grad`` / ``grad_sweep`` differentiate ``<ψ(θ)|H|ψ(θ)>`` by
   the adjoint reverse sweep (:mod:`repro_torch.sim.adjoint`) over the
-  forward state, on the engine's device;
+  forward state, on the engine's device; on the shardmap backend each rank
+  sweeps its own shard back through the plan's stages
+  (:class:`~repro_torch.sim.adjoint.ShardedAdjointProgram`);
 * :func:`engine_for` is the serving entry point: a structural
   :class:`CircuitKey` -> engine LRU (:class:`CompileCache`) that rebinds a
   cached engine to new angles instead of planning again. With no explicit
@@ -61,8 +63,7 @@ backend or kernel that fails to build raises its typed error
 (``XlaTraceError`` from a backend's setup, ``PallasLoweringError`` when the
 kernels do not build or load). The fault sites are the reference's, named
 as in :mod:`repro_torch.sim.faults`. Not in this module: the reference's
-meshed ``PjitBackend`` (GSPMD has no torch twin), and gradients on the
-shardmap backend (ROADMAP A11c).
+meshed ``PjitBackend`` (GSPMD has no torch twin).
 """
 
 from __future__ import annotations
@@ -179,13 +180,25 @@ class RemapPlan:
     post_perm: Tuple[int, ...]  # local transpose after a2a (view axes)
 
 
-def _build_remap_plan(spec: RemapSpec, n: int, L: int) -> RemapPlan:
+def _build_remap_plan(spec: RemapSpec, n: int, L: int,
+                      pair_by_target: bool = False) -> RemapPlan:
+    """The reference's plan of ``spec``. It pairs the outgoing local bits
+    with the incoming device bits in descending order, so a local bit may
+    land on another device bit than its target and the residual permute
+    moves it. ``pair_by_target`` sends each outgoing local bit straight to
+    the device bit that is its target, so only device-to-device moves and
+    flips on device bits are left for the permute (the inverse remaps of
+    the sharded gradient sweep; the forward keeps the reference's plan)."""
     src = spec.src_bit_of
     flips = set(spec.flip_bits)
     nonlocal_bits = list(range(L, n))
 
     s_out = sorted({src[p] for p in nonlocal_bits if src[p] < L}, reverse=True)
     s_in = sorted({src[p] for p in range(L) if src[p] >= L}, reverse=True)
+    if pair_by_target:  # device bit s_in[t] takes its own target where that is local
+        direct = {t: src[s] for t, s in enumerate(s_in) if src[s] < L}
+        rest = [b for b in s_out if b not in direct.values()]
+        s_out = [direct[t] if t in direct else rest.pop(0) for t in range(len(s_in))]
     m = len(s_out)
     assert len(s_in) == m, "local<->nonlocal exchange must be balanced"
 
@@ -1236,9 +1249,11 @@ class ShardMapBackend(CudaBackend):
     corrupt the state). ``run``, ``run_packed`` and
     ``finalize`` return the rank's shard. Every rank of the group makes the
     same calls in the same order. Batches run one element at a time, as in
-    the reference; there is no fused sweep or gradient. ``trace`` holds the
-    last run's remaps: slot, ``m``, whether a permute ran, the bytes this
-    rank sent, and seconds."""
+    the reference; there is no fused sweep, and gradients run one binding at
+    a time (:class:`~repro_torch.sim.adjoint.ShardedAdjointProgram`).
+    ``trace`` holds the last run's remaps, then those of a gradient sweep
+    after it: slot, ``m``, whether a permute ran, the bytes this rank sent,
+    and seconds."""
 
     name = "shardmap"
     holds_whole_state = False
@@ -1323,10 +1338,13 @@ class ShardMapBackend(CudaBackend):
             raise ValueError(f"psi0 has {psi.numel()} amplitudes, expected 2^{eng.n}")
         return self._shard(psi)
 
-    def remap(self, x: torch.Tensor, slot, reuse: bool = False) -> torch.Tensor:
-        """Remap ``slot``'s choreography on this rank's shard ``x``; with
-        ``reuse`` the exchange may overwrite ``x``."""
-        rp, L, dev = self._plans[slot], self.engine.L, self.engine.device
+    def remap(self, x: torch.Tensor, slot, reuse: bool = False,
+              rp: Optional[RemapPlan] = None) -> torch.Tensor:
+        """Remap ``slot``'s choreography (or ``rp``'s, recorded under
+        ``slot``) on this rank's shard ``x``; with ``reuse`` the exchange may
+        overwrite ``x``."""
+        rp = self._plans[slot] if rp is None else rp
+        L, dev = self.engine.L, self.engine.device
         _sync(dev)
         t0 = time.perf_counter()
         sent = collective.COLLECTIVE_CALLS["bytes_sent"]
@@ -1807,26 +1825,24 @@ class ExecutionEngine:
     def adjoint_program(self, observable) -> "AdjointProgram":
         """The cached :class:`repro_torch.sim.adjoint.AdjointProgram` for
         this engine's structure and ``observable``, on the engine's device
-        and kernel setting; every binding reuses it (each one built counts
-        into :attr:`adjoint_builds`)."""
-        from .adjoint import AdjointProgram
+        and kernel setting (a :class:`~repro_torch.sim.adjoint.ShardedAdjointProgram`
+        on a backend whose ranks hold shards); every binding reuses it (each
+        one built counts into :attr:`adjoint_builds`)."""
+        from .adjoint import AdjointProgram, ShardedAdjointProgram
         from .measure import PauliSum
 
         key = str(PauliSum.coerce(observable))
         with self.lock:
             prog = self._adjoint_progs.get(key)
             if prog is None:
-                prog = AdjointProgram(self.circuit, observable, device=self.device,
-                                      use_kernels=self.use_kernels)
+                if self.backend.holds_whole_state:
+                    prog = AdjointProgram(self.circuit, observable, device=self.device,
+                                          use_kernels=self.use_kernels)
+                else:
+                    prog = ShardedAdjointProgram(self.circuit, observable, self.backend)
                 self._adjoint_progs[key] = prog
                 self.adjoint_builds += 1
             return prog
-
-    def _require_whole_states(self, what: str) -> None:
-        if not self.backend.holds_whole_state:
-            raise NotImplementedError(
-                f"{what} is not ported to the {self.backend.name} backend yet (ROADMAP A11c): "
-                "the adjoint sweep needs whole states, and each rank holds one shard")
 
     def _on_device(self, states: torch.Tensor) -> torch.Tensor:
         """A run's output as the reverse sweep takes it: ``[rows, 2^n]`` on
@@ -1842,15 +1858,20 @@ class ExecutionEngine:
         gives every parameter's gradient — three state passes, however many
         parameters. ``params`` (optional) rebinds first; gradients are
         ordered by :attr:`param_names` (float64). No solver call and no new
-        adjoint program after the first call per observable."""
-        self._require_whole_states("value_and_grad")
+        adjoint program after the first call per observable. On the
+        shardmap backend every rank calls it and returns the same numbers:
+        the forward run stops before its final remap and each rank sweeps
+        its shard (:class:`~repro_torch.sim.adjoint.ShardedAdjointProgram`)."""
         with self.lock:
             if params is not None:
                 self.bind(params)
             self._require_bound()
             t0 = time.perf_counter()
             prog = self.adjoint_program(observable)
-            psi = self._on_device(self.run(psi0))
+            if self.backend.holds_whole_state:
+                psi = self._on_device(self.run(psi0))
+            else:
+                psi = self.run_packed(psi0).view(1, -1)
             values, grads = prog.sweep_(psi, *prog.tensors(self.bound_circuit))
             self._record_time("value_and_grad", (time.perf_counter() - t0) * 1e6)
         return float(values[0]), grads[0]
@@ -1860,13 +1881,16 @@ class ExecutionEngine:
         grads [P, n_params])``. The forward states come from
         :meth:`run_sweep`; when the backend reports ``supports_fused_grad``
         the reverse sweeps run on all P states at once (every gate
-        application one launch for all P), otherwise point by point. Either
-        way through one cached adjoint program."""
-        self._require_whole_states("grad_sweep")
+        application one launch for all P), otherwise point by point (on the
+        shardmap backend each point's forward run and sweep before the
+        next's). Either way through one cached adjoint program."""
         points = self._sweep_points(params_batch)
         if not points:
             raise ValueError("empty params_batch")
         with self.lock:
+            if not self.backend.holds_whole_state:
+                rows = [self.value_and_grad(observable, pt, psi0) for pt in points]
+                return np.asarray([v for v, _ in rows]), np.stack([g for _, g in rows])
             prog = self.adjoint_program(observable)
             bounds = [self.circuit.bind(pt) for pt in points]
             states = self.run_sweep(psi0, points)

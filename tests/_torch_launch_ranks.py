@@ -32,6 +32,11 @@ def _summary(run) -> dict:
         "remaps": run.remaps,
         "op_counts": run.engine.op_counts(),
         "autotune": run.engine.provenance.get("autotune"),
+        "energies": list(run.energies),
+        "theta": run.theta,
+        "param_names": list(run.param_names),
+        "sweeps": run.sweeps,
+        "adjoint_builds": run.engine.adjoint_builds,
     }
 
 

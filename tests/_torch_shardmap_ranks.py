@@ -146,7 +146,7 @@ def run_guard(rank, case, params):
     return out
 
 
-def run_errors(rank, cases, mismatched_plan):
+def run_errors(rank, cases, mismatched_plan, grad_obs):
     case = cases["ising"]
     out = {}
     try:
@@ -162,15 +162,8 @@ def run_errors(rank, cases, mismatched_plan):
         except faults.BackendBuildError as e:
             out["fault"] = (type(e).__name__, e.injected)
     eng = _engine(case)
-    for what in ("value_and_grad", "grad_sweep"):
-        try:
-            if what == "value_and_grad":
-                eng.value_and_grad("Z0")
-            else:
-                eng.grad_sweep([[]], "Z0")
-            out[what] = "no error"
-        except NotImplementedError as e:
-            out[what] = str(e)
+    out["value_and_grad"] = eng.value_and_grad(grad_obs)
+    out["grad_sweep"] = eng.grad_sweep([[]], grad_obs)
     circ = Circuit.from_json(case["circuit"])
     plan = SimulationPlan.from_json(case["plan"])
     key = circuit_key_for(circ, plan.L, plan.R, plan.G, backend="shardmap", device="cpu")
@@ -182,12 +175,12 @@ def run_errors(rank, cases, mismatched_plan):
     return out
 
 
-def main(rank, cases, measure_spec, guard_case, guard_params, mismatched_plan):
+def main(rank, cases, measure_spec, guard_case, guard_params, mismatched_plan, grad_obs):
     found = {}
     for part, call in (("cases", lambda: run_cases(rank, cases)),
                        ("measure", lambda: run_measure(rank, cases, measure_spec)),
                        ("guard", lambda: run_guard(rank, guard_case, guard_params)),
-                       ("errors", lambda: run_errors(rank, cases, mismatched_plan))):
+                       ("errors", lambda: run_errors(rank, cases, mismatched_plan, grad_obs))):
         try:
             found[part] = call()
         except Exception:

@@ -10,10 +10,12 @@ heavy job at a time, so the suite's other workers keep their share of the
 cores) and returns its results as JSON. Held: the reference's shots for the seed,
 marginals and expectations within 1e-6, states within 1e-5, fidelity
 ``>= 1 - 1e-6``, and the same result (and autotune choice) on every rank;
-only rank 0 prints, with one line per remap whose bytes are Eq. 2's. Then
-the refusals (a world size other than 2^(R+G), ``--vqe``, NCCL on the CPU,
-no launcher, a rank that planned otherwise), a batch built column-wise per
-rank, and two real launches under ``torchrun``.
+only rank 0 prints, with one line per remap whose bytes are Eq. 2's.
+``--vqe`` gives the reference CLI's energies and angles within 1e-4 (its
+tolerance in ``tests/test_torch_grad.py``) on every rank. Then the
+refusals (a world size other than 2^(R+G), NCCL on the CPU, no launcher, a
+rank that planned otherwise), a batch built column-wise per rank, and two
+real launches under ``torchrun``.
 """
 
 import json
@@ -35,6 +37,11 @@ SRC = os.path.join(ROOT, "src")
 WORLD = 8
 BASE = ["--L", "7", "--R", "2", "--G", "1", "--executor", "shardmap"]
 OBS = "Z0 Z1 + 0.5*X9"
+# qubits 0, 1 and 3 are the device qubits of isingparam(10)'s last stage
+# (L=7, R=2, G=1): Z on them, X/Y on them alone and beside a local X
+VQE = ["--vqe", "Z0 Z1 + Z1 Z2 + 0.5*X5 - 0.4*X1 Y3 + 0.3*Y0 X8", "--vqe-steps", "4",
+       "--vqe-seed", "3"]
+VQE_ATOL = 1e-4  # tests/test_torch_grad.py::test_vqe_cli_matches_reference's
 POINTS = [{"J": 0.35, "h": 0.8}, {"J": -1.1, "h": 0.2}]
 STATE_ATOL = 1e-5  # complex64 through a few dozen gates, against the reference
 MEASURE_ATOL = 1e-6
@@ -57,10 +64,10 @@ def _cases(sweep_file):
                     "--bind", "h=0.8"],) * 2,
         "opt": (["--circuit", "qft", "--n", "10", "--opt", "--check"],) * 2,
         "autotune": (["--circuit", "qft", "--n", "10", "--autotune", "--check"],) * 2,
-        # refusals, on every rank
+        "vqe": (["--circuit", "isingparam", "--n", "10"] + VQE,) * 2,
+        # a refusal, on every rank
         "world": (["--circuit", "qft", "--n", "10", "--L", "8", "--R", "1", "--G", "1",
                    "--executor", "shardmap"], None),
-        "vqe": (["--circuit", "isingparam", "--n", "10", "--vqe", "Z0 Z1"], None),
     }
 
 
@@ -71,6 +78,9 @@ import numpy as np
 from repro.launch.simulate import main
 
 def enc(out):
+    if isinstance(out, dict):  # --vqe
+        return {"energy": out["energy"], "theta": np.asarray(out["theta"]).tolist(),
+                "param_names": list(out["param_names"])}
     if isinstance(out, list):
         return {"results": [{"samples": r.samples.tolist(),
                              "marginals": {",".join(map(str, q)): m.tolist()
@@ -271,9 +281,26 @@ def test_wrong_world_size_is_refused_on_every_rank(runs):
 
 
 def test_vqe_is_refused_on_every_rank(runs):
-    _, ranks = runs
-    for d, c in enumerate(_part(ranks, "cases")):
-        assert c["vqe"]["exit"] == 2 and "A11c" in c["vqe"]["stderr"], d
+    """``--vqe`` on the 8 ranks: no rank refuses or exits; every rank ends
+    with the reference CLI's energy and angles (within 1e-4) and the same
+    trajectory as rank 0, builds one adjoint program, and rank 0 prints the
+    loop, each rank's sweep (its bytes within the bound) and one line per
+    inverse remap."""
+    ref, got = _case(runs, "vqe")
+    for d, g in enumerate(got):
+        assert g["param_names"] == ref["param_names"], d
+        assert abs(g["energies"][-1] - ref["energy"]) <= VQE_ATOL, d
+        assert np.abs(g["theta"] - np.asarray(ref["theta"])).max() <= VQE_ATOL, d
+        assert len(g["energies"]) == 5 and g["adjoint_builds"] == 1, d
+        assert g["energies"] == got[0]["energies"] and np.array_equal(g["theta"], got[0]["theta"])
+        assert g["sweeps"] == got[0]["sweeps"] and len(g["sweeps"]) == WORLD, d
+    out = got[0]["stdout"]
+    assert "VQE done" in out and "no adjoint program built" in out
+    assert all(w["bytes_sent"] <= w["bound"] and w["bytes_received"] <= w["bound"]
+               for w in got[0]["sweeps"])
+    undo = [r for r in got[0]["remaps"] if str(r["slot"]).startswith("undo ")]
+    assert undo and sum(ln.startswith("  remap undo ") for ln in out.splitlines()) == len(undo)
+    assert sum(ln.startswith("  sweep on rank ") for ln in out.splitlines()) == WORLD
 
 
 def test_a_rank_that_planned_otherwise_stops_every_rank(runs):

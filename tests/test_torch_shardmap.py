@@ -24,8 +24,9 @@ reference's ``partition``; the port compiles them with its own copy.
   ``marginal_np`` / ``expectation_np``; an X/Y term on device bits costs
   one permute of one shard, the others no shard traffic;
 * the guard (no retry when clean; a NaN on one rank recovered on every rank
-  by one re-run; a poisoned re-run raises on every rank) and the typed
-  setup errors.
+  by one re-run; a poisoned re-run raises on every rank), the typed setup
+  errors, and ``value_and_grad``/``grad_sweep`` on every rank
+  (``tests/test_torch_shardmap_grad.py`` holds the gradients at length).
 """
 
 import os
@@ -64,6 +65,7 @@ MEASURE = {"cases": ["qft", "ising", "random1", "random3"], "shots": 256, "seed"
            "marginals": [(0, 1, 2), (7, 3), (5,)],
            "observables": ["Z0 Z1 + 0.5*X7 - 0.3*Y6 X2 + 0.2*Y7 Y1 Z5",
                            "X0 X1 X2 X3 X4 X5 X6 X7 + Y3 - 0.7*Z4 Z7 + 0.25"]}
+GRAD_OBS = "Z0 + 0.5*X8"  # gradients of ising(9), which has no parameters
 
 
 def _remaps(cc):
@@ -109,7 +111,8 @@ def ranks(refs, tmp_path_factory):
     guard_case = {"circuit": sym.to_json(), "plan": partition(sym, 6, 2, 1).to_json()}
     mismatched = partition(CASES["ising"][0], 7, 1, 1).to_json()  # 2^(R+G) = 4 ranks
     return run_ranks(rank_side.main, WORLD, str(tmp_path_factory.mktemp("rendezvous")),
-                     args=(cases, MEASURE, guard_case, {"J": 0.7, "h": -0.4}, mismatched),
+                     args=(cases, MEASURE, guard_case, {"J": 0.7, "h": -0.4}, mismatched,
+                           GRAD_OBS),
                      threads=1, timeout=300, init_timeout=120)
 
 
@@ -374,12 +377,22 @@ def test_guard_on_every_rank(ranks):
         assert g["poisoned_provenance"]["integrity_recovered"] == 1, d
 
 
-def test_setup_errors_are_typed_with_no_rung(ranks):
+def test_setup_errors_are_typed_with_no_rung(refs, ranks):
+    """The typed setup errors, and gradients on every rank: ``value_and_grad``
+    and ``grad_sweep`` of ``<Z0 + 0.5*X8>`` on the shardmap engine (no
+    parameters: the value alone) give the oracle state's expectation, the
+    same on every rank."""
     errors = _part(ranks, "errors")
+    want = expectation_np(np.asarray(simulate(refs["ising"]["circ"])).reshape(-1), GRAD_OBS)
     for d, e in enumerate(errors):
         assert e["mismatch"][0] == "BackendBuildError" and "needs 4 ranks" in e["mismatch"][1]
         assert e["fault"] == ("XlaTraceError", True), d
-        assert "A11c" in e["value_and_grad"] and "A11c" in e["grad_sweep"], d
+        value, grads = e["value_and_grad"]
+        values, sweep_grads = e["grad_sweep"]
+        assert abs(value - want) <= STATE_ATOL and grads.shape == (0,), d
+        assert values.tolist() == [value] and sweep_grads.shape == (1, 0), d
+        assert (value, values.tolist()) == (errors[0]["value_and_grad"][0],
+                                            errors[0]["grad_sweep"][0].tolist()), d
         assert e["cached"], d
     assert len({e["key"] for e in errors}) == WORLD  # the rank is part of the placement
 
@@ -404,6 +417,10 @@ def test_shardmap_needs_a_process_group():
 
 @pytest.mark.parametrize("bad,match", [(1, "rank 1 fails on purpose"), (-1, "overran")])
 def test_run_ranks_fails_on_a_failing_or_hung_rank(tmp_path, bad, match):
+    """A rank that raises fails the run with its traceback as soon as it
+    does (a limit that a slow spawn under load cannot reach); a hung rank
+    fails it at the run's short limit, however long the spawn took."""
+    limit = 10 if bad < 0 else 120
     with pytest.raises(RanksFailed, match=match):
         run_ranks(rank_side.fail_on_rank, 2, str(tmp_path), args=(bad,), threads=1,
-                  timeout=10, init_timeout=10)
+                  timeout=limit, init_timeout=limit)

@@ -23,10 +23,11 @@ card) through ``ShardMapExecutor`` with the hand kernels, against the same
 plan on ``CudaBackend``: kernel launches per rank, every shard through every
 256th amplitude and a checksum of its bits (within 1e-6, and whether bit
 for bit), each remap's m, permute, bytes per rank against Eq. 2 and
-seconds, peak device memory per rank, and 1024 shots, the marginal
-``(0, 1, 2)`` and ``<Z0 Z1 + 0.5*X29>`` (plus an X term on a device qubit
-when qubit 29 is local in the plan's last layout) through
-``ShardedMeasurer`` against ``TorchMeasurer`` on the in-card state; the
+seconds, peak device memory per rank, and the marginal ``(0, 1, 2)`` and
+``<Z0 Z1 + 0.5*X29>`` (plus an X term on a device qubit when qubit 29 is
+local in the plan's last layout) through ``ShardedMeasurer`` against
+``TorchMeasurer`` on the in-card state (the shardmap serving phase holds
+``ShardedMeasurer``'s shots on 2^28 shards); the
 first and last rank hold every kernel op at their shard and variants
 against its plain version. Then world size 1 over NCCL: ``qft(28)`` at
 L=28 through ``ShardMapExecutor`` bit for bit against ``CudaBackend``.
@@ -77,14 +78,14 @@ of 4 ``isingparam(28)`` bindings against the in-card ones, their kernel ops
 on shard 0 against the plain versions.
 
 Then the offload backend's shard store and stage checkpoints: the spill
-directory's disk and the host's memory; ``ising(30)`` L=26 R=4 through
-``--executor offload --storage bf16`` with a DRAM budget of half the 4 GiB
+directory's disk and the host's memory; ``ising(29)`` L=25 R=4 through
+``--executor offload --storage bf16`` with a DRAM budget of half the 2 GiB
 at rest (the rest spilled to disk under ``build/``), held shard by shard
 within its own error bound against the in-card run of the same plan, with
 its stage, out-of-core remap and spill figures; on that state, Pauli terms
 with 2 and 3 non-local X/Y qubits through the streaming measurer (its peak
 device memory, and the values against the same terms on the in-card state);
-``ising(29)`` L=25 R=4 through the int8 tier, spilled, under the same checks;
+``ising(28)`` L=24 R=4 through the int8 tier, spilled, under the same checks;
 and ``ising(28)`` L=24 R=4 with ``--checkpoint-dir``, killed by an injected
 ``shard_transfer_error`` inside stage 1 and resumed in a fresh engine to the
 uninterrupted run's state bit for bit, that run held against the in-card
@@ -96,11 +97,11 @@ smoke points ``REPRO_CALIBRATION_DIR`` at a fresh ``build/calibration``
 first, so every phase above plans on the reference's analytic constants
 as before): ``python -m repro_torch.sim.profiler --L 28 --repeats 3
 --verify`` through ``main(argv)`` (each field beside the constant it
-replaces; both kernels launched by the profile); ``ising(30)`` and
-``qsvm(30)`` L=28 R=2 planned under the resolved calibration against the
+replaces; both kernels launched by the profile); ``ising(28)`` and
+``qsvm(28)`` L=26 R=2 planned under the resolved calibration against the
 analytic constants (stages, fused widths, shm ops, run seconds, both
 against the dense oracle on the card, the calibrated engine's kernel ops
-against their plain versions); ``--autotune`` on ``ising(30)`` (every
+against their plain versions); ``--autotune`` on ``ising(28)`` (every
 candidate's replay, the choice, the tuning's peak device memory; then
 ``engine_for`` with default knobs is a cache hit with no solver call); the
 integrity guard at n=28 (clean ``run``/``run_packed`` with ``verify=True``
@@ -115,10 +116,11 @@ Then the simulation service (``repro_torch.serve``, what ``python -m
 repro_torch.launch.serve_sim`` drives), planned on that calibration:
 ``SimulationService`` with its defaults (the card, the hand kernels), max
 batch 8, max wait 5 ms, tenants gold (weight 4) and free (1); one warm-up
-request each for ``isingparam(28)``, ``su2param(28)`` at one layer (L=26, R=2),
-``qft(28)`` and ``ising(30)`` (L=28, R=2), then a burst of 40
-parameterized requests (``<Z0 Z1 + 0.5*X2>`` each, 4 with 64 shots and a
-marginal), 3 identical ``qft(28)`` requests and one ``ising(30)``: no
+request each for ``isingparam(26)``, ``su2param(26)`` at one layer (L=24, R=2),
+``qft(26)`` and ``ising(28)`` (L=26, R=2),
+then a burst of 40 parameterized requests (``<Z0 Z1 + 0.5*X2>`` each, 4
+with 64 shots and a marginal), 3 identical ``qft(26)`` requests and one
+``ising(28)``: no
 solver call, no shm program scheduled and no cache miss, each batch one
 launch per compiled op, the ``qft`` group one run; every response against
 its binding run alone on the same engine, the first point of each
@@ -129,6 +131,17 @@ build failure quarantined; the JSON-lines front end on the loopback; and
 each structure's warm run planned on the calibration against the analytic
 constants. It prints the stage percentiles, the coalesce factor, the
 padded-row share, the launches of every batch and the peak device memory.
+Then serving on the shardmap backend: ``serve_sim --backend shardmap`` under
+``torchrun`` on 4 gloo ranks of the card (``isingparam(30)`` L=28 R=2, one
+2 GiB shard a rank, the card's calibration), driven as a client over the
+wire: 8 ``isingparam(30)`` requests with an X term on a device qubit (two
+batches of 4; one with 64 shots and a marginal) and 2 identical concrete
+``ising(30)`` requests (one dedup run), then ``stats``; each answer held to
+the binding run alone on ``CudaBackend`` (``TorchMeasurer``'s shots for the
+seed), and from ``stats()["ranks"]`` each rank's launches (the plan's ops
+times the rows), each remap's bytes (Eq. 2), the warm batch's solver
+calls, shm schedules and cache misses (none) and peak; then the session is
+ended and every rank must be gone.
 
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
@@ -187,30 +200,32 @@ OFFLOAD_PATH = ["--circuit", "ising", "--n", "31", "--L", "27", "--R", "4", "--e
 PERGATE = {"n": 26, "L": 22, "R": 4}  # qft(26): staged offload against the per-gate baseline
 OFFLOAD_ROWS = {"n": 28, "L": 26, "R": 2, "B": 2, "P": 4}
 FIDELITY_MIN = 1 - 1e-5
-# the shard store: ising(30) at rest in bf16 (4 GiB) with half of it in a
-# DRAM budget, the rest on disk; ising(29) in int8 (0.5 GiB at rest) with
+# the shard store: ising(29) at rest in bf16 (2 GiB) with half of it in a
+# DRAM budget, the rest on disk; ising(28) in int8 (256 MiB at rest) with
 # half spilled. int8 loses ~0.75% of a shard's norm per encode and a run
 # encodes every shard three times, which the default tolerance (0.05) does
-# not allow: the int8 run takes 0.25. The store and checkpoint runs are cut
+# not allow: the int8 run takes 0.25. The store and checkpoint runs were cut
 # by two qubits each (from ising(32) L=28, ising(30) L=26 and ising(30)
 # L=26; 16 shards each, as before) to pay for the torchrun phases within
-# the smoke's time
-STORE = {"tier": "bf16", "n": 30, "L": 26, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
-STORE_INT8 = {"tier": "int8", "n": 29, "L": 25, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
+# the smoke's time, and the two store runs by one more (from ising(30) L=26
+# and ising(29) L=25) for the shardmap serving phase
+STORE = {"tier": "bf16", "n": 29, "L": 25, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
+STORE_INT8 = {"tier": "int8", "n": 28, "L": 24, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
 CHECKPOINT = {"n": 28, "L": 24, "R": 4}
 # adjoint gradients: the reference's tolerances (tests/test_grad.py) for a
 # float32 sweep against another sweep or an oracle, and central differences
 # of the on-card energy (their truncation error at eps 1e-2 is 1.8e-4 of
 # the gradient on this path, by the complex128 oracle)
 VQE_OBS = "Z0 Z1 + Z1 Z2 + 0.5*X0"
+VQE_STEPS = 3
 VQE_PATH = ["--circuit", "isingparam", "--n", "30", "--L", "28", "--R", "2", "--vqe", VQE_OBS,
-            "--vqe-steps", "3"]
+            "--vqe-steps", str(VQE_STEPS)]
 VQE_SEED = 0  # the CLI's --vqe-seed: the angles of the first value_and_grad
 VALUE_ATOL, GRAD_ATOL, ROW_ATOL = 2e-5, 1e-4, 2e-4
 FD_EPS, FD_RTOL = 1e-2, 2e-3
 # isingparam runs two Trotter steps of nearest-neighbour gates, so VQE_OBS
-# (qubits 0-2) sees qubits 0-4 only: its energy and gradient at n=30 are
-# those at n=10, where the host's complex128 oracle is cheap
+# (qubits 0-2) sees qubits 0-4 only: its energy and gradient at any width
+# are those at n=10, where the host's complex128 oracle is cheap
 LIGHT_CONE_N = 10
 ORACLE = {"n": 20, "L": 18, "R": 2, "reps": 1}  # su2param(20): 270 gates, 80 parameters
 ORACLE_OBS = "Z0 Z1 + 0.5*X19 - 0.3*Y5 X12 + 0.1"
@@ -222,23 +237,24 @@ SPILL_ROOT = os.path.join(HERE, "build", "spill")
 # every earlier phase plans on the analytic constants as before
 CALIBRATION_DIR = os.path.join(HERE, "build", "calibration")
 CALIBRATION_L, CALIBRATION_REPEATS = 28, 3  # the disk round trip of 2 GiB takes seconds
-CALIBRATED = {"n": 30, "L": 28, "R": 2, "families": ("ising", "qsvm")}
-AUTOTUNE = {"n": 30, "L": 28, "R": 2}
-AUTOTUNE_PATH = ["--circuit", "ising", "--n", "30", "--L", "28", "--R", "2", "--autotune"]
+# planned at n=28 on the L=28 profile: at n=30 each dense oracle takes ~17 s
+CALIBRATED = {"n": 28, "L": 26, "R": 2, "families": ("ising", "qsvm")}
+AUTOTUNE = {"n": 28, "L": 26, "R": 2}
+AUTOTUNE_PATH = ["--circuit", "ising", "--n", "28", "--L", "26", "--R", "2", "--autotune"]
 FAULTS = {"n": 28, "L": 26, "R": 2, "P": 4}
 CHECKPOINT_DIR = os.path.join(HERE, "build", "checkpoint")
 # the simulation service on the card, planned on the card's calibration (it
-# runs after the profiler): 40 parameterized requests over isingparam(28) and
-# su2param(28) (a full batch of 8 rows is 16 GiB), 4 of them with shots and a
-# marginal (host sampling of 2^28 amplitudes costs seconds), 3 identical
-# qft(28) requests (one dedup run) and one ising(30) request at the main
-# path's width; every served row's amplitudes are held through every
-# STRIDE-th amplitude (2^20 of them across the whole state). su2param runs
-# one layer (depth cut from the generator's 3: the staging ILP of its 1246
-# gates, planned twice here, calibrated and analytic, would dominate the
-# phase; one layer is 490 gates with the same 112 parameters)
-SERVE = {"n": 28, "L": 26, "R": 2, "su2param_reps": 1, "requests": 40, "shots": 64,
-         "shot_requests": (0, 11, 20, 31), "qft": 3, "main_n": 30, "main_L": 28, "seed": 41,
+# runs after the profiler): 40 parameterized requests over isingparam(26) and
+# su2param(26) (a full batch of 8 rows is 4 GiB), 4 of them with shots and a
+# marginal (host sampling of 2^26 amplitudes costs seconds), 3 identical
+# qft(26) requests (one dedup run) and one ising(28) request (the shardmap
+# serving phase serves n=30); every served row's amplitudes are held
+# through every STRIDE-th amplitude. su2param runs one layer (depth cut
+# from the generator's 3: the staging ILP of its gates, planned twice here,
+# calibrated and analytic, would dominate the phase). At n=28 the runs
+# alone and the dense oracles took 53 of the phase's 115 s
+SERVE = {"n": 26, "L": 24, "R": 2, "su2param_reps": 1, "requests": 40, "shots": 64,
+         "shot_requests": (0, 11, 20, 31), "qft": 3, "main_n": 28, "main_L": 26, "seed": 41,
          "stride": 1 << 8}
 SERVE_CONFIG = {"max_batch_size": 8, "max_wait_ms": 5.0, "cache_size": 4,
                 "tenant_weights": {"gold": 4.0, "free": 1.0}}
@@ -248,9 +264,11 @@ SERVE_ATOL = 1e-5  # a served row against the same binding run alone
 # R=2) on 4 ranks of one gloo group, each holding one 2^28 shard (2 GiB) on
 # the one card (NCCL refuses two ranks on one GPU), held shard by shard
 # against the in-card run through every STRIDE-th amplitude and a checksum
-# of every bit, measured against TorchMeasurer on the in-card state; then
-# world size 1 over NCCL (qft(28), L=28: no collective runs) bit for bit
-SHARDMAP = {"ranks": 4, "stride": 1 << 8, "shots": 1024, "seed": 0, "marginal": (0, 1, 2),
+# of every bit, its marginal and expectation against TorchMeasurer on the
+# in-card state (no shots: their 22.8 s went to the shardmap serving phase,
+# which holds ShardedMeasurer's shots on 2^28 shards of n=30); then world
+# size 1 over NCCL (qft(28), L=28: no collective runs) bit for bit
+SHARDMAP = {"ranks": 4, "stride": 1 << 8, "marginal": (0, 1, 2),
             "observable": "Z0 Z1 + 0.5*X29", "atol": 1e-6, "timeout": 600}
 SHARDMAP_NCCL = {"n": 28, "L": 28}
 RENDEZVOUS_DIR = os.path.join(HERE, "build", "rendezvous")
@@ -284,6 +302,21 @@ SHARDMAP_VQE = {"ranks": 4, "n": 30, "L": 28, "R": 2, "timeout": 600, "value_ato
                 "grad_atol": 1e-4, "sample_n": 28, "sample_L": 26, "sample_seed": 43}
 SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "30", "--L", "28", "--R", "2",
                      "--executor", "shardmap", "--dist-backend", "gloo", "--vqe-steps", "1"]
+# serving on the shardmap backend: serve_sim --backend shardmap under
+# torchrun on 4 gloo ranks of the one card (one 2^28 shard of isingparam(30)
+# a rank), after the serving phase, so every rank plans on the card's
+# calibration. A client sends, all at once over the wire: 8 isingparam(30)
+# requests (two batches of 4) with <Z0 Z1 + 0.5*X<d>>, d a device qubit of
+# the last stage, one of them with 64 shots and the marginal (0, 1, 2); two
+# identical concrete ising(30) requests (one dedup run, amp0); then stats.
+SERVE_SHARDMAP = {"ranks": 4, "n": 30, "L": 28, "R": 2, "requests": 8, "max_batch": 4,
+                  "max_wait_ms": 500.0, "shots": 64, "shot_request": 5, "marginal": (0, 1, 2),
+                  "dedup": 2, "seed": 53, "atol": 1e-6, "start_timeout": 300, "timeout": 600}
+# a rank's peak: two shards in a run; a shard, its partner and their float32
+# product in a device-X expectation (5 GiB at L=28), plus the plan's op
+# tables and index tensors, measured at 1383424 bytes on every rank on an
+# H100 (so 5 GiB alone does not hold); 4 MiB is three times that
+SERVE_SHARDMAP_PEAK = (5 << 30) + (4 << 20)
 
 
 def require(ok: bool, msg: str) -> None:
@@ -639,11 +672,6 @@ def shardmap_rank(rank: int, circuit, plan, spec: dict, device: str = "cuda") ->
                             "peak": torch.cuda.max_memory_allocated() if cuda else 0})
     out["fingerprint"] = shard_fingerprint(shard, spec["stride"])
     m = measurer_for(shard, ex.measurement_frame, ex.engine)
-    collective.reset_collective_counters()
-    t0 = time.perf_counter()
-    out["samples"] = m.sample(spec["shots"], seed=spec["seed"])
-    out["sample_s"] = time.perf_counter() - t0
-    out["sample_traffic"] = collective.collective_counts()
     t0 = time.perf_counter()
     out["marginal"] = m.marginal(spec["marginal"])
     collective.reset_collective_counters()
@@ -735,11 +763,11 @@ def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda",
                    grad_L: int = SHARDMAP_VQE["sample_L"]) -> dict:
     """The explicit-collective backend at the main path's width: ``plan``
     (``ising(30)``, L=28, R=2) on ``CudaBackend`` first (launches, every
-    shard's fingerprint, shots/marginal/expectation through
+    shard's fingerprint, marginal and expectation through
     ``TorchMeasurer``), then on 4 spawned ranks of one gloo group through
     ``ShardMapExecutor`` (:func:`shardmap_rank`), held to it: launches per
     rank, each shard within SHARDMAP["atol"] (and whether bit for bit), the
-    same shots and values within the tolerance, and each remap's bytes
+    same values within the tolerance, and each remap's bytes
     against Eq. 2. Then on the same ranks a sharded ``value_and_grad`` of
     ``isingparam(grad_n)`` at L=``grad_L`` (:func:`grad_sample_rank`): the
     same answer on every rank, and the sweep's sampled launches on the first
@@ -773,7 +801,6 @@ def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda",
     fps = [shard_fingerprint(state[d << L:(d + 1) << L], spec["stride"]) for d in range(world)]
     tm = measurer_for(state, frame)
     t0 = time.perf_counter()
-    samples = tm.sample(spec["shots"], seed=spec["seed"])
     marg = tm.marginal(spec["marginal"])
     value = tm.expectation(spec["observable"])
     torch_measure_s = time.perf_counter() - t0
@@ -823,21 +850,16 @@ def shardmap_phase(ops, card: str, circuit, plan, device: str = "cuda",
         + f"; bit for bit {bitwise}")
     require(max(errs) <= spec["atol"], f"a shard differs by {max(errs)} > {spec['atol']}")
     for d, f in enumerate(found):
-        require(np.array_equal(f["samples"], found[0]["samples"])
-                and np.array_equal(f["marginal"], found[0]["marginal"])
+        require(np.array_equal(f["marginal"], found[0]["marginal"])
                 and f["value"] == found[0]["value"], f"rank {d} measured otherwise than rank 0")
     marg_err = float(np.abs(found[0]["marginal"] - marg).max())
     value_err = abs(found[0]["value"] - value)
-    same_shots = bool(np.array_equal(found[0]["samples"], samples))
-    log(f"  ShardedMeasurer: {spec['shots']} shots the same as TorchMeasurer's: {same_shots}; "
-        f"marginal {spec['marginal']} max |d| {marg_err:.3e}; <{spec['observable']}> = "
-        f"{found[0]['value']:.9f} (TorchMeasurer {value:.9f}, |d| {value_err:.3e}); sampling "
-        f"{max(f['sample_s'] for f in found):.3f} s (rows sent to rank 0: "
-        f"{sum(f['sample_traffic']['send'] for f in found)}), marginal and expectation "
-        f"{max(f['marginal_expect_s'] for f in found):.3f} s (TorchMeasurer all three "
+    log(f"  ShardedMeasurer: marginal {spec['marginal']} max |d| {marg_err:.3e}; "
+        f"<{spec['observable']}> = {found[0]['value']:.9f} (TorchMeasurer {value:.9f}, |d| "
+        f"{value_err:.3e}); marginal and expectation "
+        f"{max(f['marginal_expect_s'] for f in found):.3f} s (TorchMeasurer both "
         f"{torch_measure_s:.3f} s); the expectation's permutes per rank "
         f"{[f['expect_traffic']['permute'] for f in found]}")
-    require(same_shots, "ShardedMeasurer's shots differ from TorchMeasurer's for the seed")
     require(marg_err <= spec["atol"] and value_err <= spec["atol"],
             "ShardedMeasurer's marginal or expectation differs from TorchMeasurer's")
     require(all(f["expect_traffic"]["permute"] >= 1 for f in found),
@@ -1205,6 +1227,265 @@ def shardmap_vqe_phase(ops, ref, probe, card: str, device: str = "cuda",
         torch.cuda.empty_cache()
     return {"launches": launches, "rows": rows, "seconds": seconds,
             "grad_seconds": doc["grad_seconds"]}
+
+
+def serve_shardmap_phase(card: str, device: str = "cuda", n: int = SERVE_SHARDMAP["n"],
+                         L: int = SERVE_SHARDMAP["L"]) -> dict:
+    """Serving on the shardmap backend, as a client of ``serve_sim
+    --backend shardmap`` under ``torchrun`` on 4 gloo ranks of the one card
+    (``SERVE_SHARDMAP``). The server starts first; while it starts, this
+    process computes the answers: a ``CudaBackend`` engine of
+    ``isingparam(n)`` (L, R=2) planned as the ranks plan it (its last
+    stage's device qubit names the observable's X term), each binding run
+    alone and measured with ``TorchMeasurer``, and ``ising(n)``'s ``amp0``.
+    Then over the wire, all at once: 8 ``isingparam(n)`` requests (two
+    batches of 4; one with 64 shots and the marginal (0, 1, 2)), 2 identical
+    concrete ``ising(n)`` requests (one dedup run), then ``{"cmd":
+    "stats"}``; then the session is ended and every rank must be gone.
+    Held (:func:`_hold_serve_shardmap`): each expectation and marginal
+    within ``atol`` of the run alone, the shots equal to ``TorchMeasurer``'s
+    for the seed, ``amp0`` within ``atol``; from ``stats()["ranks"]``, on
+    each rank and batch, the launches of both kernels equal to the plan's
+    ops times the rows run (each kernel launched on every rank in the
+    phase), each remap's bytes to Eq. 2 (and the batch's remap bytes to the
+    rows times the last run's), no solver call, shm schedule or cache miss
+    on the warm second batch, and peak device memory within
+    ``SERVE_SHARDMAP_PEAK``. ``device="cpu"`` dry-runs it on the host at a
+    small ``n`` and ``L``."""
+    import signal
+    import socket
+
+    from repro_torch.sim.engine import DEFAULT_CACHE
+
+    spec, world, R = SERVE_SHARDMAP, SERVE_SHARDMAP["ranks"], SERVE_SHARDMAP["R"]
+    DEFAULT_CACHE.clear()  # the earlier phases' cached engines: the ranks need the memory
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    logs = {k: os.path.join(RESULTS_DIR, f"serve-shardmap-{port}.{k}") for k in ("out", "err")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(world), "-m", "repro_torch.launch.serve_sim", "--backend", "shardmap",
+           "--dist-backend", "gloo", "--R", str(R), "--port", str(port), "--max-batch",
+           str(spec["max_batch"]), "--max-wait-ms", str(spec["max_wait_ms"])]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    log("  " + " ".join(cmd[1:]))
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    with open(logs["out"], "w") as out_f, open(logs["err"], "w") as err_f:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=out_f, stderr=err_f,
+                                start_new_session=True)
+
+    def ranks_alive() -> list:
+        found = subprocess.run(["pgrep", "-f", f"serve_sim .*--port {port}"],
+                               capture_output=True, text=True).stdout.split()
+        return [int(p) for p in found]
+
+    try:
+        answers = _serve_shardmap_answers(spec, n, L, R, device)
+        start_s = _wait_listening(proc, logs, t0, spec["start_timeout"])
+        got, stats, served_s = _serve_shardmap_client(spec, n, port, answers)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGTERM)  # torchrun ends its ranks
+        try:
+            proc.wait(timeout=90)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        deadline = time.time() + 60
+        while ranks_alive() and time.time() < deadline:
+            time.sleep(1.0)
+        left = ranks_alive()
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    require(not left, f"ranks {left} outlived the server's session")
+    log(f"  the runs alone on CudaBackend in {answers['alone_s']:.1f} s (isingparam({n}) "
+        f"program {answers['counts']}, ising({n}) program {answers['icounts']}; observable "
+        f"{answers['obs']}) while the server started; the server listening after {start_s:.1f} "
+        f"s (torchrun, imports, the group); {len(got)} requests answered in {served_s:.1f} s; "
+        "the session ended and every rank is gone")
+    launches = _hold_serve_shardmap(card, device, spec, L, world, got, stats, answers)
+    return {"launches": launches, "seconds": time.time() - t0}
+
+
+def _serve_shardmap_answers(spec: dict, n: int, L: int, R: int, device: str) -> dict:
+    """The shardmap serving phase's answers on one card: each binding run
+    alone on ``CudaBackend`` and measured with ``TorchMeasurer``, and
+    ``ising(n)``'s ``amp0``; the engines' programs and the observable."""
+    from repro_torch.core.generators import FAMILIES, PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.measure import measurer_for
+    from repro_torch.sim.result import SimulationResult
+
+    t0 = time.time()
+    sym = PARAM_FAMILIES["isingparam"](n)
+    eng = engine_for(sym, L, R, 0, device=device, cache=None)
+    obs = f"Z0 Z1 + 0.5*X{eng.cc.programs[-1].layout[L]}"
+    rng = np.random.default_rng(spec["seed"])
+    points = [rng.uniform(-1.5, 1.5, len(sym.param_names)) for _ in range(spec["requests"])]
+    want = []
+    for i, p in enumerate(points):
+        tm = measurer_for(eng.run_packed(params=dict(zip(eng.param_names, p))),
+                          eng.measurement_frame)
+        w = {"value": tm.expectation(obs)}
+        if i == spec["shot_request"]:
+            res = SimulationResult(n_qubits=n, backend="cuda", shots=spec["shots"], seed=i,
+                                   samples=tm.sample(spec["shots"], seed=i))
+            w.update(counts=res.counts(), marginal=tm.marginal(spec["marginal"]))
+        want.append(w)
+        del tm
+    counts = eng.op_counts()
+    del eng
+    ieng = engine_for(FAMILIES["ising"](n), L, R, 0, device=device, cache=None)
+    amp0 = complex(ieng.run().reshape(-1)[0].item())
+    icounts = ieng.op_counts()
+    del ieng
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the ranks need the card's memory
+    return {"points": points, "want": want, "amp0": amp0, "counts": counts, "icounts": icounts,
+            "obs": obs, "alone_s": time.time() - t0}
+
+
+def _wait_listening(proc, logs: dict, t0: float, timeout: float) -> float:
+    """Seconds from ``t0`` until rank 0 prints that it listens; raises if
+    the server exits or does not listen within ``timeout``."""
+    def tail(path: str) -> str:
+        with open(path) as f:
+            return f.read()[-4000:]
+
+    while True:
+        with open(logs["out"]) as f:
+            if "simulation service listening on" in f.read():
+                return time.time() - t0
+        require(proc.poll() is None,
+                f"the server exited {proc.returncode}:\n{tail(logs['out'])}\n{tail(logs['err'])}")
+        require(time.time() - t0 < timeout, f"the server did not listen within {timeout} s")
+        time.sleep(0.5)
+
+
+def _serve_shardmap_client(spec: dict, n: int, port: int, answers: dict) -> tuple:
+    """The requests (``answers``' points and observable) over the wire, all
+    at once, then ``stats``: ``(the responses by id, the stats snapshot,
+    seconds to the last response)``."""
+    import asyncio
+
+    from repro_torch.core.generators import FAMILIES
+
+    lines = []
+    for i, p in enumerate(answers["points"]):
+        d = {"id": i, "family": "isingparam", "n": n, "seed": i,
+             "observables": [answers["obs"]], "params": [float(x) for x in p]}
+        if i == spec["shot_request"]:
+            d.update(shots=spec["shots"], marginals=[list(spec["marginal"])])
+        lines.append(d)
+    ising = FAMILIES["ising"](n).to_json()
+    lines += [{"id": spec["requests"] + j, "circuit_json": ising} for j in range(spec["dedup"])]
+
+    async def client():
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        t0 = time.time()
+        writer.write("".join(json.dumps(d) + "\n" for d in lines).encode())
+        await writer.drain()
+        got = {}
+        while len(got) < len(lines):
+            r = json.loads(await asyncio.wait_for(reader.readline(), spec["timeout"]))
+            got[r["id"]] = r
+        served_s = time.time() - t0
+        writer.write(b'{"cmd": "stats"}\n')
+        await writer.drain()
+        stats = json.loads(await asyncio.wait_for(reader.readline(), 60))["stats"]
+        writer.close()
+        return got, stats, served_s
+
+    return asyncio.run(client())
+
+
+def _hold_serve_shardmap(card: str, device: str, spec: dict, L: int, world: int, got: dict,
+                         stats: dict, answers: dict) -> dict:
+    """:func:`serve_shardmap_phase`'s checks and lines; the launches summed
+    over the ranks."""
+    want, counts, icounts = answers["want"], answers["counts"], answers["icounts"]
+    bad = {i: r for i, r in got.items() if not r["ok"]}
+    require(not bad, f"served requests failed: {bad}")
+    worst_v = worst_m = 0.0
+    for i, w in enumerate(want):
+        r = got[i]
+        require(r["batch_size"] == spec["max_batch"],
+                f"request {i} in a batch of {r['batch_size']}")
+        worst_v = max(worst_v, abs(next(iter(r["expectations"].values())) - w["value"]))
+        if "counts" in w:
+            require(r["counts"] == w["counts"],
+                    "the served shots differ from TorchMeasurer's for the seed")
+            key = ",".join(map(str, spec["marginal"]))
+            worst_m = float(np.abs(np.asarray(r["marginals"][key]) - w["marginal"]).max())
+    dedup = [got[spec["requests"] + j] for j in range(spec["dedup"])]
+    amp_err = max(abs(complex(*r["amp0"]) - answers["amp0"]) for r in dedup)
+    require(all(r["batch_size"] == spec["dedup"] for r in dedup),
+            "the identical ising requests must dedup")
+    log(f"  against the runs alone: <{answers['obs']}> max |d| {worst_v:.3e}, marginal "
+        f"{spec['marginal']} max |d| {worst_m:.3e}, {spec['shots']} shots equal to "
+        f"TorchMeasurer's for the seed, amp0 |d| {amp_err:.3e} ({card})")
+    require(worst_v <= spec["atol"] and worst_m <= spec["atol"] and amp_err <= spec["atol"],
+            "a served answer differs from the run alone")
+    ranks = stats["ranks"]
+    hist = ranks["history"]
+    require(ranks["world"] == world and [(h["requests"], h["dedup"]) for h in hist]
+            == [(spec["max_batch"], False)] * 2 + [(spec["dedup"], True)],
+            f"the steps: {[(h['requests'], h['dedup']) for h in hist]}")
+    shard = 8 << L
+    for b, h in enumerate(hist):
+        c = icounts if h["dedup"] else counts
+        rows = 1 if h["dedup"] else spec["max_batch"]
+        for d, r in enumerate(h["per_rank"]):
+            require(r["runs"] == rows and r["launches"]["fused"] == c.get("fused", 0) * rows
+                    and r["launches"]["shm"] == c.get("shm", 0) * rows,
+                    f"batch {b}, rank {d}: {r['runs']} runs launched {r['launches']}; the plan "
+                    f"has {c}")
+            last = sum(rp["bytes_sent"][d] for rp in h["remaps"])
+            require(r["remap_bytes_sent"] == rows * last,
+                    f"batch {b}, rank {d}: remap bytes {r['remap_bytes_sent']} != {rows} x {last}")
+            if device == "cuda":
+                require(r["peak_bytes"] <= SERVE_SHARDMAP_PEAK,
+                        f"rank {d} held {r['peak_bytes']} bytes, more than {SERVE_SHARDMAP_PEAK}")
+        for rp in h["remaps"]:
+            a2a = shard - (shard >> rp["m"]) if rp["m"] else 0
+            perm = shard if rp["permute"] else 0
+            require(all(a2a <= x <= a2a + perm for x in rp["bytes_sent"])
+                    and (rp["permute"] or all(x == a2a for x in rp["bytes_sent"])),
+                    f"batch {b}, remap {rp['slot']}: bytes {rp['bytes_sent']} break Eq. 2")
+        log(f"  batch {b} ({h['requests']} requests, "
+            + ("one dedup run" if h["dedup"] else f"{rows} rows a rank") + "): stage loop "
+            "(execute_s) " + ", ".join(f"{r['execute_s']:.3f}" for r in h["per_rank"])
+            + " s, of it remaps " + ", ".join(f"{r['remap_s']:.3f}" for r in h["per_rank"])
+            + " s; measure_s " + ", ".join(f"{r['measure_s']:.3f}" for r in h["per_rank"])
+            + f" s by rank; launches per rank {h['per_rank'][0]['launches']}; each remap's "
+            "bytes a rank " + "; ".join(f"{rp['slot']}: m={rp['m']} {rp['bytes_sent'][0]}"
+                                       for rp in h["remaps"])
+            + "; peak " + ", ".join(f"{r['peak_bytes']}" for r in h["per_rank"])
+            + f" bytes ({card})")
+    for d, r in enumerate(ranks["per_rank"]):
+        require(r["launches"]["fused"] > 0 and r["launches"]["shm"] > 0,
+                f"rank {d} did not launch both kernels in the phase: {r['launches']}")
+    warm = hist[1]["per_rank"]
+    require(all(not any(r["solver_calls"].values()) and r["shm_schedules"] == 0
+                and r["cache_misses"] == 0 for r in warm),
+            f"the warm second batch ran a solver, scheduled shm or missed the cache: {warm}")
+    e2e = [got[i]["timings"]["e2e_s"] for i in sorted(got)]
+    log(f"  e2e p50 {np.percentile(e2e, 50):.3f} s, p99 {np.percentile(e2e, 99):.3f} s over "
+        f"{len(e2e)} requests (each: " + ", ".join(f"{x:.1f}" for x in e2e) + " s); the warm "
+        f"second batch: no solver call, no shm schedule, no cache miss on any rank ({card})")
+    by_k: dict = {}
+    for r in ranks["per_rank"]:
+        for k, v in r["launches"]["by_k"].items():
+            by_k[int(k)] = by_k.get(int(k), 0) + v
+    return {"fused": sum(r["launches"]["fused"] for r in ranks["per_rank"]),
+            "shm": sum(r["launches"]["shm"] for r in ranks["per_rank"]), "by_k": by_k}
 
 
 def launches_match(ops, engine, what: str, per_op: int = 1, kinds=("fused", "shm")) -> dict:
@@ -2151,7 +2432,7 @@ def hold_sweep_sample(ops, ref, probe, eng, obs: str, x: torch.Tensor, fused: di
 
 
 def vqe_phase(simulate, ops, ref, probe, card: str, fused: dict) -> dict:
-    """The ``--vqe`` loop at full width through the CLI: 1 + 3
+    """The ``--vqe`` loop through the CLI (``VQE_PATH``): 1 + ``VQE_STEPS``
     value_and_grad calls, each launch counted; then at the first step's
     angles the value_and_grad split (forward, λ, sweep) and a trace, the
     gradient against the same sweep through the plain version on the same
@@ -2173,11 +2454,13 @@ def vqe_phase(simulate, ops, ref, probe, card: str, fused: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     eng = run.engine
     calls = len(run.grad_seconds)
-    require(calls == 4 and len(run.energies) == 4 and all(np.isfinite(run.energies))
-            and bool(np.all(np.isfinite(run.theta))), "VQE: four finite energies and angles")
+    require(calls == VQE_STEPS + 1 and len(run.energies) == calls
+            and all(np.isfinite(run.energies)) and bool(np.all(np.isfinite(run.theta))),
+            f"VQE: {VQE_STEPS + 1} finite energies and angles")
     launches = check_grad_launches(ops, eng, VQE_OBS, "VQE loop", calls=calls)
     log(f"  VQE energies {run.energies}; value_and_grad seconds {run.grad_seconds} (the first "
-        f"builds the adjoint program); {run.seconds:.3f} s for 3 steps = {run.seconds / 3:.3f} "
+        f"builds the adjoint program); {run.seconds:.3f} s for {VQE_STEPS} steps = "
+        f"{run.seconds / VQE_STEPS:.3f} "
         f"s/step; peak device memory {gib(peak)} against a {gib(8 << eng.n)} state; engine "
         f"built in {run.build_seconds:.3f} s; the CLI call {cli_s:.1f} s ({card})")
 
@@ -2236,11 +2519,12 @@ def vqe_phase(simulate, ops, ref, probe, card: str, fused: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(31)
     x = torch.randn(1 << eng.n, dtype=torch.complex64, device="cuda", generator=gen)
     worst = hold_sweep_sample(ops, ref, probe, eng, VQE_OBS, x, fused, launches["by_k"],
-                              "isingparam(30) reverse sweep")
+                              f"isingparam({eng.n}) reverse sweep")
     del x
     torch.cuda.empty_cache()
     return {"launches": launches, "worst": {"fused": worst, "shm": 0.0}, "peak": peak,
-            "grad_seconds": run.grad_seconds, "split": [forward_s, lam_s, total_s]}
+            "grad_seconds": run.grad_seconds, "split": [forward_s, lam_s, total_s],
+            "n": eng.n}
 
 
 def oracle_phase(ops, card: str, n: int, L: int, R: int, reps: int) -> dict:
@@ -2388,7 +2672,7 @@ def calibration_phase(ops, card: str) -> dict:
 
 
 def calibrated_phase(ops, ref, probe, card: str, name: str, fused: dict) -> dict:
-    """``name(30)`` L=28 R=2 planned under the resolved calibration
+    """``name(n)`` (``CALIBRATED``) planned under the resolved calibration
     (``engine_for`` with no cost model) and under the analytic constants:
     each plan's stages, ``fused`` widths and ``shm`` ops and its warm run
     seconds, both states against the dense per-gate oracle on the card,
@@ -2453,7 +2737,7 @@ def calibrated_phase(ops, ref, probe, card: str, name: str, fused: dict) -> dict
 
 
 def autotune_phase(simulate, ops, ref, card: str) -> dict:
-    """``--autotune`` on ``ising(30)`` L=28 R=2 through the CLI: every
+    """``--autotune`` on ``ising(28)`` L=26 R=2 (``AUTOTUNE``) through the CLI: every
     candidate's replay, the choice and its speedup, the tuning's peak device
     memory; then ``engine_for`` with default knobs is a cache hit that runs
     no solver, and the tuned run holds against the dense oracle."""
@@ -3236,9 +3520,9 @@ def main() -> None:
     t_grad = time.time()
     log("== VQE: " + " ".join(VQE_PATH))
     vqe = vqe_phase(simulate, ops, ref, probe, card, fused)
-    paths["isingparam30_vqe"] = vqe["launches"]
+    paths[f"isingparam{vqe['n']}_vqe"] = vqe["launches"]
     worst.append(vqe["worst"])
-    fused["by_k"] += shardmap_vqe["rows"]  # after the n=30 sweep's rows at the same widths
+    fused["by_k"] += shardmap_vqe["rows"]  # after the single-card sweep's rows at those widths
     log("== gradient oracle: su2param({n}, reps={reps}) L={L} R={R}".format(**ORACLE))
     paths["su2param20_grad"] = oracle_phase(ops, card, **ORACLE)["launches"]
     log("== grad_sweep: isingparam({n}) L={L} R={R}, P={P} bindings".format(**GRAD_SWEEP))
@@ -3275,11 +3559,11 @@ def main() -> None:
     free_disk = host_check()
     log("== shard store: ising({n}) L={L} R={R}, {tier}, half at rest on disk".format(**STORE))
     store = store_phase(simulate, ops, ref, probe, card, fused, free_disk, xy=True, **STORE)
-    paths["ising30_store_bf16"] = store["launches"]
+    paths["ising{n}_store_{tier}".format(**STORE)] = store["launches"]
     worst.append(store["worst"])
     log("== shard store: ising({n}) L={L} R={R}, {tier}, half at rest on disk".format(**STORE_INT8))
     store8 = store_phase(simulate, ops, ref, probe, card, fused, free_disk, **STORE_INT8)
-    paths["ising29_store_int8"] = store8["launches"]
+    paths["ising{n}_store_{tier}".format(**STORE_INT8)] = store8["launches"]
     worst.append(store8["worst"])
     log("== stage checkpoints: ising({n}) L={L} R={R}, killed in stage 1 and resumed"
         .format(**CHECKPOINT))
@@ -3299,11 +3583,11 @@ def main() -> None:
         log("== calibrated planning: {name}({n}) L={L} R={R}, calibrated against analytic"
             .format(name=name, **CALIBRATED))
         cal = calibrated_phase(ops, ref, probe, card, name, fused)
-        paths[f"{name}30_calibrated"] = cal["launches"]
+        paths[f"{name}{CALIBRATED['n']}_calibrated"] = cal["launches"]
         worst.append(cal["worst"])
     log("== autotune: " + " ".join(AUTOTUNE_PATH))
     tuned = autotune_phase(simulate, ops, ref, card)
-    paths["ising30_autotune"] = tuned["launches"]
+    paths["ising{n}_autotune".format(**AUTOTUNE)] = tuned["launches"]
     worst.append(tuned["worst"])
     log("== integrity guard and build faults: ising({n}) L={L} R={R}, sweep of {P}"
         .format(**FAULTS))
@@ -3316,9 +3600,16 @@ def main() -> None:
         "reps={su2param_reps}) L={L} R={R}, qft({n}), ising({main_n}); max batch 8, max wait "
         "5 ms, tenants gold:4 free:1".format(**SERVE))
     serve = serve_phase(ops, ref, card)
-    paths["serve28"] = serve["launches"]
+    paths["serve{n}".format(**SERVE)] = serve["launches"]
     worst.append(serve["worst"])
     log(f"  the serving phase took {time.time() - t_serve:.1f}s")
+    t_serve = time.time()
+    log("== serving on the shardmap backend: serve_sim --backend shardmap under torchrun, "
+        "{ranks} gloo ranks on the one card, isingparam({n}) L={L} R={R}, max batch "
+        "{max_batch}".format(**SERVE_SHARDMAP))
+    paths["isingparam{n}_serve_shardmap4".format(**SERVE_SHARDMAP)] = serve_shardmap_phase(
+        card)["launches"]
+    log(f"  the shardmap serving phase took {time.time() - t_serve:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

@@ -29,6 +29,19 @@ Wire protocol (one JSON object per line), the reference's
   <- {"id": 9, "rid": 9, "ok": false, "error": "overloaded",
       "message": "...", "retry_after": 0.12}
 
+Shardmap (``--backend shardmap``): one process per device of the
+``2^(R+G)`` bit-mesh under ``torchrun``. Rank 0 runs the demo or the server
+and broadcasts each batch; every other rank follows it
+(:func:`repro_torch.serve.follower.follow`) and runs the batch on its
+``2^L`` shard; only rank 0 prints. ``--dist-backend``: ``nccl`` on CUDA
+(one rank per card) and ``gloo`` on the CPU by default; several ranks on
+one card need ``gloo``:
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+      -m repro_torch.launch.serve_sim --backend shardmap --R 2 --G 1 --device cpu \\
+      --demo --families isingparam:10 --requests 16 --max-batch 4
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve_sim \\
+      --backend shardmap --dist-backend gloo --R 2 --port 8765
+
 Error responses are structured: {"rid": <request id or null>, "ok": false,
 "error": <stable code: bad_json | bad_request | overloaded | timeout |
 quarantined>, "message": <human-readable>}. Malformed input (bad JSON, a
@@ -68,11 +81,13 @@ def _parse_weights(specs):
     return out
 
 
-def config_from_args(args) -> ServeConfig:
+def config_from_args(args, device=None) -> ServeConfig:
+    """The service's config from the flags; ``device`` (a shardmap rank's)
+    in place of ``--device``."""
     return ServeConfig(
         backend=args.backend,
         use_kernels=args.kernels,
-        device=args.device,
+        device=device or args.device,
         R=args.R,
         G=args.G,
         max_batch_size=args.max_batch,
@@ -203,8 +218,10 @@ async def handle_client(svc: SimulationService, reader, writer) -> None:
         writer.close()
 
 
-async def serve_forever(args) -> None:
-    svc = SimulationService(config_from_args(args))
+async def serve_forever(args, device=None) -> None:
+    """Serve until interrupted, or until the service fails (a shardmap group
+    that broke: raised)."""
+    svc = SimulationService(config_from_args(args, device))
     await svc.start()
     server = await asyncio.start_server(
         lambda r, w: handle_client(svc, r, w), args.host, args.port)
@@ -215,21 +232,22 @@ async def serve_forever(args) -> None:
           f"device={svc.pool.device}, kernels={args.kernels})", flush=True)
     try:
         async with server:
-            await server.serve_forever()
+            raise await svc.until_failed()
     finally:
         await svc.stop()
 
 
-async def run_demo(args) -> dict:
+async def run_demo(args, device=None) -> dict:
     """In-process synthetic traffic: mixed families, mixed tenants, one
-    shared stats snapshot printed at the end (returned for tests)."""
+    shared stats snapshot printed at the end (returned for tests). Raises
+    the service's failure (a shardmap group that broke)."""
     rng = np.random.default_rng(args.seed)
     fams = []
     for spec in args.families.split(","):
         name, _, nq = spec.partition(":")
         sym = PARAM_FAMILIES[name](int(nq or 8))
         fams.append((name, sym, sym.param_names))
-    svc = SimulationService(config_from_args(args))
+    svc = SimulationService(config_from_args(args, device))
     async with svc:
         async def one(i):
             name, sym, names = fams[i % len(fams)]
@@ -245,6 +263,8 @@ async def run_demo(args) -> dict:
 
         resps = await asyncio.gather(*[one(i) for i in range(args.requests)])
         stats = svc.stats()
+    if svc.failure is not None:
+        raise svc.failure
     failed = [r for r in resps if isinstance(r, Exception)]
     resps = [r for r in resps if not isinstance(r, Exception)]
     sizes = [r.batch_size for r in resps] or [0]
@@ -267,9 +287,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shots", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     # service knobs
-    ap.add_argument("--backend", default="cuda", choices=["cuda", "offload", "dense"],
+    ap.add_argument("--backend", default="cuda", choices=["cuda", "offload", "dense", "shardmap"],
                     help="cuda: the state on --device; offload: the state in host memory, "
-                         "streamed through --device stage by stage; dense: the per-gate oracle")
+                         "streamed through --device stage by stage; dense: the per-gate oracle; "
+                         "shardmap: one process per device of the 2^(R+G) bit-mesh, each with "
+                         "one 2^L shard, started by torchrun (rank 0 serves)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--backend shardmap: the torch.distributed backend (default nccl on "
+                         "cuda, one rank per card; gloo on cpu). Several ranks on one card "
+                         "need gloo")
     ap.add_argument("--kernels", action=argparse.BooleanOptionalAction, default=True,
                     help="run the hand-written kernels (default; on the CPU their plain "
                          "versions); --no-kernels runs the plain versions on any device")
@@ -296,11 +322,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.backend != "shardmap":
+        if args.dist_backend is not None:
+            ap.error("--dist-backend needs --backend shardmap")
+        return _serve(args)
+    from ..launch import dist as launch_dist
+    from ..serve.follower import check_shardmap_config, follow
 
+    try:
+        ctx = launch_dist.join(args.dist_backend, args.device)
+    except launch_dist.LaunchError as e:
+        ap.error(str(e))
+    try:
+        try:
+            check_shardmap_config(config_from_args(args), ctx.world)
+        except ValueError as e:
+            ap.error(str(e))
+        if ctx.rank:
+            return follow(config_from_args(args), ctx)
+        return _serve(args, ctx.device)
+    finally:
+        ctx.close()
+
+
+def _serve(args, device=None):
     if args.demo or not args.port:
-        return asyncio.run(run_demo(args))
-    return asyncio.run(serve_forever(args))
+        return asyncio.run(run_demo(args, device))
+    return asyncio.run(serve_forever(args, device))
 
 
 if __name__ == "__main__":

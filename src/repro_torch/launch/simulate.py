@@ -279,19 +279,6 @@ def _report_ranks(ex: ExecutionEngine, run: SimulateRun, before: np.ndarray) -> 
                   f"{r['bytes_sent']}; {r['seconds']:.3f}s (slowest rank)")
 
 
-def _gather_rows(tr, rows: torch.Tensor) -> Optional[np.ndarray]:
-    """Rank 0: the ``[B, 2^n]`` logical rows whose ``[B, 2^L]`` shards the
-    ranks hold (after the final remap rank ``d`` holds amplitudes
-    ``[d·2^L, (d+1)·2^L)``); None on the other ranks."""
-    part = np.ascontiguousarray(rows.detach().cpu().numpy())
-    wire = part.view(np.float32)  # point-to-point takes no complex tensors
-    if tr.rank:
-        tr.send(wire, 0)
-        return None
-    return np.concatenate([part] + [tr.recv(wire, src).view(np.complex64)
-                                    for src in range(1, tr.world)], axis=1)
-
-
 def _fidelities(ex: ExecutionEngine, states: torch.Tensor, reference) -> List[float]:
     """--check: the fidelity of each logical state of ``states`` (``[2^n]``
     or ``[B, 2^n]``) against ``reference(i)``. On the shardmap backend
@@ -301,7 +288,7 @@ def _fidelities(ex: ExecutionEngine, states: torch.Tensor, reference) -> List[fl
     if ex.backend.name != "shardmap":
         return [fidelity(rows[i], reference(i)) for i in range(rows.shape[0])]
     tr = ex.backend.transport
-    whole = _gather_rows(tr, rows)
+    whole = tr.gather_rows(rows)
     f = np.zeros(rows.shape[0])
     if whole is not None:
         f = np.array([fidelity(whole[i], reference(i)) for i in range(whole.shape[0])])

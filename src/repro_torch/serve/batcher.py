@@ -30,7 +30,10 @@ Components:
 The port of ``repro/serve/batcher.py``: the key is the port's
 :func:`repro_torch.sim.engine.circuit_key_for` (kernels and device instead
 of Pallas), a batch's rows stay on the engine's device and are measured
-there, and ``execute_s`` runs to the device's last op of the batch.
+there, and ``execute_s`` runs to the device's last op of the batch. On the
+shardmap backend rank 0 executes each batch with every other rank, as one
+step (:meth:`DynamicBatcher._execute_sharded`,
+:mod:`repro_torch.serve.follower`).
 """
 
 from __future__ import annotations
@@ -253,13 +256,138 @@ class DynamicBatcher:
         measured where its row lies, and only a ``return_state`` request
         copies its state to the host.
         """
-        from ..sim.faults import FaultError, RequestTimeout
-
+        if pool.mesh is not None:
+            return self._execute_sharded(batch, pool, metrics)
         reqs = batch.requests
         errors: Dict[int, Exception] = {}  # request_id -> failure
+        live = self._live(reqs, errors, metrics)
+        if not live:
+            return self._failed(reqs, errors)
 
-        # worker-side deadline re-check: queue wait + batch formation may
-        # have consumed the budget since the scheduler's check
+        leader = live[0]
+        try:
+            with metrics.timer("bind_s") as t_bind:
+                engine, cache_hit = pool.acquire(leader)
+        except Exception as e:
+            # build failure or quarantine: fails every live member of the
+            # batch — they all need this engine
+            return self._failed(reqs, errors, live, e, metrics)
+
+        verify = self._effective_verify(live)
+        wants_state = batch.key.wants_state
+        states: Dict[int, object] = {}  # request_id -> state (a row on the engine's device)
+        with engine.lock:
+            # another worker may have rebound the shared engine between our
+            # pool.acquire and taking the lock — re-assert the leader's
+            # binding/skeleton (no-op in the common single-worker case)
+            self._ensure_binding(engine, leader)
+            with metrics.timer("execute_s") as t_exec:
+                dedup = batch.key.binding is not None
+                # per-request binding normalization is the first blast
+                # wall: a rider with a malformed parameter vector fails
+                # alone, before it can poison the fused sweep
+                points: Dict[int, Dict[str, float]] = {}
+                for r in live:
+                    try:
+                        points[r.request_id] = {} if dedup else self._point(
+                            engine.circuit.param_names, r)
+                    except Exception as e:
+                        errors[r.request_id] = e
+                runnable = [r for r in live if r.request_id in points]
+                self._run_batch(engine, runnable, points, dedup, wants_state, verify,
+                                states, errors, metrics)
+                # execute_s runs to the device's last op of the batch
+                if engine.device.type == "cuda":
+                    torch.cuda.synchronize(engine.device)
+            frame = engine.measurement_frame
+            prov = (dict(engine.provenance)
+                    if engine.provenance.get("degraded")
+                    or engine.provenance.get("integrity_retries") else None)
+
+        from ..sim.measure import Frame, measure_to_result, measurer_for
+
+        fields: Dict[int, Dict] = {}  # request_id -> its SimResponse's measured fields
+        with metrics.timer("measure_s"):
+            for r in live:
+                if r.request_id in errors:
+                    continue
+                st = states[r.request_id]
+                f = fields[r.request_id] = {}
+                if wants_state:
+                    psi = st.reshape(-1)
+                    f["amp0"] = complex(psi[0].item())
+                    if r.return_state:
+                        f["state"] = psi.to("cpu", copy=True).numpy()
+                    if r.wants_measure:
+                        f["result"] = measure_to_result(
+                            measurer_for(psi, Frame.identity(engine.n)),
+                            backend=engine.backend.name, shots=r.shots,
+                            seed=r.seed, marginals=r.marginals,
+                            observables=r.observables,
+                        )
+                else:
+                    f["result"] = measure_to_result(
+                        measurer_for(st, frame, engine), backend=engine.backend.name,
+                        shots=r.shots, seed=r.seed, marginals=r.marginals,
+                        observables=r.observables,
+                    )
+        return self._responses(batch, len(live), errors, fields, cache_hit, prov,
+                               t_bind.elapsed, t_exec.elapsed, metrics)
+
+    @staticmethod
+    def _failed(reqs: List[SimRequest], errors: Dict[int, Exception], live=(),
+                error: Optional[Exception] = None,
+                metrics=None) -> List[Tuple[SimRequest, Exception]]:
+        """Each request's error when the batch runs no further: ``error``
+        for every one of ``live`` (the engine could not be had: a build
+        failure or quarantine; they all need it), ``errors`` for the rest."""
+        if live:
+            metrics.inc("acquire_errors")
+        for r in live:
+            errors[r.request_id] = error
+        return [(r, errors[r.request_id]) for r in reqs]
+
+    @staticmethod
+    def _responses(batch: Batch, P: int, errors: Dict[int, Exception],
+                   fields: Dict[int, Dict], cache_hit: bool, provenance: Optional[Dict],
+                   bind_s: float, execute_s: float,
+                   metrics) -> List[Tuple[SimRequest, Union[SimResponse, Exception]]]:
+        """The executed batch's metrics (``P`` live requests) and, in batch
+        order, each request's :class:`SimResponse` (its measured ``fields``:
+        ``result``, ``amp0``, ``state``) or its error."""
+        if provenance is not None:
+            metrics.inc("degraded_responses", P)
+        metrics.inc("batches_total")
+        metrics.inc("requests_executed", P)
+        metrics.inc(f"flush_{batch.flush_reason}")
+        metrics.observe("batch_size", P)
+        responses: List[Tuple[SimRequest, Union[SimResponse, Exception]]] = []
+        for r in batch.requests:
+            if r.request_id in errors:
+                responses.append((r, errors[r.request_id]))
+                continue
+            resp = SimResponse(request_id=r.request_id, tenant=r.tenant, batch_size=P,
+                               cache_hit=cache_hit, provenance=provenance,
+                               **fields[r.request_id])
+            resp.timings = {
+                "queue_wait_s": r.picked_t - r.arrival_t,
+                "batch_form_s": batch.formed_t - r.picked_t,
+                "bind_s": bind_s,
+                "execute_s": execute_s,
+            }
+            metrics.observe("queue_wait_s", resp.timings["queue_wait_s"])
+            metrics.observe("batch_form_s", resp.timings["batch_form_s"])
+            responses.append((r, resp))
+        return responses
+
+    def _live(self, reqs: List[SimRequest], errors: Dict[int, Exception],
+              metrics) -> List[SimRequest]:
+        """The requests still inside their deadline; the others get a
+        :class:`RequestTimeout` in ``errors``. The worker-side re-check:
+        queue wait + batch formation may have consumed the budget since the
+        scheduler's check."""
+        from ..sim.faults import RequestTimeout
+
         now = time.monotonic()
         live = []
         for r in reqs:
@@ -272,117 +400,96 @@ class DynamicBatcher:
                     elapsed=now - r.arrival_t)
             else:
                 live.append(r)
-        if not live:
-            return [(r, errors[r.request_id]) for r in reqs]
+        return live
 
-        leader = live[0]
-        P = len(live)
+    def _run_batch(self, engine, reqs: List[SimRequest],
+                   points: Dict[int, Dict[str, float]], dedup: bool, wants_state: bool,
+                   verify: bool, states: Dict[int, object],
+                   errors: Dict[int, Exception], metrics) -> None:
+        """The batch's engine work under the engine lock: a dedup group's
+        ONE run, or the fused sweep over ``points``."""
+        from ..sim.faults import FaultError
+
+        if not dedup:
+            self._run_sweep_isolated(engine, reqs, points, wants_state, verify,
+                                     states, errors, metrics)
+            return
+        # dedup group: P identical concrete requests, ONE run. Splitting
+        # cannot help here — every member is the same computation — so a
+        # terminal failure fails them all.
         try:
-            with metrics.timer("bind_s") as t_bind:
-                engine, cache_hit = pool.acquire(leader)
-        except Exception as e:
-            # build failure or quarantine: fails every live member of the
-            # batch — they all need this engine
-            metrics.inc("acquire_errors")
-            for r in live:
-                errors[r.request_id] = e
-            return [(r, errors[r.request_id]) for r in reqs]
-
-        verify = self._effective_verify(live)
-        wants_state = batch.key.wants_state
-        states: Dict[int, object] = {}  # request_id -> state (a row on the engine's device)
-        with engine.lock:
-            # another worker may have rebound the shared engine between our
-            # pool.acquire and taking the lock — re-assert the leader's
-            # binding/skeleton (no-op in the common single-worker case)
-            self._ensure_binding(engine, leader)
-            with metrics.timer("execute_s") as t_exec:
-                if batch.key.binding is not None:
-                    # dedup group: P identical concrete requests, ONE run.
-                    # Splitting cannot help here — every member is the same
-                    # computation — so a terminal failure fails them all.
-                    try:
-                        out = self._run_with_retry(
-                            lambda: (engine.run(None, verify=verify)
-                                     if wants_state
-                                     else engine.run_packed(None,
-                                                            verify=verify)),
-                            metrics)
-                        metrics.inc("sweep_rows")
-                        for r in live:
-                            states[r.request_id] = out
-                    except FaultError as e:
-                        for r in live:
-                            errors[r.request_id] = e
-                else:
-                    # per-request binding normalization is the first blast
-                    # wall: a rider with a malformed parameter vector fails
-                    # alone, before it can poison the fused sweep
-                    points: Dict[int, Dict[str, float]] = {}
-                    for r in live:
-                        try:
-                            points[r.request_id] = self._point(engine, r)
-                        except Exception as e:
-                            errors[r.request_id] = e
-                    runnable = [r for r in live if r.request_id in points]
-                    self._run_sweep_isolated(
-                        engine, runnable, points, wants_state, verify,
-                        states, errors, metrics)
-                # execute_s runs to the device's last op of the batch
-                if engine.device.type == "cuda":
-                    torch.cuda.synchronize(engine.device)
-            frame = engine.measurement_frame
-            prov = (dict(engine.provenance)
-                    if engine.provenance.get("degraded")
-                    or engine.provenance.get("integrity_retries") else None)
-        if prov is not None:
-            metrics.inc("degraded_responses", P)
-        metrics.inc("batches_total")
-        metrics.inc("requests_executed", P)
-        metrics.inc(f"flush_{batch.flush_reason}")
-        metrics.observe("batch_size", P)
-
-        from ..sim.measure import Frame, measure_to_result, measurer_for
-
-        responses: List[Tuple[SimRequest, Union[SimResponse, Exception]]] = []
-        with metrics.timer("measure_s"):
+            out = self._run_with_retry(
+                lambda: (engine.run(None, verify=verify) if wants_state
+                         else engine.run_packed(None, verify=verify)),
+                metrics)
+            metrics.inc("sweep_rows")
             for r in reqs:
-                if r.request_id in errors:
-                    responses.append((r, errors[r.request_id]))
-                    continue
-                st = states[r.request_id]
-                resp = SimResponse(
-                    request_id=r.request_id, tenant=r.tenant,
-                    batch_size=P, cache_hit=cache_hit, provenance=prov,
-                )
-                if wants_state:
-                    psi = st.reshape(-1)
-                    resp.amp0 = complex(psi[0].item())
-                    if r.return_state:
-                        resp.state = psi.to("cpu", copy=True).numpy()
-                    if r.wants_measure:
-                        resp.result = measure_to_result(
-                            measurer_for(psi, Frame.identity(engine.n)),
-                            backend=engine.backend.name, shots=r.shots,
-                            seed=r.seed, marginals=r.marginals,
-                            observables=r.observables,
-                        )
-                else:
-                    resp.result = measure_to_result(
-                        measurer_for(st, frame, engine), backend=engine.backend.name,
-                        shots=r.shots, seed=r.seed, marginals=r.marginals,
-                        observables=r.observables,
-                    )
-                resp.timings = {
-                    "queue_wait_s": r.picked_t - r.arrival_t,
-                    "batch_form_s": batch.formed_t - r.picked_t,
-                    "bind_s": t_bind.elapsed,
-                    "execute_s": t_exec.elapsed,
-                }
-                metrics.observe("queue_wait_s", resp.timings["queue_wait_s"])
-                metrics.observe("batch_form_s", resp.timings["batch_form_s"])
-                responses.append((r, resp))
-        return responses
+                states[r.request_id] = out
+        except FaultError as e:
+            for r in reqs:
+                errors[r.request_id] = e
+
+    # ------------------------------------------------------------ shardmap
+    def _execute_sharded(self, batch: Batch, pool,
+                         metrics) -> List[Tuple[SimRequest, Union[SimResponse, Exception]]]:
+        """:meth:`execute` on the shardmap backend, on rank 0: decide what
+        only rank 0 decides (deadlines, the breaker, riders with a bad
+        binding or measurement spec fail alone, before any rank runs them),
+        broadcast the batch as one step, run it as every rank does
+        (:func:`repro_torch.serve.follower.run_step`), and build the
+        responses. An error the ranks may not all have seen raises
+        :class:`~repro_torch.serve.follower.RanksOutOfStep`."""
+        from .follower import RanksOutOfStep, RequestSpec, Step, run_step
+
+        reqs = batch.requests
+        errors: Dict[int, Exception] = {}
+        live = self._live(reqs, errors, metrics)
+        if not live:
+            return self._failed(reqs, errors)
+        leader = live[0]
+        t0 = time.perf_counter()
+        try:
+            admitted = pool.admit(leader)
+            admit_s = time.perf_counter() - t0
+        except Exception as e:  # quarantined: no rank runs the batch
+            return self._failed(reqs, errors, live, e, metrics)
+        dedup = batch.key.binding is not None
+        runnable, specs = [], []
+        for r in live:
+            try:
+                point = {} if dedup else self._point(leader.circuit.param_names, r)
+                _check_measurement(r, leader.circuit.n_qubits)
+            except Exception as e:
+                errors[r.request_id] = e
+                continue
+            runnable.append(r)
+            specs.append(RequestSpec(point, r.shots, r.seed, tuple(r.marginals),
+                                     tuple(r.observables), r.return_state))
+        if not runnable:
+            return self._failed(reqs, errors)
+        step = Step("batch", leader.circuit, leader.L, leader.R, leader.G, admitted,
+                    batch.key.wants_state, self._effective_verify(live), specs)
+        try:
+            pool.mesh.send(step)
+            res = run_step(step, pool, self, metrics)
+        except Exception as e:
+            raise RanksOutOfStep(f"the ranks left the step of a batch of {len(runnable)}: "
+                                 f"{type(e).__name__}: {e}") from e
+        bind_s = admit_s + res.bind_s
+        metrics.observe("bind_s", bind_s)
+        if res.error is not None:
+            return self._failed(reqs, errors, runnable, res.error, metrics)
+        metrics.observe("execute_s", res.execute_s)
+        metrics.observe("measure_s", res.measure_s)
+        fields = {}
+        for i, r in enumerate(runnable):
+            if i in res.errors:
+                errors[r.request_id] = res.errors[i]
+            else:
+                fields[r.request_id] = {"result": res.results.get(i), "amp0": res.amp0.get(i),
+                                        "state": res.states.get(i)}
+        return self._responses(batch, len(live), errors, fields, res.cache_hit,
+                               res.provenance, bind_s, res.execute_s, metrics)
 
     # ------------------------------------------------------ fault handling
     def _effective_verify(self, reqs: List[SimRequest]) -> bool:
@@ -455,16 +562,26 @@ class DynamicBatcher:
         # blast-radius split: each member re-executes alone (own retry
         # budget); only members that fail individually get errors
         for r in reqs:
-            try:
-                out = self._run_with_retry(
-                    lambda p=points[r.request_id]: engine.run_sweep(
-                        None, [p], apply_final=wants_state, verify=verify),
-                    metrics)
-                metrics.inc("sweep_rows")
-                states[r.request_id] = out[0]
-            except FaultError as e:
-                errors[r.request_id] = e
-                metrics.inc("request_errors_executed")
+            self._run_alone(engine, r.request_id, points[r.request_id], wants_state, verify,
+                            states, errors, metrics)
+
+    def _run_alone(self, engine, key, point: Dict[str, float], wants_state: bool, verify: bool,
+                   states: Dict, errors: Dict, metrics) -> None:
+        """One row run alone with its own retry budget: its state into
+        ``states[key]``, or its typed failure past the retries into
+        ``errors[key]``."""
+        from ..sim.faults import FaultError
+
+        try:
+            out = self._run_with_retry(
+                lambda: engine.run_sweep(None, [point], apply_final=wants_state, verify=verify),
+                metrics)
+        except FaultError as e:
+            errors[key] = e
+            metrics.inc("request_errors_executed")
+            return
+        metrics.inc("sweep_rows")
+        states[key] = out[0]
 
     @staticmethod
     def _ensure_binding(engine, leader: SimRequest) -> None:
@@ -485,14 +602,13 @@ class DynamicBatcher:
                 engine._adjoint_progs.clear()
 
     @staticmethod
-    def _point(engine, r: SimRequest) -> Dict[str, float]:
+    def _point(names: Tuple[str, ...], r: SimRequest) -> Dict[str, float]:
         """Normalize a request's binding to a {name: value} point against
-        the engine's adopted skeleton."""
+        the skeleton's parameter ``names``."""
         if r.params is None:
             return {}
         if isinstance(r.params, dict):
             return {k: float(v) for k, v in r.params.items()}
-        names = engine.circuit.param_names
         vec = np.asarray(r.params, dtype=np.float64).reshape(-1)
         if vec.size != len(names):
             raise ValueError(
@@ -500,3 +616,22 @@ class DynamicBatcher:
                 f"entries; circuit has {len(names)} parameters {names}"
             )
         return dict(zip(names, vec))
+
+
+def _check_measurement(r: SimRequest, n: int) -> None:
+    """Raise ``ValueError`` unless ``r``'s measurement spec fits ``n``
+    qubits: shots non-negative, each marginal distinct qubits in range, each
+    observable a Pauli sum on them."""
+    from ..sim.measure import PauliSum
+
+    if r.shots < 0:
+        raise ValueError(f"request {r.request_id}: {r.shots} shots")
+    for qs in r.marginals:
+        qs = tuple(int(q) for q in qs)
+        if len(set(qs)) != len(qs) or not all(0 <= q < n for q in qs):
+            raise ValueError(f"request {r.request_id}: marginal {qs} is not distinct qubits "
+                             f"below {n}")
+    for obs in r.observables:
+        if PauliSum.coerce(obs).max_qubit >= n:
+            raise ValueError(f"request {r.request_id}: observable {obs!r} acts on a qubit "
+                             f"beyond {n - 1}")

@@ -26,7 +26,9 @@ hand kernels unless the config asks for the CPU (``device="cpu"``); a
 service on a machine without CUDA and without that ask raises when it is
 built. There is no fallback: a kernel that does not build reaches the
 breaker as its typed :class:`PallasLoweringError`, never a run on the
-kernels' plain versions, another backend or the CPU.
+kernels' plain versions, another backend or the CPU. On the shardmap
+backend the service is rank 0 of a ``torch.distributed`` group whose other
+ranks follow it batch by batch (:mod:`repro_torch.serve.follower`).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ class ServeConfig:
     """Serving knobs (see README "Serving" for the tuning guide)."""
 
     # engine / plan
-    backend: str = "cuda"  # "cuda" | "offload" | "dense"
+    backend: str = "cuda"  # "cuda" | "offload" | "dense" | "shardmap"
     use_kernels: bool = True
     staging_method: str = "ilp"
     kernelize_method: str = "dp"
@@ -90,7 +92,7 @@ class ServeConfig:
     tenant_weights: Dict[str, float] = field(default_factory=dict)
     default_weight: float = 1.0
     # execution
-    workers: int = 1
+    workers: int = 1  # 1 on shardmap: the ranks run one batch at a time, in step
     # warm pool
     cache_size: int = 16
     evict_scan: int = 4
@@ -125,13 +127,22 @@ class WarmPool:
     (with ``retry_after``) without touching a worker-thread build. After the
     TTL the breaker is half-open: one build attempt is let through; success
     closes it, failure re-opens for another TTL.
+
+    On the shardmap backend every rank holds a pool of its own (``mesh``,
+    the group's :class:`~repro_torch.serve.follower.RankMesh`): rank 0 runs
+    :meth:`admit` on each batch's structure (the count and the breaker)
+    before it sends the batch, and every rank runs :meth:`build` with rank
+    0's admission, so the ranks' caches hold the same structures.
+    The ranks agree on each build (:func:`repro_torch.sim.collective.agree_build`):
+    a rank that fails fails the build on every rank with its typed error.
     """
 
-    def __init__(self, cfg: ServeConfig, metrics: Metrics):
+    def __init__(self, cfg: ServeConfig, metrics: Metrics, mesh=None):
         from ..sim.engine import CompileCache
 
         self.cfg = cfg
         self.metrics = metrics
+        self.mesh = mesh
         self.device = resolve_device(cfg.device)
         self.cache = CompileCache(maxsize=cfg.cache_size,
                                   evict_scan=cfg.evict_scan)
@@ -146,14 +157,23 @@ class WarmPool:
         worker thread; compile cost (miss) or rebind cost (hit with new
         angles) both land in the caller's ``bind_s`` timer. Raises
         :class:`CircuitQuarantined` while the structure's breaker is open."""
-        from ..sim.engine import circuit_key_for, engine_for
+        return self.build(req, self.admit(req))
+
+    def _key(self, req: SimRequest):
+        from ..sim.engine import circuit_key_for
 
         cfg = self.cfg
-        key = circuit_key_for(
+        return circuit_key_for(
             req.circuit, req.L, req.R, req.G, backend=cfg.backend,
             use_kernels=cfg.use_kernels, staging_method=cfg.staging_method,
             kernelize_method=cfg.kernelize_method, device=self.device,
         )
+
+    def admit(self, req: SimRequest) -> bool:
+        """Count one request of ``req``'s structure and say whether its
+        engine is pooled (the doorkeeper). Raises :class:`CircuitQuarantined`
+        while the structure's breaker is open."""
+        key = self._key(req)
         now = time.monotonic()
         with self._lock:
             seen = self._seen.get(key.digest, 0) + 1
@@ -166,17 +186,42 @@ class WarmPool:
                     f"{int(br['failures'])} consecutive build failures",
                     digest=key.digest, failures=int(br["failures"]),
                     retry_after=br["open_until"] - now)
+        return key in self.cache or seen >= self.cfg.admit_after
+
+    def build(self, req: SimRequest, admitted: bool) -> Tuple[object, bool]:
+        """``(engine, cache_hit)`` for ``req``'s structure, pooled when
+        ``admitted``. A typed build failure counts toward the breaker."""
+        from ..sim import collective
+        from ..sim.engine import engine_for
+
+        cfg = self.cfg
+        key = self._key(req)
         hit = key in self.cache
-        admitted = hit or seen >= self.cfg.admit_after
-        try:
-            eng = engine_for(
+
+        def build():
+            return engine_for(
                 req.circuit, req.L, req.R, req.G, backend=cfg.backend,
                 use_kernels=cfg.use_kernels, staging_method=cfg.staging_method,
                 kernelize_method=cfg.kernelize_method, device=self.device,
                 cache=self.cache if admitted else None,
             )
-        except FaultError as e:
-            self._build_failed(key.digest, e)
+
+        try:
+            if self.mesh is None:
+                eng = build()
+            else:
+                # one agreement per build, whatever happened: a hit, a
+                # failure before or inside the setup, or a build
+                eng, err = None, None
+                with collective.agreement_by_caller():
+                    try:
+                        eng = build()
+                    except Exception as e:
+                        err = e
+                self.mesh.agree(eng, err)  # raises on every rank unless all built alike
+        except Exception as e:
+            if isinstance(e, FaultError):
+                self._build_failed(key.digest, e)
             raise
         with self._lock:
             self._breaker.pop(key.digest, None)  # success closes the breaker
@@ -254,13 +299,31 @@ class SimulationService:
     ``submit`` raises :class:`ServiceOverloaded` under backpressure. All
     engine work runs on a bounded worker pool off the event loop; responses
     resolve in arrival-batch order.
+
+    With ``backend="shardmap"`` the service is rank 0 of an initialised
+    ``torch.distributed`` group of ``2^(R+G)`` ranks, each of which runs
+    :func:`repro_torch.serve.follower.follow` (see that module): every batch
+    runs on every rank's shard in step, on the one worker (``workers=1``).
+    The service sends an idle step after
+    :data:`~repro_torch.serve.follower.IDLE_STEP_S` without a step, and
+    :meth:`stop` sends the stop step that ends the other ranks (so a stopped
+    shardmap service does not start again). A step that leaves the ranks out
+    of step fails the service: its requests get
+    :class:`~repro_torch.serve.follower.RanksOutOfStep`, it admits no more,
+    and :meth:`until_failed` returns the error. ``stats()["ranks"]`` holds
+    every rank's figures from the steps' closing all-gathers.
     """
 
     def __init__(self, config: Optional[ServeConfig] = None,
                  metrics: Optional[Metrics] = None):
         self.cfg = config or ServeConfig()
         self.metrics = metrics or Metrics()
-        self.pool = WarmPool(self.cfg, self.metrics)
+        self.mesh = None
+        if self.cfg.backend == "shardmap":
+            from .follower import leader_mesh
+
+            self.mesh = leader_mesh(self.cfg)
+        self.pool = WarmPool(self.cfg, self.metrics, self.mesh)
         self.queue = FairAdmissionQueue(
             capacity=self.cfg.queue_depth,
             weights=self.cfg.tenant_weights,
@@ -281,6 +344,9 @@ class SimulationService:
         self._inflight: Optional[asyncio.Semaphore] = None
         self._stopping = False
         self._ewma_req_s = 0.01  # EWMA seconds/request -> retry_after hint
+        self._keepalive: Optional[asyncio.Task] = None
+        self._failed: Optional[asyncio.Event] = None
+        self.failure: Optional[BaseException] = None  # the shardmap group broke
 
     # ---------------------------------------------------------- lifecycle
     async def start(self) -> "SimulationService":
@@ -290,7 +356,10 @@ class SimulationService:
         self._executor = ThreadPoolExecutor(
             max_workers=self.cfg.workers, thread_name_prefix="sim-serve")
         self._inflight = asyncio.Semaphore(self.cfg.workers)
+        self._failed = asyncio.Event()
         self._scheduler = asyncio.create_task(self._run(), name="sim-serve-sched")
+        if self.mesh is not None:
+            self._keepalive = asyncio.create_task(self._idle_steps(), name="sim-serve-idle")
         return self
 
     async def stop(self, drain: bool = True) -> None:
@@ -307,7 +376,57 @@ class SimulationService:
         self._arrival.set()
         await self._scheduler
         self._scheduler = None
+        if self.mesh is not None:
+            from .follower import Step
+
+            self._keepalive.cancel()
+            try:
+                await self._keepalive
+            except asyncio.CancelledError:
+                pass
+            if self.failure is None:  # a broken group takes no stop step
+                await asyncio.get_running_loop().run_in_executor(
+                    self._executor, self.mesh.send, Step("stop"))
         self._executor.shutdown(wait=True)
+
+    async def _idle_steps(self) -> None:
+        """Shardmap: an idle step whenever :data:`follower.IDLE_STEP_S`
+        passed without a step, sent on the worker (after any batch in flight
+        there)."""
+        from . import follower
+
+        loop = asyncio.get_running_loop()
+        while True:
+            wait = self.mesh.last_step_t + follower.IDLE_STEP_S - time.monotonic()
+            if wait > 0:
+                await asyncio.sleep(wait)
+                continue
+            try:
+                await loop.run_in_executor(self._executor, self.mesh.send, follower.Step("idle"))
+            except Exception as e:
+                self._fail(follower.RanksOutOfStep(
+                    f"an idle step failed: {type(e).__name__}: {e}"))
+                return
+
+    def _fail(self, exc: BaseException) -> None:
+        """The shardmap group broke: fail every queued request with ``exc``,
+        admit no more, wake :meth:`until_failed`."""
+        if self.failure is not None:
+            return
+        self.failure = exc
+        self._stopping = True
+        for _, req in self.queue.drain():
+            fut = self._futures.pop(req.request_id, None)
+            if fut is not None and not fut.done():
+                fut.set_exception(exc)
+        self._arrival.set()
+        self._failed.set()
+
+    async def until_failed(self) -> BaseException:
+        """Wait until the service fails (a shardmap group that broke; never
+        on one device) and return the error."""
+        await self._failed.wait()
+        return self.failure
 
     async def __aenter__(self) -> "SimulationService":
         return await self.start()
@@ -460,6 +579,8 @@ class SimulationService:
                 fut = self._futures.pop(r.request_id, None)
                 if fut is not None and not fut.done():
                     fut.set_exception(exc)
+            if self.mesh is not None:
+                self._fail(exc)  # the ranks may be out of step: serve no more
             return
         for r, resp in task.result():
             fut = self._futures.pop(r.request_id, None)
@@ -509,4 +630,6 @@ class SimulationService:
         plan = faults.active()
         if plan is not None:
             snap["fault_plan"] = plan.stats()
+        if self.mesh is not None:
+            snap["ranks"] = self.mesh.snapshot()
         return snap

@@ -35,11 +35,15 @@ point-to-point calls, as ``KERNEL_CALLS`` counts the kernels' launches.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from . import faults
 
 COLLECTIVE_CALLS = {"all_to_all": 0, "permute": 0, "bytes_sent": 0, "bytes_received": 0,
                     "all_reduce": 0, "all_gather": 0, "broadcast": 0, "send": 0}
@@ -174,9 +178,93 @@ class Transport:
         COLLECTIVE_CALLS["bytes_received"] += t.nbytes
         return t.cpu().numpy()
 
+    def gather_rows(self, rows: torch.Tensor) -> Optional[np.ndarray]:
+        """Rank 0: the ``[B, 2^n]`` logical rows whose ``[B, 2^L]`` shards
+        the ranks hold (after the final remap rank ``d`` holds amplitudes
+        ``[d·2^L, (d+1)·2^L)``), on the host; None on the other ranks.
+        Every rank calls it."""
+        part = np.ascontiguousarray(rows.detach().cpu().numpy())
+        wire = part.view(np.float32)  # point-to-point takes no complex tensors
+        if self.rank:
+            self.send(wire, 0)
+            return None
+        return np.concatenate([part] + [self.recv(wire, src).view(np.complex64)
+                                        for src in range(1, self.world)], axis=1)
+
     def _global(self, rank: int) -> int:
         """The default group's rank of this group's ``rank`` (what
         point-to-point calls take)."""
         if self.group is None:
             return rank
         return dist.get_global_rank(self.group, rank)
+
+
+# ----------------------------------------------------------------------
+# agreeing on an engine build
+# ----------------------------------------------------------------------
+
+#: the errors an agreement names by code (``code - 1``); any other error is
+#: named :class:`~repro_torch.sim.faults.BackendBuildError` on the other ranks
+_AGREED_ERRORS = (faults.PallasLoweringError, faults.XlaTraceError, faults.BackendBuildError,
+                  faults.StagingError, faults.KernelizationError, faults.FaultError)
+_DIGEST_BYTES = 32
+_MESSAGE_BYTES = 256
+_CALLER = threading.local()
+
+
+@contextmanager
+def agreement_by_caller():
+    """Within it, this thread's engine builds make no agreement of their
+    own: the caller makes each build's one :func:`agree_build` once the
+    build returned or raised (the serving pool, which must agree on a cache
+    hit and on a failure before ``ShardMapBackend.setup`` as well)."""
+    prev = getattr(_CALLER, "agrees", False)
+    _CALLER.agrees = True
+    try:
+        yield
+    finally:
+        _CALLER.agrees = prev
+
+
+def caller_agrees() -> bool:
+    """Whether this thread is inside :func:`agreement_by_caller`."""
+    return getattr(_CALLER, "agrees", False)
+
+
+def agree_build(transport: Transport, digest: Optional[np.ndarray],
+                error: Optional[BaseException] = None) -> None:
+    """Every rank's outcome of building one engine, in ONE all-gather: the
+    program's ``digest`` (32 bytes) where this rank built it, or the
+    ``error`` it failed with. Every rank of the group calls it once per
+    build, before any other collective of the engine, so a rank that failed
+    leaves no other rank waiting in a collective it will never make.
+
+    Returns when every rank built the same program. Otherwise it raises on
+    every rank: a rank that failed its own ``error``; the others the typed
+    error of the lowest failing rank (its class and message), or
+    :class:`~repro_torch.sim.faults.BackendBuildError` when the ranks built
+    different programs (each planned otherwise: they would issue other
+    collectives and hang or corrupt the state)."""
+    payload = np.zeros(2 + _DIGEST_BYTES + _MESSAGE_BYTES, dtype=np.uint8)
+    if error is None:
+        payload[2:2 + _DIGEST_BYTES] = digest
+    else:
+        code = next((i for i, cls in enumerate(_AGREED_ERRORS) if type(error) is cls),
+                    _AGREED_ERRORS.index(faults.BackendBuildError))
+        text = f"{type(error).__name__}: {error}".encode()[:_MESSAGE_BYTES]
+        payload[0], payload[1] = code + 1, bool(getattr(error, "injected", False))
+        payload[2 + _DIGEST_BYTES:2 + _DIGEST_BYTES + len(text)] = np.frombuffer(text, np.uint8)
+    parts = transport.all_gather(payload)
+    failed = [r for r, p in enumerate(parts) if p[0]]
+    if failed:
+        if error is not None:
+            raise error
+        p = parts[failed[0]]
+        text = bytes(p[2 + _DIGEST_BYTES:]).rstrip(b"\0").decode(errors="replace")
+        raise _AGREED_ERRORS[p[0] - 1](f"rank {failed[0]} could not build the engine ({text})",
+                                       injected=bool(p[1]))
+    differ = [r for r, p in enumerate(parts) if not np.array_equal(p, parts[0])]
+    if differ:
+        raise faults.BackendBuildError(
+            f"the ranks compiled different programs: ranks {differ} differ from rank 0 "
+            "(each rank planned otherwise; give every rank the same plan)")

@@ -1246,14 +1246,16 @@ class ShardMapBackend(CudaBackend):
     None); its size must be ``2^(R+G)``, and every rank must have compiled
     the same program (checked at setup, before any other collective: a rank
     that planned otherwise would issue other collectives and hang or
-    corrupt the state). ``run``, ``run_packed`` and
+    corrupt the state; inside :func:`~repro_torch.sim.collective.agreement_by_caller`
+    the caller checks it instead). ``run``, ``run_packed`` and
     ``finalize`` return the rank's shard. Every rank of the group makes the
     same calls in the same order. Batches run one element at a time, as in
     the reference; there is no fused sweep, and gradients run one binding at
     a time (:class:`~repro_torch.sim.adjoint.ShardedAdjointProgram`).
     ``trace`` holds the last run's remaps, then those of a gradient sweep
     after it: slot, ``m``, whether a permute ran, the bytes this rank sent,
-    and seconds."""
+    and seconds; ``totals`` counts every run and remap since the setup
+    (``runs``, ``remaps``, ``bytes_sent``, ``seconds``)."""
 
     name = "shardmap"
     holds_whole_state = False
@@ -1272,12 +1274,8 @@ class ShardMapBackend(CudaBackend):
         except ValueError as e:
             raise BackendBuildError(str(e)) from e
         self.rank = self.transport.rank
-        digests = self.transport.all_gather(_program_digest(engine.cc))
-        differ = [r for r, d in enumerate(digests) if not np.array_equal(d, digests[0])]
-        if differ:
-            raise BackendBuildError(
-                f"the ranks compiled different programs: ranks {differ} differ from rank 0 "
-                "(each rank planned otherwise; give every rank the same plan)")
+        if not collective.caller_agrees():
+            collective.agree_build(self.transport, _program_digest(engine.cc))
         world = self.transport.world
         if world != 1 << nb:
             raise BackendBuildError(f"the shardmap bit-mesh needs {1 << nb} ranks (2^(R+G)), "
@@ -1299,6 +1297,7 @@ class ShardMapBackend(CudaBackend):
             v = int(dep[self.rank]) if dep is not None and T.shape[0] > 1 else 0
             self._shard_vidx[uid] = kops.to_device(np.array([v], dtype=np.int32), engine.device)
         self.trace: List[Dict] = []
+        self.totals = {"runs": 0, "remaps": 0, "bytes_sent": 0, "seconds": 0.0}
 
     def supports_fused_sweep(self) -> bool:
         return False
@@ -1356,10 +1355,13 @@ class ShardMapBackend(CudaBackend):
                                         x if reuse else torch.empty_like(x))
             out = remap_post(cur, rp, L, out=spare.view(-1))
         _sync(dev)
-        self.trace.append({
-            "slot": slot, "m": rp.m, "permute": rp.ppermute is not None,
-            "bytes_sent": collective.COLLECTIVE_CALLS["bytes_sent"] - sent,
-            "seconds": time.perf_counter() - t0})
+        t = {"slot": slot, "m": rp.m, "permute": rp.ppermute is not None,
+             "bytes_sent": collective.COLLECTIVE_CALLS["bytes_sent"] - sent,
+             "seconds": time.perf_counter() - t0}
+        self.trace.append(t)
+        self.totals["remaps"] += 1
+        self.totals["bytes_sent"] += t["bytes_sent"]
+        self.totals["seconds"] += t["seconds"]
         return out
 
     def pass_of(self, rows: int = 1,
@@ -1373,6 +1375,7 @@ class ShardMapBackend(CudaBackend):
     def execute(self, state: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
         ps = self.pass_of()
         self.trace = []
+        self.totals["runs"] += 1
         held = [state]  # no frame keeps the initial shard: a remap reuses it
         del state
         return self.engine.stage_loop(held.pop(), lambda v, prog: self.apply_ops(v, prog, ps),

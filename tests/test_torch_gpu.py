@@ -705,3 +705,44 @@ def test_shardmap_value_and_grad_on_four_ranks_matches_cuda_backend(cuda, tmp_pa
                                  "shm": counts.get("shm", 0)}, d
         assert f["sweep"]["bytes_sent"] <= f["bound"] and f["sweep"]["bytes_received"] <= f["bound"]
         assert f["sweep"]["bytes_sent"] > 0, d
+
+
+@pytest.mark.gpu
+def test_shardmap_service_on_four_ranks_matches_cuda_backend(cuda, tmp_path):
+    """A shardmap ``SimulationService`` on 4 gloo ranks of the card (rank 0
+    serves, the others follow; ``isingparam(28)`` at L=26, one 2^26 shard a
+    rank): one batch of 4 measured requests, each expectation within 1e-6 of
+    its binding run alone on ``CudaBackend`` and measured with
+    ``TorchMeasurer``, the first request's 32 shots the same for its seed,
+    and on every rank one launch per compiled op and row."""
+    import _torch_serve_ranks as rank_side
+    from repro_torch.core.generators import PARAM_FAMILIES
+    from repro_torch.sim.engine import engine_for
+    from repro_torch.sim.measure import measurer_for
+    from repro_torch.sim.ranks import run_ranks
+
+    n, L = 28, 26
+    eng = engine_for(PARAM_FAMILIES["isingparam"](n), L, 2, 0, device=cuda, cache=None)
+    obs = f"Z0 Z1 + 0.5*X{eng.cc.programs[-1].layout[L]}"
+    points = [p for p in np.random.default_rng(8).uniform(-1.5, 1.5, (4, 2))]
+    want = []
+    for i, p in enumerate(points):
+        tm = measurer_for(eng.run_packed(params=dict(zip(eng.param_names, p))),
+                          eng.measurement_frame)
+        want.append((tm.expectation(obs), tm.sample(32, seed=i).tolist() if i == 0 else None))
+    counts = eng.op_counts()
+    del eng, tm
+    torch.cuda.empty_cache()
+    found = run_ranks(rank_side.card_main, 4, str(tmp_path), args=(n, L, points, obs),
+                      timeout=900, init_timeout=300)
+    got = found[0]
+    assert all(f == {"batch": 1, "idle": 0} for f in found[1:])
+    for r, (value, samples) in zip(got["responses"], want):
+        assert r["ok"] and r["batch_size"] == 4
+        assert abs(next(iter(r["expectations"].values())) - value) <= 1e-6
+        assert samples is None or r["samples"] == samples
+    (step,) = got["ranks"]["history"]
+    for r in step["per_rank"]:
+        assert r["runs"] == 4
+        assert r["launches"]["fused"] == 4 * counts.get("fused", 0)
+        assert r["launches"]["shm"] == 4 * counts.get("shm", 0)

@@ -143,6 +143,19 @@ times the rows), each remap's bytes (Eq. 2), the warm batch's solver
 calls, shm schedules and cache misses (none) and peak; then the session is
 ended and every rank must be gone.
 
+Then LM serving (``repro_torch.launch.serve_llm`` over ``repro_torch.models``,
+plain PyTorch: no ``pallas_call`` is on that path, so neither hand kernel
+may launch): qwen2-1.5b, mamba2-1.3b and whisper-base at full width with
+random weights from the seed, each served by ``serve_llm.main`` (4 prompts
+of 128 tokens, 32 generated: the tokens' shape and range, prefill seconds,
+decode ms a step and tokens per second, peak device memory); each float32
+twin's cache held against its forward (prefill of 128 tokens and 32
+teacher-forced decode steps against one forward over the 160 tokens) within
+1e-3, or twice the twin's own rounding floor where that is larger; qwen2's
+bf16 cache against its forward within twice the bf16 forward's departure
+from the float32 twin; and qwen2's first two layers at full width, float32,
+on the card against the same weights on the CPU within 1e-3.
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -317,6 +330,26 @@ SERVE_SHARDMAP = {"ranks": 4, "n": 30, "L": 28, "R": 2, "requests": 8, "max_batc
 # tables and index tensors, measured at 1383424 bytes on every rank on an
 # H100 (so 5 GiB alone does not hold); 4 MiB is three times that
 SERVE_SHARDMAP_PEAK = (5 << 30) + (4 << 20)
+# LM serving (repro_torch.launch.serve_llm and repro_torch.models): three
+# registered archs at full width with random weights from the seed (no
+# checkpoint is in the repository): qwen2-1.5b (28 layers, GQA 12:2 at hd
+# 128, qkv bias, tied 152064-row head), mamba2-1.3b (48 layers, d_inner
+# 4096, 64 heads, state 128) and whisper-base (a 1500-frame encoder,
+# cross-attention in every layer, an untied head). Each is served by the CLI
+# (4 prompts of 128 tokens, 32 generated), then its float32 twin's cache is
+# held against its forward: prefill of 128 tokens into a cache of 160 and 32
+# teacher-forced decode steps against one forward over the 160 tokens,
+# within 1e-3 on logits of order 1 (TF32 off; a bf16 computation would miss
+# it), or within twice the model's own float32 rounding floor where that is
+# larger: mamba2 with random weights moves its logits by 7.2e-4 when its
+# embedding table moves by one ulp, at 16 of its layers on the CPU. qwen2
+# also in its bf16, and its first cpu_layers layers at full width on the
+# card against the CPU.
+LM = {"archs": ("qwen2-1.5b", "mamba2-1.3b", "whisper-base"), "bf16_arch": "qwen2-1.5b",
+      "batch": 4, "prompt": 128, "gen": 32, "seed": 0, "atol": 1e-3, "cpu_layers": 2,
+      "cpu_tokens": 32}
+LM_SERVE = ["--batch", str(LM["batch"]), "--prompt-len", str(LM["prompt"]), "--gen-len",
+            str(LM["gen"]), "--seed", str(LM["seed"])]
 
 
 def require(ok: bool, msg: str) -> None:
@@ -610,8 +643,8 @@ def trace_run(run, untraced_s: float, what: str = "run_packed") -> None:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     log(f"  traced {what}: device time {busy_ms:.1f} ms = {busy_ms / (untraced_s * 1e3):.0%}"
-        f" of the untraced run's {untraced_s * 1e3:.1f} ms (profiled wall {wall_ms:.1f} ms); "
-        "by kernel:")
+        f" of the untraced run's {untraced_s * 1e3:.1f} ms (profiled wall {wall_ms:.1f} ms) in "
+        f"{sum(r[1] for r in rows)} kernels; by kernel:")
     for ms, count, key in rows[:10]:
         log(f"    {ms:9.2f} ms  x{count:<3d} {key[:100]}")
 
@@ -3358,6 +3391,186 @@ def serve_phase(ops, ref, card: str, device: str = "cuda") -> dict:
             "peak_bytes": peak}
 
 
+def _lm_inputs(cfg, batch: int, seq: int, seed: int) -> tuple:
+    """Tokens [batch, seq] and the audio/vision stub input (bf16) from a CPU
+    generator, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, dtype=torch.int32)
+    stub = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    extras = None
+    if stub:
+        x = torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen)
+        extras = {stub: x.to(torch.bfloat16).cuda()}
+    return toks.cuda(), extras
+
+
+def lm_cache_against_forward(model, seed: int, sensitivity: bool = False,
+                             trace: str = "") -> dict:
+    """Prefill of LM["prompt"] tokens into a cache of prompt + gen, then
+    LM["gen"] teacher-forced decode steps, each step's logits against one
+    forward over all prompt + gen tokens without a cache; the forward's
+    logits kept for a twin's comparison. ``sensitivity``: also how far the
+    same forward's logits move when every entry of the embedding table
+    moves by one float32 ulp (a seeded random sign): the model's own
+    rounding floor at these inputs. ``trace``: the last decode step runs
+    under torch.profiler (device time and kernels against the mean
+    untraced step), with this label."""
+    P, G = LM["prompt"], LM["gen"]
+    toks, extras = _lm_inputs(model.cfg, LM["batch"], P + G, seed)
+    params = model.cast_params()
+    with torch.no_grad():
+        full = model.forward(toks, extras=extras, params=params)[0][:, P - 1:].float()
+    out = {}
+    if sensitivity:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        emb = params["embed"]
+        sign = torch.randint(0, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8)
+        with torch.no_grad():
+            moved = emb * (1 + (2 * sign - 1) * 2.0**-24)
+            del sign
+            pert = model.forward(toks, extras=extras, params=dict(params, embed=moved))[0]
+        out["sensitivity"] = float((pert[:, P - 1:].float() - full).abs().max())
+        del moved, pert
+    t0 = time.perf_counter()
+    last, cache = model.prefill(toks[:, :P], extras=extras, cache_len=P + G, params=params)
+    steps = [last.float()]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    held = {"cache": cache}
+    for i in range(G):
+        def step(i=i):
+            logits, held["cache"] = model.decode_step(toks[:, P + i: P + i + 1], held["cache"],
+                                                      extras=extras, params=params)
+            steps.append(logits.float())
+        if trace and i == G - 1:
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t1) / (G - 1)
+            trace_run(step, step_s, trace)
+        else:
+            step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cache = held["cache"]
+    require(cache["len"] == P + G, f"cache len {cache['len']} != {P + G}")
+    cached = torch.stack(steps, dim=1)  # positions P-1 .. P+G-1
+    require(bool(torch.isfinite(cached).all()), "cached logits must be finite")
+    out.update(err=float((cached - full).abs().max()), scale=float(full.abs().max()),
+               forward=full, cached=cached, seconds=seconds)
+    return out
+
+
+def lm_phase(ops, card: str) -> dict:
+    """LM serving at full width (see ``LM``): each arch through
+    ``serve_llm.main`` (tokens' shape and range, prefill seconds, decode ms
+    a step and tokens per second, peak device memory), then its float32
+    twin's cache against its forward within LM["atol"] (or twice the twin's
+    rounding floor, where that is larger); qwen2 also in its
+    bf16, whose cache-against-forward departure must stay within twice the
+    bf16 forward's own departure from the float32 twin on the same weights
+    and positions (the cached path rounds the same ops at other shapes, so
+    it departs from the float32 values by as much as the forward does, and
+    two such departures add); then qwen2's first LM["cpu_layers"] layers at full
+    width, float32, on the card against the same weights on the CPU within
+    LM["atol"]. The LM path reaches no ``pallas_call``: neither hand
+    kernel may launch."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve_llm
+    from repro_torch.models.transformer import Model
+
+    B, P, G = LM["batch"], LM["prompt"], LM["gen"]
+    ops.reset_kernel_counters()
+    figures = {}
+    for name in LM["archs"]:
+        cfg = get_arch(name)
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tokens = serve_llm.main(["--arch", name, *LM_SERVE])
+        peak = torch.cuda.max_memory_allocated()
+        for line in buf.getvalue().splitlines():
+            log(f"  {line}")
+        require(tuple(tokens.shape) == (B, G) and tokens.dtype == torch.int32
+                and tokens.device.type == "cuda", f"{name}: tokens {tuple(tokens.shape)}")
+        # the head has padded_vocab rows (the reference's, unmasked): ids up to it
+        require(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.padded_vocab,
+                f"{name}: a token outside the head's rows")
+        out = buf.getvalue()
+        t_prefill = float(re.search(rf"prefill: {B}x{P} tokens in ([\d.]+)s", out).group(1))
+        t_decode = float(re.search(rf"decode: {B}x{G - 1} tokens in ([\d.]+)s", out).group(1))
+        fig = {"prefill_s": t_prefill, "prefill_tok_s": B * P / t_prefill,
+               "decode_ms_step": 1e3 * t_decode / (G - 1),
+               "decode_tok_s": B * (G - 1) / t_decode, "peak_bytes": peak}
+        log(f"  {name}: prefill {t_prefill:.3f}s ({fig['prefill_tok_s']:.0f} tok/s), decode "
+            f"{fig['decode_ms_step']:.2f} ms a step ({fig['decode_tok_s']:.0f} tok/s), peak "
+            f"{gib(peak)} ({peak} bytes) ({card})")
+        del tokens
+        torch.cuda.empty_cache()
+
+        twin_cfg = dataclasses.replace(cfg, dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(LM["seed"])
+        twin = Model(twin_cfg, generator=gen)
+        chk = lm_cache_against_forward(twin, LM["seed"], sensitivity=True,
+                                       trace=f"{name} float32 decode step")
+        bound = max(LM["atol"], 2 * chk["sensitivity"])
+        fig.update(f32_err=chk["err"], f32_scale=chk["scale"], f32_floor=chk["sensitivity"],
+                   f32_bound=bound)
+        log(f"  {name} float32 twin: cache against forward max |diff| {chk['err']:.3e} on "
+            f"logits up to {chk['scale']:.3f} (prefill + {G} decode steps in "
+            f"{chk['seconds']:.3f}s); bound {bound:.3e} = the larger of {LM['atol']} and twice "
+            f"the forward's move under a one-ulp embedding ({chk['sensitivity']:.3e})")
+        require(chk["err"] <= bound, f"{name}: float32 cache against forward "
+                f"{chk['err']:.3e} > {bound:.3e}")
+        if name == LM["bf16_arch"]:
+            gen = torch.Generator(device="cuda").manual_seed(LM["seed"])
+            model = Model(cfg, generator=gen)  # the twin's weights: same seed, same draws
+            bf = lm_cache_against_forward(model, LM["seed"], trace=f"{name} bf16 decode step")
+            floor = float((bf["forward"] - chk["forward"]).abs().max())
+            cached_dep = float((bf["cached"] - chk["forward"]).abs().max())
+            fig.update(bf16_err=bf["err"], bf16_floor=floor, bf16_cached_departure=cached_dep,
+                       bf16_bound=2 * floor)
+            log(f"  {name} bf16: cache against forward max |diff| {bf['err']:.4f}; bound "
+                f"{2 * floor:.4f} = twice the bf16 forward's departure from the float32 twin "
+                f"({floor:.4f}; the cached path's departure {cached_dep:.4f})")
+            require(bf["err"] <= 2 * floor, f"{name}: bf16 cache against forward "
+                    f"{bf['err']:.4f} > {2 * floor:.4f}")
+            del model, bf
+        del twin, chk
+        torch.cuda.empty_cache()
+        fig["seconds"] = time.time() - t0
+        figures[name] = fig
+
+    name = LM["bf16_arch"]
+    cfg = dataclasses.replace(get_arch(name), dtype="float32", n_layers=LM["cpu_layers"])
+    t0 = time.time()
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(LM["seed"]))
+    card_model = Model(cfg)
+    card_model.load_state_dict(cpu.state_dict())
+    toks, _ = _lm_inputs(cfg, 2, LM["cpu_tokens"], LM["seed"])
+    with torch.no_grad():
+        on_card = card_model.forward(toks)[0].cpu()
+        on_cpu = cpu.forward(toks.cpu())[0]
+    err = float((on_card - on_cpu).abs().max())
+    figures["card_vs_cpu"] = {"arch": name, "layers": LM["cpu_layers"], "err": err,
+                              "scale": float(on_cpu.abs().max())}
+    log(f"  {name} at full width, {LM['cpu_layers']} layers, float32: card against CPU max "
+        f"|diff| {err:.3e} on logits up to {figures['card_vs_cpu']['scale']:.3f} "
+        f"({time.time() - t0:.1f}s)")
+    require(err <= LM["atol"], f"{name}: card against CPU {err:.3e} > {LM['atol']}")
+    del cpu, card_model
+    torch.cuda.empty_cache()
+    launched = ops.kernel_call_counts()
+    require(not any(launched.values()), f"the LM path launched a hand kernel: {launched}")
+    log(f"  hand-kernel launches on the LM path: {launched} (it reaches no pallas_call)")
+    return {"figures": figures, "launches": dict(launched, by_k={})}
+
+
 def width_rows(ops, ref, probe, ks, n: int) -> list:
     """``fused_apply`` rows at widths ``ks`` that no plan launched (the
     profile's k on bits 0..k-1 of one shard of 2^n): against the plain
@@ -3610,6 +3823,13 @@ def main() -> None:
     paths["isingparam{n}_serve_shardmap4".format(**SERVE_SHARDMAP)] = serve_shardmap_phase(
         card)["launches"]
     log(f"  the shardmap serving phase took {time.time() - t_serve:.1f}s")
+    t_lm = time.time()
+    log("== LM serving: serve_llm.main at full width, " + ", ".join(LM["archs"]) + "; "
+        + " ".join(LM_SERVE) + "; each float32 twin's cache against its forward")
+    lm = lm_phase(ops, card)
+    paths["lm_serving"] = lm["launches"]
+    log("  LM figures: " + json.dumps(lm["figures"]))
+    log(f"  the LM serving phase took {time.time() - t_lm:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

@@ -746,3 +746,47 @@ def test_shardmap_service_on_four_ranks_matches_cuda_backend(cuda, tmp_path):
         assert r["runs"] == 4
         assert r["launches"]["fused"] == 4 * counts.get("fused", 0)
         assert r["launches"]["shm"] == 4 * counts.get("shm", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "mamba2-1.3b", "whisper-base",
+                                  "deepseek-v3-671b"])
+def test_lm_model_on_card_matches_cpu(cuda, name):
+    """A reduced LM's float32 twin on the card against the same weights on
+    the CPU (the path the CPU tests hold to the JAX models): forward
+    logits, prefill and three decode steps within 1e-4 of the largest
+    logit, with TF32 off (float32 sums in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, dtype=torch.int32)
+    extras = {}
+    stub = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if stub:
+        extras[stub] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen).bfloat16()
+    on_card = {k: v.to(cuda) for k, v in extras.items()} or None
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = cpu.forward(toks, extras=extras or None)[0]
+            got = card.forward(toks.to(cuda), extras=on_card)[0].cpu()
+        atol = 1e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        want, cache = cpu.prefill(toks[:, :8], extras=extras or None, cache_len=12)
+        got, card_cache = card.prefill(toks[:, :8].to(cuda), extras=on_card, cache_len=12)
+        for i in range(8, 11):
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+            want, cache = cpu.decode_step(toks[:, i:i + 1], cache, extras=extras or None)
+            got, card_cache = card.decode_step(toks[:, i:i + 1].to(cuda), card_cache,
+                                               extras=on_card)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

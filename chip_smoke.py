@@ -27,7 +27,7 @@ seconds, peak device memory per rank, and the marginal ``(0, 1, 2)`` and
 ``<Z0 Z1 + 0.5*X29>`` (plus an X term on a device qubit when qubit 29 is
 local in the plan's last layout) through ``ShardedMeasurer`` against
 ``TorchMeasurer`` on the in-card state (the shardmap serving phase holds
-``ShardedMeasurer``'s shots on 2^28 shards); the
+``ShardedMeasurer``'s shots on 2^26 shards); the
 first and last rank hold every kernel op at their shard and variants
 against its plain version. Then world size 1 over NCCL: ``qft(28)`` at
 L=28 through ``ShardMapExecutor`` bit for bit against ``CudaBackend``.
@@ -40,8 +40,8 @@ Eq. 2, and the marginal ``(0, 1, 2)`` and ``<Z0 Z1 + 0.5*X29 + 0.25*X0>``
 to ``TorchMeasurer`` on the in-card state; then ``isingparam(28)`` at world
 size 1 over NCCL, its marginal bit for bit a ``CudaBackend`` engine's. Then
 gradients on the shardmap backend: ``--vqe`` (one Adam step, two
-value_and_grad calls) of ``isingparam(30)`` L=28 R=2 under ``torchrun`` on
-4 gloo ranks, each sweeping its own 2 GiB shard back through the plan's
+value_and_grad calls) of ``isingparam(29)`` L=27 R=2 under ``torchrun`` on
+4 gloo ranks, each sweeping its own 1 GiB shard back through the plan's
 stages (every ``U†``, ``∂U`` and local Pauli op one ``fused_apply``
 launch), held to one ``CudaBackend`` value_and_grad of the same plan (value
 within 1e-5, gradient within 1e-4), with each rank's launches, sweep bytes
@@ -53,7 +53,7 @@ value_and_grad of ``isingparam(28)`` and hold a sample of its sweep's
 launches on ranks 0 and 3 against the plain version.
 
 Then adjoint gradients: the ``--vqe`` loop on ``isingparam(30)`` L=28 R=2
-(three Adam steps; every gate, derivative and Pauli application of each
+(two Adam steps; every gate, derivative and Pauli application of each
 reverse sweep one ``fused_apply`` launch), its first gradient held against
 the same sweep through the plain version on the card, against central
 finite differences of the on-card energy and against the complex128
@@ -132,11 +132,11 @@ each structure's warm run planned on the calibration against the analytic
 constants. It prints the stage percentiles, the coalesce factor, the
 padded-row share, the launches of every batch and the peak device memory.
 Then serving on the shardmap backend: ``serve_sim --backend shardmap`` under
-``torchrun`` on 4 gloo ranks of the card (``isingparam(30)`` L=28 R=2, one
-2 GiB shard a rank, the card's calibration), driven as a client over the
-wire: 8 ``isingparam(30)`` requests with an X term on a device qubit (two
+``torchrun`` on 4 gloo ranks of the card (``isingparam(28)`` L=26 R=2, one
+512 MiB shard a rank, the card's calibration), driven as a client over the
+wire: 8 ``isingparam(28)`` requests with an X term on a device qubit (two
 batches of 4; one with 64 shots and a marginal) and 2 identical concrete
-``ising(30)`` requests (one dedup run), then ``stats``; each answer held to
+``ising(28)`` requests (one dedup run), then ``stats``; each answer held to
 the binding run alone on ``CudaBackend`` (``TorchMeasurer``'s shots for the
 seed), and from ``stats()["ranks"]`` each rank's launches (the plan's ops
 times the rows), each remap's bytes (Eq. 2), the warm batch's solver
@@ -147,14 +147,32 @@ Then LM serving (``repro_torch.launch.serve_llm`` over ``repro_torch.models``,
 plain PyTorch: no ``pallas_call`` is on that path, so neither hand kernel
 may launch): qwen2-1.5b, mamba2-1.3b and whisper-base at full width with
 random weights from the seed, each served by ``serve_llm.main`` (4 prompts
-of 128 tokens, 32 generated: the tokens' shape and range, prefill seconds,
+of 128 tokens, 16 generated: the tokens' shape and range, prefill seconds,
 decode ms a step and tokens per second, peak device memory); each float32
-twin's cache held against its forward (prefill of 128 tokens and 32
-teacher-forced decode steps against one forward over the 160 tokens) within
+twin's cache held against its forward (prefill of 128 tokens and 16
+teacher-forced decode steps against one forward over the 144 tokens) within
 1e-3, or twice the twin's own rounding floor where that is larger; qwen2's
 bf16 cache against its forward within twice the bf16 forward's departure
 from the float32 twin; and qwen2's first two layers at full width, float32,
 on the card against the same weights on the CPU within 1e-3.
+
+Then LM training (``repro_torch.launch.train`` over ``make_train_step``,
+AdamW and the checkpoint manager, plain PyTorch: neither hand kernel may
+launch): qwen2-1.5b at full width and depth, bf16, remat on, 10 steps of 8
+x 128 tokens through ``train.run`` (every loss and grad norm finite, the
+last three losses' mean below the first; the median step ms after the
+first two, tokens per second, peak device memory; one more step traced),
+then one step with remat off, whose peak must be above remat's;
+mamba2-1.3b at full width, 3 steps; the reference test's learning
+criterion (reduced qwen2, 120 steps, a drop of 0.3); one float32 step of
+qwen2's first two layers at full width on the card against the CPU (loss,
+every gradient leaf, the updated parameters); and a run of qwen2 at full
+width cut to two layers that stops with a checkpoint under ``build/``,
+then a second call that resumes from it (one restart, the last step, both
+checkpoints restored bit for bit equal to the state that was saved).
+(To make room for this phase, the shardmap gradients were cut from n=30 to
+29, shardmap serving from n=30 to 28, the VQE loop from three Adam steps
+to two, and LM serving's generation from 32 tokens to 16.)
 
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
@@ -230,7 +248,7 @@ CHECKPOINT = {"n": 28, "L": 24, "R": 4}
 # of the on-card energy (their truncation error at eps 1e-2 is 1.8e-4 of
 # the gradient on this path, by the complex128 oracle)
 VQE_OBS = "Z0 Z1 + Z1 Z2 + 0.5*X0"
-VQE_STEPS = 3
+VQE_STEPS = 2  # 3 before the training phase was added
 VQE_PATH = ["--circuit", "isingparam", "--n", "30", "--L", "28", "--R", "2", "--vqe", VQE_OBS,
             "--vqe-steps", str(VQE_STEPS)]
 VQE_SEED = 0  # the CLI's --vqe-seed: the angles of the first value_and_grad
@@ -279,7 +297,7 @@ SERVE_ATOL = 1e-5  # a served row against the same binding run alone
 # against the in-card run through every STRIDE-th amplitude and a checksum
 # of every bit, its marginal and expectation against TorchMeasurer on the
 # in-card state (no shots: their 22.8 s went to the shardmap serving phase,
-# which holds ShardedMeasurer's shots on 2^28 shards of n=30); then world
+# which holds ShardedMeasurer's shots on 2^26 shards of n=28); then world
 # size 1 over NCCL (qft(28), L=28: no collective runs) bit for bit
 SHARDMAP = {"ranks": 4, "stride": 1 << 8, "marginal": (0, 1, 2),
             "observable": "Z0 Z1 + 0.5*X29", "atol": 1e-6, "timeout": 600}
@@ -303,42 +321,48 @@ SHARDMAP_CLI_NCCL_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "2
                           "--executor", "shardmap"]
 RESULTS_DIR = os.path.join(HERE, "build", "results")
 # gradients on the shardmap backend: the CLI's --vqe under torchrun on 4
-# gloo ranks of the one card, isingparam(30) at L=28 R=2 (one 2 GiB shard a
-# rank), one Adam step (two value_and_grad calls), held to one CudaBackend
+# gloo ranks of the one card, isingparam(29) at L=27 R=2 (one 1 GiB shard a
+# rank; n=30 before the training phase was added), one Adam step (two value_and_grad calls), held to one CudaBackend
 # value_and_grad of the same plan at the first angles. The observable is
 # VQE_OBS plus a term with X and Y on the last stage's two device qubits
 # (the sweep builds λ in that stage's frame), so λ needs the permute. The
 # shardmap phase's ranks run a sharded value_and_grad of isingparam(28)
 # L=26 and hold a sample of its sweep's k=1 and k=2 launches on ranks 0 and
 # 3 against the plain version.
-SHARDMAP_VQE = {"ranks": 4, "n": 30, "L": 28, "R": 2, "timeout": 600, "value_atol": 1e-5,
+SHARDMAP_VQE = {"ranks": 4, "n": 29, "L": 27, "R": 2, "timeout": 600, "value_atol": 1e-5,
                 "grad_atol": 1e-4, "sample_n": 28, "sample_L": 26, "sample_seed": 43}
-SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "30", "--L", "28", "--R", "2",
+SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "29", "--L", "27", "--R", "2",
                      "--executor", "shardmap", "--dist-backend", "gloo", "--vqe-steps", "1"]
 # serving on the shardmap backend: serve_sim --backend shardmap under
-# torchrun on 4 gloo ranks of the one card (one 2^28 shard of isingparam(30)
+# torchrun on 4 gloo ranks of the one card (one 2^26 shard of isingparam(28)
 # a rank), after the serving phase, so every rank plans on the card's
-# calibration. A client sends, all at once over the wire: 8 isingparam(30)
+# calibration. A client sends, all at once over the wire: 8 isingparam(28)
 # requests (two batches of 4) with <Z0 Z1 + 0.5*X<d>>, d a device qubit of
 # the last stage, one of them with 64 shots and the marginal (0, 1, 2); two
-# identical concrete ising(30) requests (one dedup run, amp0); then stats.
-SERVE_SHARDMAP = {"ranks": 4, "n": 30, "L": 28, "R": 2, "requests": 8, "max_batch": 4,
+# identical concrete ising(28) requests (one dedup run, amp0); then stats.
+# (n=30 until the training phase took its time: gloo's remaps and the
+# sampling scale with the shard.)
+SERVE_SHARDMAP = {"ranks": 4, "n": 28, "L": 26, "R": 2, "requests": 8, "max_batch": 4,
                   "max_wait_ms": 500.0, "shots": 64, "shot_request": 5, "marginal": (0, 1, 2),
                   "dedup": 2, "seed": 53, "atol": 1e-6, "start_timeout": 300, "timeout": 600}
 # a rank's peak: two shards in a run; a shard, its partner and their float32
-# product in a device-X expectation (5 GiB at L=28), plus the plan's op
-# tables and index tensors, measured at 1383424 bytes on every rank on an
-# H100 (so 5 GiB alone does not hold); 4 MiB is three times that
-SERVE_SHARDMAP_PEAK = (5 << 30) + (4 << 20)
+# product in a device-X expectation (20 x 2^L bytes: 5 GiB at L=28); the
+# guard's norm pass, whose float32 squares of one 2^24-amplitude chunk
+# (128 MiB, engine._sq_norms) hide under that at L=28 but add to it at
+# L=26 (measured 20 x 2^26 + 128 MiB + 285696 bytes on rank 0 of an H100);
+# plus the plan's op tables and index tensors, measured at 1383424 bytes
+# on every rank at L=28; 4 MiB is three times that
+SERVE_SHARDMAP_PEAK = 20 * (1 << SERVE_SHARDMAP["L"]) + (8 << 24) + (4 << 20)
 # LM serving (repro_torch.launch.serve_llm and repro_torch.models): three
 # registered archs at full width with random weights from the seed (no
 # checkpoint is in the repository): qwen2-1.5b (28 layers, GQA 12:2 at hd
 # 128, qkv bias, tied 152064-row head), mamba2-1.3b (48 layers, d_inner
 # 4096, 64 heads, state 128) and whisper-base (a 1500-frame encoder,
 # cross-attention in every layer, an untied head). Each is served by the CLI
-# (4 prompts of 128 tokens, 32 generated), then its float32 twin's cache is
-# held against its forward: prefill of 128 tokens into a cache of 160 and 32
-# teacher-forced decode steps against one forward over the 160 tokens,
+# (4 prompts of 128 tokens, 16 generated), then its float32 twin's cache is
+# held against its forward: prefill of 128 tokens into a cache of 144 and 16
+# teacher-forced decode steps against one forward over the 144 tokens (32
+# before the training phase was added),
 # within 1e-3 on logits of order 1 (TF32 off; a bf16 computation would miss
 # it), or within twice the model's own float32 rounding floor where that is
 # larger: mamba2 with random weights moves its logits by 7.2e-4 when its
@@ -346,7 +370,7 @@ SERVE_SHARDMAP_PEAK = (5 << 30) + (4 << 20)
 # also in its bf16, and its first cpu_layers layers at full width on the
 # card against the CPU.
 LM = {"archs": ("qwen2-1.5b", "mamba2-1.3b", "whisper-base"), "bf16_arch": "qwen2-1.5b",
-      "batch": 4, "prompt": 128, "gen": 32, "seed": 0, "atol": 1e-3, "cpu_layers": 2,
+      "batch": 4, "prompt": 128, "gen": 16, "seed": 0, "atol": 1e-3, "cpu_layers": 2,
       "cpu_tokens": 32}
 LM_SERVE = ["--batch", str(LM["batch"]), "--prompt-len", str(LM["prompt"]), "--gen-len",
             str(LM["gen"]), "--seed", str(LM["seed"])]
@@ -3571,6 +3595,284 @@ def lm_phase(ops, card: str) -> dict:
     return {"figures": figures, "launches": dict(launched, by_k={})}
 
 
+# LM training (repro_torch.launch.train, make_train_step, AdamW over the
+# model's parameters, the checkpoint manager): qwen2-1.5b at full width and
+# depth (28 layers, tied 151936-row head), bf16, remat on, `steps` steps of
+# batch x seq tokens, then one step with remat off; mamba2-1.3b (48 layers:
+# the chunked SSD's backward) for `second_steps` steps; the reference test's
+# learning criterion (tests/test_train.py::test_training_loss_decreases:
+# reduced qwen2, 120 steps, 8 x 64, lr 2e-3, a drop of 0.3 between the
+# means of the first and last three logged losses); one float32 step of
+# qwen2 cut to `layers` layers at full width, card against CPU (float32
+# moments; loss within rtol 1e-5, each gradient leaf within 1e-4 of its
+# largest entry, parameters within 0.5 lr); and a run of qwen2 cut to
+# `layers` layers (a 2.6 GB checkpoint: fp32 masters, bf16 moments) that
+# stops at ckpt_steps[0] and a second call that resumes to ckpt_steps[1]
+# (`ckpt_every` past both, so each call saves once, at its end: two saves
+# under build/train_ckpt; the background save is held on the CPU, in
+# tests/test_torch_train_cli.py).
+TRAIN = {"arch": "qwen2-1.5b", "batch": 8, "seq": 128, "steps": 10, "lr": 1e-3, "warmup": 2,
+         "second": "mamba2-1.3b", "second_steps": 3, "seed": 0, "reduced": False,
+         "learn": ["--steps", "120", "--global-batch", "8", "--seq", "64", "--lr", "2e-3",
+                   "--log-every", "10"], "learn_drop": 0.3,
+         "layers": 2, "cpu_batch": 2, "cpu_seq": 64, "cpu_lr": 2e-3,
+         "ckpt_steps": (2, 3), "ckpt_every": 10}
+TRAIN_CKPT_DIR = os.path.join(HERE, "build", "train_ckpt")
+
+
+def _peak(device: str) -> int:
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _fresh(device: str) -> None:
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _train_argv(spec: dict, arch: str, steps: int, device: str) -> list:
+    return (["--arch", arch, "--steps", str(steps), "--global-batch", str(spec["batch"]),
+             "--seq", str(spec["seq"]), "--lr", str(spec["lr"]), "--warmup",
+             str(spec["warmup"]), "--log-every", "1", "--seed", str(spec["seed"]),
+             "--device", device] + (["--reduced"] if spec["reduced"] else []))
+
+
+def _same_state(a_model, a_opt, b_params: dict, b_opt, what: str) -> None:
+    """Bit for bit: ``a``'s parameters, moments and step against ``b``'s."""
+    for name, p in a_model.named_parameters():
+        for x, y, part in ((p, b_params[name], "param"), (a_opt.m[name], b_opt.m[name], "m"),
+                           (a_opt.v[name], b_opt.v[name], "v")):
+            require(x.dtype == y.dtype and torch.equal(x.detach(), y.detach()),
+                    f"{what}: {part} {name} differs")
+    require(int(a_opt.step) == int(b_opt.step), f"{what}: step {int(a_opt.step)} != "
+            f"{int(b_opt.step)}")
+
+
+def train_phase(ops, card: str, device: str = "cuda", spec: dict = TRAIN) -> dict:
+    """LM training on the card (see ``TRAIN``): ``train.run`` at full width
+    (finite, decreasing; step ms, tokens per second, peak; one traced step),
+    a step without remat (its peak above remat's), the second family, the
+    learning criterion, a float32 step card against CPU, and a stop and
+    resume through checkpoints. The training path reaches no
+    ``pallas_call``: neither hand kernel may launch. ``device="cpu"`` with
+    ``spec["reduced"]`` dry-runs it on the host."""
+    import contextlib
+    import dataclasses
+    import statistics
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import RunJournal
+
+    def config(arch):
+        cfg = get_arch(arch)
+        return cfg.reduced() if spec["reduced"] else cfg
+
+    ops.reset_kernel_counters()
+    figures = {}
+    B, S = spec["batch"], spec["seq"]
+
+    # full width and depth, remat on, through the entry point
+    arch = spec["arch"]
+    _fresh(device)
+    t0 = time.time()
+    run = train.run(_train_argv(spec, arch, spec["steps"], device))
+    remat_peak = _peak(device)
+    losses = [h["loss"] for h in run.logged]
+    gnorms = [h["grad_norm"] for h in run.logged]
+    dts = [h["dt"] for h in run.logged]
+    step_s = statistics.median(dts[2:])
+    require(len(losses) == spec["steps"] and all(np.isfinite(losses + gnorms)),
+            f"{arch}: a loss or grad norm is not finite: {losses} {gnorms}")
+    require(np.mean(losses[-3:]) < losses[0], f"{arch}: the last three losses' mean "
+            f"{np.mean(losses[-3:]):.4f} is not below the first {losses[0]:.4f}")
+    fig = {"step_ms": 1e3 * step_s, "first_step_ms": [1e3 * d for d in dts[:2]],
+           "tok_s": B * S / step_s, "peak_bytes": remat_peak, "losses": losses,
+           "grad_norms": gnorms, "seconds": time.time() - t0}
+    log(f"  {arch} (full width, {config(arch).n_layers} layers, remat): step "
+        f"{fig['step_ms']:.1f} ms (median after the first two, {fig['first_step_ms'][0]:.0f} "
+        f"and {fig['first_step_ms'][1]:.0f} ms), {fig['tok_s']:.0f} tok/s, peak "
+        f"{gib(remat_peak)} ({remat_peak} bytes); losses {losses[0]:.4f} -> mean of the last "
+        f"three {np.mean(losses[-3:]):.4f} ({card})")
+    if device == "cuda":
+        opt_cfg = adamw.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                                    total_steps=spec["steps"])
+        data = SyntheticDataset(SyntheticConfig(vocab_size=run.model.cfg.vocab_size,
+                                                seq_len=S, global_batch=B, seed=spec["seed"]))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(spec["steps"]).items()}
+        step_fn = steps.make_train_step(run.model, opt_cfg)
+        held = {"params": dict(run.model.named_parameters()), "opt": run.opt_state}
+
+        def one_step():
+            held["params"], held["opt"], _ = step_fn(held["params"], held["opt"], batch)
+
+        trace_run(one_step, step_s, f"{arch} train step")
+        del held, step_fn
+    del run
+    _fresh(device)
+    cfg = config(arch)
+    model = steps.build_model(cfg, device, torch.Generator(device=device).manual_seed(
+        spec["seed"]), remat=False)
+    opt_cfg = adamw.AdamWConfig(lr=spec["lr"], warmup_steps=spec["warmup"],
+                                total_steps=spec["steps"])
+    params = dict(model.named_parameters())
+    data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                            global_batch=B, seed=spec["seed"]))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(0).items()}
+    sync(device)
+    t0 = time.perf_counter()
+    _, _, metrics = steps.make_train_step(model, opt_cfg)(params, adamw.init(opt_cfg, params),
+                                                         batch)
+    loss0 = float(metrics["loss"])
+    sync(device)
+    fig.update(no_remat_peak_bytes=_peak(device), no_remat_step_ms=1e3 * (
+        time.perf_counter() - t0))
+    require(abs(loss0 - losses[0]) <= 1e-3 * abs(losses[0]),
+            f"{arch}: the first step's loss without remat {loss0} is not remat's {losses[0]}")
+    log(f"  {arch} without remat: one step {fig['no_remat_step_ms']:.1f} ms, peak "
+        f"{gib(fig['no_remat_peak_bytes'])} ({fig['no_remat_peak_bytes']} bytes) against remat's "
+        f"{gib(remat_peak)}: remat saves {gib(fig['no_remat_peak_bytes'] - remat_peak)}; its "
+        f"first loss {loss0:.4f} (remat's {losses[0]:.4f})")
+    if device == "cuda":
+        require(remat_peak < fig["no_remat_peak_bytes"], f"{arch}: remat's peak {remat_peak} is "
+                f"not below no remat's {fig['no_remat_peak_bytes']}")
+    figures[arch] = fig
+    del model, params, metrics, batch
+    _fresh(device)
+
+    # the second family at full width
+    arch = spec["second"]
+    t0 = time.time()
+    run = train.run(_train_argv(spec, arch, spec["second_steps"], device))
+    peak = _peak(device)
+    losses = [h["loss"] for h in run.logged]
+    gnorms = [h["grad_norm"] for h in run.logged]
+    dts = [h["dt"] for h in run.logged]
+    require(len(losses) == spec["second_steps"] and all(np.isfinite(losses + gnorms)),
+            f"{arch}: a loss or grad norm is not finite: {losses} {gnorms}")
+    figures[arch] = {"step_ms": 1e3 * statistics.median(dts[1:]), "first_step_ms": 1e3 * dts[0],
+                     "tok_s": B * S / statistics.median(dts[1:]), "peak_bytes": peak,
+                     "losses": losses, "grad_norms": gnorms, "seconds": time.time() - t0}
+    log(f"  {arch} (full width, {config(arch).n_layers} layers, remat): step "
+        f"{figures[arch]['step_ms']:.1f} ms (median after the first, "
+        f"{figures[arch]['first_step_ms']:.0f} ms), {figures[arch]['tok_s']:.0f} tok/s, peak "
+        f"{gib(peak)} ({peak} bytes); losses {losses} ({card})")
+    del run
+    _fresh(device)
+
+    # the reference test's learning criterion
+    t0 = time.time()
+    hist = train.main(["--arch", spec["arch"], "--reduced", *spec["learn"], "--device", device])
+    first = float(np.mean([h["loss"] for h in hist[:3]]))
+    last = float(np.mean([h["loss"] for h in hist[-3:]]))
+    figures["learning"] = {"first3": first, "last3": last, "seconds": time.time() - t0}
+    log(f"  reduced {spec['arch']}, {' '.join(spec['learn'])}: mean of the first three logged "
+        f"losses {first:.4f}, of the last three {last:.4f} (a drop of {first - last:.4f}; at "
+        f"least {spec['learn_drop']}) in {time.time() - t0:.1f}s")
+    require(last < first - spec["learn_drop"], f"no learning: {first:.3f} -> {last:.3f}")
+    _fresh(device)
+
+    # one float32 step, card against CPU, at full width cut to `layers` layers
+    t0 = time.time()
+    cfg = dataclasses.replace(config(spec["arch"]), dtype="float32", n_layers=spec["layers"])
+    opt_cfg = adamw.AdamWConfig(lr=spec["cpu_lr"], warmup_steps=0, moment_dtype="float32")
+    card_model = steps.build_model(cfg, device, torch.Generator(device=device).manual_seed(
+        spec["seed"]))
+    cpu = steps.build_model(cfg, "cpu")
+    cpu.load_state_dict(card_model.state_dict())
+    b = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=spec["cpu_seq"],
+                                         global_batch=spec["cpu_batch"],
+                                         seed=spec["seed"])).batch(0)
+    out = []
+    for model, dev in ((cpu, "cpu"), (card_model, device)):
+        # make_train_step's two halves, the gradients kept for the comparison
+        params = dict(model.named_parameters())
+        loss, _ = model.loss({k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+                             params=model.tree(params))
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        loss = loss.detach()
+        params, _, metrics = adamw.update(opt_cfg, grads, adamw.init(opt_cfg, params), params)
+        out.append((loss.item(), {k: g.cpu() for k, g in grads.items()},
+                    {k: p.detach().cpu() for k, p in params.items()},
+                    float(metrics["grad_norm"])))
+        del grads, params, loss
+    (want_l, want_g, want_p, want_n), (got_l, got_g, got_p, got_n) = out
+    g_err = max(float((got_g[k] - want_g[k]).abs().max() / want_g[k].abs().max().clamp_min(
+        1e-30)) for k in want_g)
+    p_err = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
+    figures["card_vs_cpu"] = {"layers": spec["layers"], "loss": want_l,
+                              "loss_rel": abs(got_l - want_l) / abs(want_l), "grad_rel": g_err,
+                              "param_abs": p_err, "grad_norm_rel": abs(got_n - want_n) / want_n,
+                              "seconds": time.time() - t0}
+    log(f"  {spec['arch']} at full width, {spec['layers']} layers, float32, one step on the card "
+        f"against the CPU: loss {got_l:.6f} against {want_l:.6f} (rel "
+        f"{figures['card_vs_cpu']['loss_rel']:.2e}), worst gradient leaf {g_err:.2e} of its "
+        f"largest entry, grad norm rel {figures['card_vs_cpu']['grad_norm_rel']:.2e}, "
+        f"parameters max |d| {p_err:.2e} ({p_err / opt_cfg.lr:.3f} lr) "
+        f"({time.time() - t0:.1f}s)")
+    require(abs(got_l - want_l) <= 1e-5 * abs(want_l), "card against CPU: the loss differs")
+    require(g_err <= 1e-4, f"card against CPU: a gradient leaf differs by {g_err:.2e}")
+    require(p_err <= 0.5 * opt_cfg.lr, f"card against CPU: parameters differ by {p_err:.2e}")
+    del cpu, card_model, out, want_g, got_g, want_p, got_p
+    _fresh(device)
+
+    # stop and resume through checkpoints, at full width cut to `layers` layers
+    t0 = time.time()
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    argv = (_train_argv(spec, spec["arch"], 0, device)
+            + ["--ckpt-dir", TRAIN_CKPT_DIR, "--ckpt-every", str(spec["ckpt_every"])])
+    at = argv.index("--steps") + 1
+
+    @contextlib.contextmanager
+    def cut_depth():
+        real = train.get_arch
+        train.get_arch = lambda name: dataclasses.replace(real(name), n_layers=spec["layers"])
+        try:
+            yield
+        finally:
+            train.get_arch = real
+
+    stop, end = spec["ckpt_steps"]
+    ckpt = CheckpointManager(TRAIN_CKPT_DIR)
+    with cut_depth():
+        argv[at] = str(stop)
+        first_run = train.run(argv)
+        like = {"params": dict(first_run.model.named_parameters()), "opt": first_run.opt_state}
+        saved = ckpt.restore(stop, like)
+        _same_state(first_run.model, first_run.opt_state, saved["params"], saved["opt"],
+                    f"the checkpoint of step {stop}")
+        nbytes = sum(os.path.getsize(os.path.join(TRAIN_CKPT_DIR, f"step_{stop:08d}", f))
+                     for f in ("state.npz", "manifest.json"))
+        del first_run, like, saved
+        _fresh(device)
+        argv[at] = str(end)
+        second_run = train.run(argv)
+    journal = RunJournal(os.path.join(TRAIN_CKPT_DIR, "journal.json")).read()
+    require(second_run.start_step == stop and journal == {"restarts": 1, "last_step": end},
+            f"resume: started at {second_run.start_step}, journal {journal}")
+    require(ckpt.all_steps() == [stop, end], f"checkpoints {ckpt.all_steps()}")
+    like = {"params": dict(second_run.model.named_parameters()), "opt": second_run.opt_state}
+    saved = ckpt.restore(end, like)
+    _same_state(second_run.model, second_run.opt_state, saved["params"], saved["opt"],
+                f"the checkpoint of step {end}")
+    figures["checkpoint"] = {"bytes": nbytes, "journal": journal, "seconds": time.time() - t0}
+    log(f"  {spec['arch']} at full width, {spec['layers']} layers: stopped at step {stop} (a "
+        f"{nbytes} byte checkpoint), resumed to {end}: journal {journal}; both checkpoints "
+        f"restored bit for bit equal to the saved state ({time.time() - t0:.1f}s)")
+    del second_run, like, saved
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    _fresh(device)
+
+    launched = ops.kernel_call_counts()
+    require(not any(launched.values()), f"the training path launched a hand kernel: {launched}")
+    log(f"  hand-kernel launches on the training path: {launched} (it reaches no pallas_call)")
+    return {"figures": figures, "launches": dict(launched, by_k={})}
+
+
 def width_rows(ops, ref, probe, ks, n: int) -> list:
     """``fused_apply`` rows at widths ``ks`` that no plan launched (the
     profile's k on bits 0..k-1 of one shard of 2^n): against the plain
@@ -3726,7 +4028,7 @@ def main() -> None:
     log("== shardmap gradients under torchrun: {ranks} gloo ranks on the one card, ".format(
         **SHARDMAP_VQE) + " ".join(SHARDMAP_VQE_PATH) + " --vqe <VQE_OBS + X/Y on device qubits>")
     shardmap_vqe = shardmap_vqe_phase(ops, ref, probe, card)
-    paths["isingparam30_shardmap4_vqe"] = shardmap_vqe["launches"]
+    paths["isingparam{n}_shardmap4_vqe".format(**SHARDMAP_VQE)] = shardmap_vqe["launches"]
     torch.cuda.empty_cache()
     log(f"  the shardmap phases took {time.time() - t_shardmap:.1f}s")
 
@@ -3830,6 +4132,14 @@ def main() -> None:
     paths["lm_serving"] = lm["launches"]
     log("  LM figures: " + json.dumps(lm["figures"]))
     log(f"  the LM serving phase took {time.time() - t_lm:.1f}s")
+    t_train = time.time()
+    log("== LM training: train.run at full width, {arch} ({steps} steps of {batch} x {seq}, "
+        "remat on and off) and {second} ({second_steps} steps); the learning criterion; one "
+        "float32 step card against CPU; a stop and resume through checkpoints".format(**TRAIN))
+    trained = train_phase(ops, card)
+    paths["lm_training"] = trained["launches"]
+    log("  train figures: " + json.dumps(trained["figures"]))
+    log(f"  the LM training phase took {time.time() - t_train:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

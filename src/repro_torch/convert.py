@@ -11,7 +11,10 @@ package.
 :func:`lm_params_from_reference` carries an LM's weights across: the
 reference's parameter tree (numpy arrays, as ``jax.tree.map(np.asarray,
 model.init(key))`` gives it) into a port :class:`~repro_torch.models.
-transformer.Model`'s parameters, stacked leaves one to one.
+transformer.Model`'s parameters, stacked leaves one to one;
+:func:`adamw_state_from_reference` carries its optimizer state (the
+reference's ``AdamWState`` as numpy) into the port's, keyed by the same
+parameter names, so a training run crosses mid-run.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .core.circuit import Circuit
 from .core.partition import SimulationPlan
 from .device import DeviceLike
 from .models.transformer import Model, flatten_tree
+from .optim.adamw import AdamWState
 from .sim.engine import ExecutionEngine
 
 
@@ -48,22 +52,45 @@ def engine_from_reference(
     return eng
 
 
+def _same_names(model: Model, leaves: Mapping[str, Any], what: str) -> dict:
+    own = dict(model.named_parameters())
+    missing, extra = sorted(set(own) - set(leaves)), sorted(set(leaves) - set(own))
+    if missing or extra:
+        raise ValueError(f"{what} trees differ: missing {missing}, extra {extra}")
+    for name, leaf in leaves.items():
+        if tuple(np.shape(leaf)) != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {tuple(np.shape(leaf))} != the port's "
+                             f"{tuple(own[name].shape)}")
+    return own
+
+
 def lm_params_from_reference(model: Model, tree: Any) -> Model:
     """Load the reference's parameter tree into ``model`` (in place; returns
     it). Each leaf's path joined by ``.`` names a parameter. A missing or
     extra key, or a shape that differs, raises ``ValueError``; bf16 leaves
     go through float32, which ``torch.from_numpy`` needs."""
     leaves = flatten_tree(tree)
-    own = dict(model.named_parameters())
-    missing, extra = sorted(set(own) - set(leaves)), sorted(set(leaves) - set(own))
-    if missing or extra:
-        raise ValueError(f"parameter trees differ: missing {missing}, extra {extra}")
-    state = {}
-    for name, leaf in leaves.items():
-        arr = np.array(leaf, np.float32)
-        if tuple(arr.shape) != tuple(own[name].shape):
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} != the port's "
-                             f"{tuple(own[name].shape)}")
-        state[name] = torch.from_numpy(arr).to(own[name].dtype)
-    model.load_state_dict(state)
+    own = _same_names(model, leaves, "parameter")
+    model.load_state_dict({name: torch.from_numpy(np.array(leaf, np.float32)).to(own[name].dtype)
+                           for name, leaf in leaves.items()})
     return model
+
+
+def adamw_state_from_reference(model: Model, state: Any) -> AdamWState:
+    """The reference's ``AdamWState`` (``step``, and ``m``/``v`` trees of
+    numpy arrays, float32 or bfloat16) as the port's: moments keyed by
+    ``model``'s parameter names, in their own dtype, on its device; the step
+    an int32 on the CPU. A missing or extra key, or a shape that differs,
+    raises ``ValueError``; bf16 goes through float32."""
+    def moments(tree, what):
+        leaves = flatten_tree(tree)
+        own = _same_names(model, leaves, what)
+        out = {}
+        for name in own:
+            arr = np.asarray(leaves[name])
+            dt = torch.bfloat16 if str(arr.dtype) == "bfloat16" else torch.float32
+            out[name] = torch.from_numpy(np.array(arr, np.float32)).to(model.device, dt)
+        return out
+
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+                      m=moments(state.m, "moment m"), v=moments(state.v, "moment v"))

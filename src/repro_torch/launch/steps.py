@@ -1,21 +1,25 @@
-"""Step builders for LM serving: the serving half of
-``repro.launch.steps`` on one device.
+"""Step builders for LM training and serving: ``repro.launch.steps`` on
+one device.
 
 The reference jits its steps with production shardings over a mesh; here a
-step is a plain function on the port's :class:`Model`. Sharding over ranks
-(``--data-par``/``--model-par``) is not ported yet: :class:`ParallelismNotPorted`.
+step is a plain function on the port's :class:`Model`, its backward
+autograd's. Sharding over ranks (``--data-par``/``--model-par``) is not
+ported yet: :class:`ParallelismNotPorted`. The reference's dry-run tooling
+(``abstract_state``, ``jitted_train_step``, ``jitted_serve_step``) has no
+twin yet either (A14d of the port's roadmap).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
 from ..models.transformer import Model
+from ..optim import adamw
 
 
 class ParallelismNotPorted(NotImplementedError):
@@ -45,10 +49,60 @@ def pad_heads_for_tp(cfg: ArchConfig, tp: int) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None) -> Model:
+                generator: Optional[torch.Generator] = None, remat: bool = True) -> Model:
     """The model of ``cfg`` on one device (no mesh), its weights drawn from
-    ``generator`` (unset without one)."""
-    return Model(cfg, device=device, generator=generator)
+    ``generator`` (unset without one); ``remat``: recompute each body
+    unit's activations in a training step's backward pass."""
+    return Model(cfg, device=device, generator=generator, remat=remat)
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradients (summed over ``microbatches``
+    equal slices of the batch, then divided by their count, as the
+    reference's ``lax.scan`` does), then one AdamW update. ``params`` maps
+    parameter names to tensors (``dict(model.named_parameters())``); the
+    update writes them and ``opt_state``'s moments in place and returns
+    them. ``metrics`` are tensors on the device (nothing waits for them):
+    the loss's metrics (``loss``, ``ce_loss``, ``aux_loss``, ``mtp_loss``
+    where the config has MTP) with one microbatch, only ``ce_loss`` (the
+    mean total loss) with several; then ``grad_norm``, ``lr`` and ``loss``."""
+
+    def value_and_grad(leaves: Dict[str, torch.Tensor], batch: Mapping[str, torch.Tensor]):
+        loss, metrics = model.loss(batch, params=model.tree(leaves))
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), metrics, dict(zip(leaves, grads))
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, metrics, grads = value_and_grad(params, batch)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            def microbatch(x, i):
+                b = x.shape[0]
+                return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))[i]
+
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for k, p in params.items()}
+            loss = 0.0
+            for i in range(microbatches):
+                mb = {k: microbatch(x, i) for k, x in batch.items()}
+                l_i, _, g = value_and_grad(params, mb)
+                for k, acc in grads.items():
+                    acc.add_(g[k])
+                del g
+                loss = loss + l_i
+            for acc in grads.values():
+                acc.div_(microbatches)
+            loss = loss / microbatches
+            metrics = {"ce_loss": loss}
+        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state, params)
+        metrics.update(om)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(model: Model):

@@ -14,15 +14,19 @@ reference's tree paths joined by ``.`` (``body.l0.mixer.wqkv``,
 loads the reference's tree one leaf to one parameter.
 
 Modes: 'train' (chunked causal attention), 'prefill' (chunked + cache write
-at 0), 'decode' (single-token step against the cache).
+at 0), 'decode' (single-token step against the cache). With ``remat`` (the
+default, as the reference's) each body unit of a 'train' forward runs under
+``torch.utils.checkpoint``: its activations are recomputed in the backward
+pass, as the reference's ``jax.checkpoint`` recomputes them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
@@ -63,6 +67,16 @@ def _tree_map(fn: Callable, tree):
     if isinstance(tree, list):
         return [_tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def _unstacked(tree, n: int) -> List:
+    """``n`` trees, the stacked ``tree``'s slices along axis 0 (views): one
+    ``unbind`` a leaf, whose backward is one ``stack``, where indexing each
+    slice alone would add ``n`` leaf-sized zero tensors to the backward."""
+    if isinstance(tree, dict):
+        parts = {k: _unstacked(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return list(torch.unbind(tree))
 
 
 def _stacked(n: int, make: Callable[[], Dict]) -> Dict:
@@ -110,12 +124,16 @@ def _register(module: nn.Module, tree: Dict) -> None:
             module.add_module(k, _module_of(v))
 
 
-def _tree_of(module: nn.Module):
+def _tree_of(module: nn.Module, named: Optional[Mapping[str, torch.Tensor]] = None,
+             prefix: str = ""):
+    """``module``'s parameters as a nested tree; with ``named``, the tensors
+    of that mapping in their place, by name."""
     if isinstance(module, nn.ModuleList):
-        return [_tree_of(m) for m in module]
-    out: Dict[str, Any] = dict(module.named_parameters(recurse=False))
+        return [_tree_of(m, named, f"{prefix}{i}.") for i, m in enumerate(module)]
+    out: Dict[str, Any] = {k: (p if named is None else named[prefix + k])
+                           for k, p in module.named_parameters(recurse=False)}
     for k, m in module.named_children():
-        out[k] = _tree_of(m)
+        out[k] = _tree_of(m, named, f"{prefix}{k}.")
     return out
 
 
@@ -235,9 +253,10 @@ class Model(nn.Module):
     allocated and left unset, for a load."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         self.prefix_kinds, self.unit_kinds, self.reps = body_structure(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         _register(self, self._param_tree(generator, resolve_device(device)))
@@ -283,9 +302,11 @@ class Model(nn.Module):
         self.load_state_dict(flatten_tree(self._param_tree(generator, self.device)))
         return self.tree()
 
-    def tree(self) -> Dict:
-        """The parameters as the reference's nested tree (dicts, lists)."""
-        return _tree_of(self)
+    def tree(self, named: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+        """The parameters as the reference's nested tree (dicts, lists); with
+        ``named`` (a mapping from parameter name to tensor, such as the
+        training step's), those tensors in the parameters' places."""
+        return _tree_of(self, named)
 
     @torch.no_grad()
     def cast_params(self) -> Dict:
@@ -313,8 +334,7 @@ class Model(nn.Module):
         cfg = self.cfg
         x = frames.to(self.compute_dtype)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
-        for r in range(cfg.encoder_layers):
-            lp = _tree_map(lambda a: a[r], params["encoder"])
+        for lp in _unstacked(params["encoder"], cfg.encoder_layers):
             h = apply_norm(cfg.norm, x, lp["norm1"])
             h, _ = gqa_apply(lp["mixer"], h, cfg, pos)
             x = x + h
@@ -371,20 +391,28 @@ class Model(nn.Module):
             if cache is not None:
                 new_cache["prefix"] = npfx
 
-        # periodic body: the reference scans the stacked reps
-        for r in range(self.reps):
-            pu = _tree_map(lambda a: a[r], params["body"])
+        # periodic body: the reference scans the stacked reps, under
+        # jax.checkpoint in a 'train' forward with remat
+        def unit(xc, aux_acc, pu, cu):
             for j, kind in enumerate(self.unit_kinds):
-                cj = None
-                if cache is not None:
-                    cj = _tree_map(lambda a: a[r], cache["body"][f"l{j}"])
-                x, aux, ncj = block_apply(kind, pu[f"l{j}"], x, cfg, positions, mode, cj,
-                                          cache_len_now, cross_kv)
-                aux_total = aux_total + aux
+                cj = cu[f"l{j}"] if cu is not None else None
+                xc, aux, ncj = block_apply(kind, pu[f"l{j}"], xc, cfg, positions, mode, cj,
+                                           cache_len_now, cross_kv)
+                aux_acc = aux_acc + aux
                 if ncj is not None:
                     for key, new in ncj.items():
                         if new.data_ptr() != cj[key].data_ptr():  # an SSM's new state
                             cj[key].copy_(new)
+            return xc, aux_acc
+
+        remat = self.remat and mode == "train" and cache is None
+        for r, pu in enumerate(_unstacked(params["body"], self.reps)):
+            cu = _tree_map(lambda a: a[r], cache["body"]) if cache is not None else None
+            if remat:
+                x, aux_total = checkpoint(unit, x, aux_total, pu, cu, use_reentrant=False,
+                                          preserve_rng_state=False)
+            else:
+                x, aux_total = unit(x, aux_total, pu, cu)
         if cache is not None:
             new_cache["body"] = cache["body"]
 

@@ -2,29 +2,40 @@
 
 The twin of ``repro/optim/adamw.py`` on torch tensors: the same gradient
 clip, schedule, bias correction, weight decay and moment dtype, with the
-update math in float32. Parameters are a tensor or a list of tensors (no
-pytrees); the moments mirror them. ``torch.optim.AdamW`` is not used: its
+update math in float32. Parameters are a tensor, a list of tensors, or a
+mapping from name to tensor (an LM's parameters, named as
+``Model.named_parameters()`` names them: the reference's tree paths joined
+by ``.``); the moments mirror them. ``torch.optim.AdamW`` is not used: its
 clipping and schedule are not the reference's.
 
 The VQE loop of :mod:`repro_torch.launch.simulate` optimises a handful of
-circuit angles, so its parameters and this state live on the CPU.
+circuit angles (a tensor, on the CPU). LM training passes a mapping: its
+update writes each parameter and moment in place, as the reference's
+jitted step donates them, a chunk of ``CHUNK`` elements at a time, so a
+full-width model's update holds a few chunks of float32 temporaries and
+never a second copy of a stacked leaf. The step count stays on the CPU, so
+the schedule and bias corrections are host scalars and cost the device no
+synchronisation.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
-Params = Union[torch.Tensor, Sequence[torch.Tensor]]
+Params = Union[torch.Tensor, Sequence[torch.Tensor], Mapping[str, torch.Tensor]]
+Moments = Union[List[torch.Tensor], Dict[str, torch.Tensor]]
+
+CHUNK = 1 << 26  # elements of one leaf updated at a time (256 MB of float32)
 
 
 class AdamWState(NamedTuple):
-    step: torch.Tensor  # int32 scalar
-    m: List[torch.Tensor]
-    v: List[torch.Tensor]
+    step: torch.Tensor  # int32 scalar, on the CPU
+    m: Moments  # a list, or a mapping with the parameters' names
+    v: Moments
 
 
 @dataclass(frozen=True)
@@ -63,6 +74,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init(cfg: AdamWConfig, params: Params) -> AdamWState:
     mdt = _moment_dtype(cfg)
+    if isinstance(params, Mapping):
+        def zeros():
+            return {k: torch.zeros(p.shape, dtype=mdt, device=p.device) for k, p in params.items()}
+        return AdamWState(step=torch.zeros((), dtype=torch.int32), m=zeros(), v=zeros())
     ps = _as_list(params)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32),
@@ -72,14 +87,25 @@ def init(cfg: AdamWConfig, params: Params) -> AdamWState:
 
 
 def global_norm(tensors: Params) -> torch.Tensor:
+    if isinstance(tensors, Mapping):
+        return torch.sqrt(sum(torch.sum(torch.square(c.to(torch.float32)))
+                              for x in tensors.values() for c in _chunks(x)))
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in _as_list(tensors)))
+
+
+def _chunks(x: torch.Tensor, write: bool = False) -> List[torch.Tensor]:
+    """``x`` flattened, in pieces of at most ``CHUNK`` elements; views of
+    ``x`` itself where ``write`` (which a non-contiguous ``x`` refuses)."""
+    return list((x.view(-1) if write else x.reshape(-1)).split(CHUNK))
 
 
 def update(cfg: AdamWConfig, grads: Params, state: AdamWState, params: Params
            ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: ``(new params, new state, {"grad_norm", "lr"})``. The
-    new parameters have the form of ``params`` (a tensor or a list)."""
+    new parameters have the form of ``params`` (a tensor or a list: new
+    tensors; a mapping: ``params`` itself and ``state``'s moments, written
+    in place, with ``grads`` a mapping of the same names)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -90,18 +116,28 @@ def update(cfg: AdamWConfig, grads: Params, state: AdamWState, params: Params
     bc2 = 1 - torch.pow(b2, stepf)
     mdt = _moment_dtype(cfg)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, ndim):
         g = g.to(torch.float32) * scale
         m32 = b1 * m.to(torch.float32) + (1 - b1) * g
         v32 = b2 * v.to(torch.float32) + (1 - b2) * g * g
         mhat = m32 / bc1
         vhat = v32 / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
+        decay = cfg.weight_decay if ndim >= 2 else 0.0
         newp = p.to(torch.float32) * (1 - lr * decay) - lr * delta
         return newp.to(p.dtype), m32.to(mdt), v32.to(mdt)
 
-    out = [upd(p, g, m, v) for p, g, m, v in
+    if isinstance(params, Mapping):
+        with torch.no_grad():
+            for name, p in params.items():
+                m, v = state.m[name], state.v[name]
+                for pc, gc, mc, vc in zip(_chunks(p, True), _chunks(grads[name]),
+                                          _chunks(m, True), _chunks(v, True)):
+                    for dst, new in zip((pc, mc, vc), upd(pc, gc, mc, vc, p.dim())):
+                        dst.copy_(new)
+        return params, AdamWState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}
+
+    out = [upd(p, g, m, v, p.dim()) for p, g, m, v in
            zip(_as_list(params), _as_list(grads), state.m, state.v)]
     new_p = [o[0] for o in out]
     new_state = AdamWState(step=step, m=[o[1] for o in out], v=[o[2] for o in out])

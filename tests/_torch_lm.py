@@ -54,6 +54,18 @@ def flat(tree, prefix=""):
     return out
 
 
+def unflat(tree, values: dict, prefix=""):
+    """``tree``'s structure with ``values[path]`` (paths as :func:`flat`
+    writes them) at its leaves."""
+    if isinstance(tree, dict):
+        return {k: unflat(v, values, f"{prefix}.{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [unflat(v, values, f"{prefix}.{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return values[prefix]
+
+
 def configs(name: str, dtype: str = "bfloat16", reduced: bool = True, **over):
     """The reference's config and the port's copy, reduced, in ``dtype``."""
     ref, port = ref_get_arch(name), get_arch(name)

@@ -790,3 +790,49 @@ def test_lm_model_on_card_matches_cpu(cuda, name):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,microbatches", [("qwen2-1.5b", 1), ("mamba2-1.3b", 1),
+                                               ("deepseek-v2-lite-16b", 2)])
+def test_lm_train_step_on_card_matches_cpu(cuda, name, microbatches):
+    """One ``make_train_step`` step (remat on, float32 moments) of a reduced
+    float32 LM on the card against the same weights and batch on the CPU,
+    TF32 off: the loss within a relative 1e-5, the grad norm within 1e-5,
+    the updated parameters within 0.5 lr, and the step launches neither
+    hand kernel."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
+    opt = adamw.AdamWConfig(lr=2e-3, warmup_steps=0, moment_dtype="float32")
+    cpu = steps.build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    card = steps.build_model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    b = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                         global_batch=4, seed=1)).batch(0)
+    out = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_kernel_counters()
+    try:
+        for model, dev in ((cpu, "cpu"), (card, cuda)):
+            params = dict(model.named_parameters())
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            params, _, metrics = steps.make_train_step(model, opt, microbatches)(
+                params, adamw.init(opt, params), batch)
+            out.append(({k: v.detach().cpu() for k, v in params.items()},
+                        {k: float(v) for k, v in metrics.items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (want_p, want_m), (got_p, got_m) = out
+    assert np.isfinite(want_m["loss"])
+    np.testing.assert_allclose(got_m["loss"], want_m["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got_m["grad_norm"], want_m["grad_norm"], rtol=1e-5)
+    for k in want_p:
+        torch.testing.assert_close(got_p[k], want_p[k], rtol=0, atol=0.5 * opt.lr, msg=k)
+    assert not any(ops.kernel_call_counts().values())

@@ -45,9 +45,11 @@ def test_no_jax_in_the_port_process():
         "import sys\n"
         "import repro_torch.launch.simulate as s\n"
         "import repro_torch.sim.profiler, repro_torch.core.autotune\n"
+        "import repro_torch.launch.train, repro_torch.train.compression\n"
         "s.main(['--circuit', 'ghz', '--n', '6', '--L', '4', '--R', '2', '--shots', '8',"
         " '--check', '--device', 'cpu'])\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,4 +70,5 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
         for mod in _imports(path):
-            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                f"{path}: {mod}"

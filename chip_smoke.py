@@ -40,16 +40,16 @@ Eq. 2, and the marginal ``(0, 1, 2)`` and ``<Z0 Z1 + 0.5*X29 + 0.25*X0>``
 to ``TorchMeasurer`` on the in-card state; then ``isingparam(28)`` at world
 size 1 over NCCL, its marginal bit for bit a ``CudaBackend`` engine's. Then
 gradients on the shardmap backend: ``--vqe`` (one Adam step, two
-value_and_grad calls) of ``isingparam(29)`` L=27 R=2 under ``torchrun`` on
-4 gloo ranks, each sweeping its own 1 GiB shard back through the plan's
+value_and_grad calls) of ``isingparam(28)`` L=26 R=2 under ``torchrun`` on
+4 gloo ranks, each sweeping its own 512 MiB shard back through the plan's
 stages (every ``U†``, ``∂U`` and local Pauli op one ``fused_apply``
 launch), held to one ``CudaBackend`` value_and_grad of the same plan (value
 within 1e-5, gradient within 1e-4), with each rank's launches, sweep bytes
 against their bound, inverse remaps against Eq. 2, peak (four shards and 1
 GiB) and the first call's split (forward, λ, sweep kernels, sweep remaps);
-``fused_apply`` at k=1 and k=2 on one 2^28 shard timed beside its plain
+``fused_apply`` at k=1 and k=2 on one 2^26 shard timed beside its plain
 version and torch.matmul. The shardmap phase's ranks also run a sharded
-value_and_grad of ``isingparam(28)`` and hold a sample of its sweep's
+value_and_grad of ``isingparam(27)`` and hold a sample of its sweep's
 launches on ranks 0 and 3 against the plain version.
 
 Then adjoint gradients: the ``--vqe`` loop on ``isingparam(30)`` L=28 R=2
@@ -78,15 +78,15 @@ of 4 ``isingparam(28)`` bindings against the in-card ones, their kernel ops
 on shard 0 against the plain versions.
 
 Then the offload backend's shard store and stage checkpoints: the spill
-directory's disk and the host's memory; ``ising(29)`` L=25 R=4 through
-``--executor offload --storage bf16`` with a DRAM budget of half the 2 GiB
+directory's disk and the host's memory; ``ising(27)`` L=23 R=4 through
+``--executor offload --storage bf16`` with a DRAM budget of half the 512 MiB
 at rest (the rest spilled to disk under ``build/``), held shard by shard
 within its own error bound against the in-card run of the same plan, with
 its stage, out-of-core remap and spill figures; on that state, Pauli terms
 with 2 and 3 non-local X/Y qubits through the streaming measurer (its peak
 device memory, and the values against the same terms on the in-card state);
-``ising(28)`` L=24 R=4 through the int8 tier, spilled, under the same checks;
-and ``ising(28)`` L=24 R=4 with ``--checkpoint-dir``, killed by an injected
+``ising(26)`` L=22 R=4 through the int8 tier, spilled, under the same checks;
+and ``ising(26)`` L=22 R=4 with ``--checkpoint-dir``, killed by an injected
 ``shard_transfer_error`` inside stage 1 and resumed in a fresh engine to the
 uninterrupted run's state bit for bit, that run held against the in-card
 run of its plan and its kernel ops on shards 0 and 15 against their plain
@@ -101,7 +101,7 @@ replaces; both kernels launched by the profile); ``ising(28)`` and
 ``qsvm(28)`` L=26 R=2 planned under the resolved calibration against the
 analytic constants (stages, fused widths, shm ops, run seconds, both
 against the dense oracle on the card, the calibrated engine's kernel ops
-against their plain versions); ``--autotune`` on ``ising(28)`` (every
+against their plain versions); ``--autotune`` on ``ising(27)`` (every
 candidate's replay, the choice, the tuning's peak device memory; then
 ``engine_for`` with default knobs is a cache hit with no solver call); the
 integrity guard at n=28 (clean ``run``/``run_packed`` with ``verify=True``
@@ -174,6 +174,23 @@ checkpoints restored bit for bit equal to the state that was saved).
 29, shardmap serving from n=30 to 28, the VQE loop from three Adam steps
 to two, and LM serving's generation from 32 tokens to 16.)
 
+Then LM sharding (``models/sharding.py``, ``models/parallel.py``,
+``launch/mesh.py``; plain PyTorch, neither hand kernel may launch on any
+rank): qwen2-1.5b at full width on 4 gloo ranks of the card as data 2 x
+model 2, one ``torchrun`` of ``chip_smoke.py --lm-shard-check``: which
+collectives gloo runs on CUDA tensors; in bf16 at full depth,
+``serve_llm.main`` (4 prompts of 128, 8 generated) and ``train.main`` (2
+steps of 8 x 128, remat) with ``--data-par 2 --model-par 2 --dist-backend
+gloo`` in the ranks' own processes: decode ms a step, step ms, collective
+bytes per rank, every rank's peak; then the float32 checks at two layers of
+full width against rank 0's one-card run of the same weights: prefill and
+3 decode steps' logits (teacher-forced on the one-card greedy tokens)
+within twice the one-card logits' one-ulp floor, one train step's loss and
+grad norm (rtol 1e-5) and parameters (0.5 lr). (To make room for it, the
+store and checkpoint runs were cut by two qubits each, the shardmap
+gradients from n=29 to 28, and ``--autotune`` from ``ising(28)`` to
+``ising(27)``.)
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -231,18 +248,20 @@ OFFLOAD_PATH = ["--circuit", "ising", "--n", "31", "--L", "27", "--R", "4", "--e
 PERGATE = {"n": 26, "L": 22, "R": 4}  # qft(26): staged offload against the per-gate baseline
 OFFLOAD_ROWS = {"n": 28, "L": 26, "R": 2, "B": 2, "P": 4}
 FIDELITY_MIN = 1 - 1e-5
-# the shard store: ising(29) at rest in bf16 (2 GiB) with half of it in a
-# DRAM budget, the rest on disk; ising(28) in int8 (256 MiB at rest) with
+# the shard store: ising(27) at rest in bf16 (512 MiB) with half of it in a
+# DRAM budget, the rest on disk; ising(26) in int8 (64 MiB at rest) with
 # half spilled. int8 loses ~0.75% of a shard's norm per encode and a run
 # encodes every shard three times, which the default tolerance (0.05) does
 # not allow: the int8 run takes 0.25. The store and checkpoint runs were cut
 # by two qubits each (from ising(32) L=28, ising(30) L=26 and ising(30)
 # L=26; 16 shards each, as before) to pay for the torchrun phases within
 # the smoke's time, and the two store runs by one more (from ising(30) L=26
-# and ising(29) L=25) for the shardmap serving phase
-STORE = {"tier": "bf16", "n": 29, "L": 25, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
-STORE_INT8 = {"tier": "int8", "n": 28, "L": 24, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
-CHECKPOINT = {"n": 28, "L": 24, "R": 4}
+# and ising(29) L=25) for the shardmap serving phase, and all three by two
+# more (from ising(29) L=25, ising(28) L=24 and ising(28) L=24) for the LM
+# sharding phase
+STORE = {"tier": "bf16", "n": 27, "L": 23, "R": 4, "dram_fraction": 0.5, "tol": 0.05}
+STORE_INT8 = {"tier": "int8", "n": 26, "L": 22, "R": 4, "dram_fraction": 0.5, "tol": 0.25}
+CHECKPOINT = {"n": 26, "L": 22, "R": 4}
 # adjoint gradients: the reference's tolerances (tests/test_grad.py) for a
 # float32 sweep against another sweep or an oracle, and central differences
 # of the on-card energy (their truncation error at eps 1e-2 is 1.8e-4 of
@@ -270,8 +289,9 @@ CALIBRATION_DIR = os.path.join(HERE, "build", "calibration")
 CALIBRATION_L, CALIBRATION_REPEATS = 28, 3  # the disk round trip of 2 GiB takes seconds
 # planned at n=28 on the L=28 profile: at n=30 each dense oracle takes ~17 s
 CALIBRATED = {"n": 28, "L": 26, "R": 2, "families": ("ising", "qsvm")}
-AUTOTUNE = {"n": 28, "L": 26, "R": 2}
-AUTOTUNE_PATH = ["--circuit", "ising", "--n", "28", "--L", "26", "--R", "2", "--autotune"]
+# (ising(28) L=26 until the LM sharding phase took its time)
+AUTOTUNE = {"n": 27, "L": 25, "R": 2}
+AUTOTUNE_PATH = ["--circuit", "ising", "--n", "27", "--L", "25", "--R", "2", "--autotune"]
 FAULTS = {"n": 28, "L": 26, "R": 2, "P": 4}
 CHECKPOINT_DIR = os.path.join(HERE, "build", "checkpoint")
 # the simulation service on the card, planned on the card's calibration (it
@@ -321,17 +341,19 @@ SHARDMAP_CLI_NCCL_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "2
                           "--executor", "shardmap"]
 RESULTS_DIR = os.path.join(HERE, "build", "results")
 # gradients on the shardmap backend: the CLI's --vqe under torchrun on 4
-# gloo ranks of the one card, isingparam(29) at L=27 R=2 (one 1 GiB shard a
-# rank; n=30 before the training phase was added), one Adam step (two value_and_grad calls), held to one CudaBackend
+# gloo ranks of the one card, isingparam(28) at L=26 R=2 (one 512 MiB shard
+# a rank), one Adam step (two value_and_grad calls), held to one CudaBackend
 # value_and_grad of the same plan at the first angles. The observable is
 # VQE_OBS plus a term with X and Y on the last stage's two device qubits
 # (the sweep builds λ in that stage's frame), so λ needs the permute. The
-# shardmap phase's ranks run a sharded value_and_grad of isingparam(28)
-# L=26 and hold a sample of its sweep's k=1 and k=2 launches on ranks 0 and
+# shardmap phase's ranks run a sharded value_and_grad of isingparam(27)
+# L=25 and hold a sample of its sweep's k=1 and k=2 launches on ranks 0 and
 # 3 against the plain version.
-SHARDMAP_VQE = {"ranks": 4, "n": 29, "L": 27, "R": 2, "timeout": 600, "value_atol": 1e-5,
-                "grad_atol": 1e-4, "sample_n": 28, "sample_L": 26, "sample_seed": 43}
-SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "29", "--L", "27", "--R", "2",
+# (n=29 L=27 and a sample at n=28 L=26 until the LM sharding phase took
+# its time)
+SHARDMAP_VQE = {"ranks": 4, "n": 28, "L": 26, "R": 2, "timeout": 600, "value_atol": 1e-5,
+                "grad_atol": 1e-4, "sample_n": 27, "sample_L": 25, "sample_seed": 43}
+SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "26", "--R", "2",
                      "--executor", "shardmap", "--dist-backend", "gloo", "--vqe-steps", "1"]
 # serving on the shardmap backend: serve_sim --backend shardmap under
 # torchrun on 4 gloo ranks of the one card (one 2^26 shard of isingparam(28)
@@ -991,22 +1013,15 @@ def shardmap_nccl_phase(ops, card: str, n: int, L: int, backend: str = "nccl",
     return {"launches": launches}
 
 
-def torchrun(nproc: int, argv: list, timeout: float, device: str = "cuda") -> tuple:
+def torchrun_launch(nproc: int, target: list, timeout: float) -> tuple:
     """``python -m torch.distributed.run --standalone --nproc-per-node nproc
-    -m repro_torch.launch.simulate argv --result-json ...`` in its own
-    session (on a timeout the whole group, torchrun and its workers, is
-    killed): ``(stdout, the JSON rank 0 wrote, seconds)``; raises unless
-    every rank exited 0. Only rank 0 prints, so stdout is its lines. The
-    argv spells ``--n`` as ``--qubits``: the card's Python takes ``--n``
-    after the script name for an abbreviation of torchrun's options."""
+    target`` in its own session (on a timeout the whole group, torchrun and
+    its workers, is killed): ``(stdout, seconds)``; raises unless every rank
+    exited 0."""
     import signal
 
-    os.makedirs(RESULTS_DIR, exist_ok=True)
-    out_json = os.path.join(RESULTS_DIR, f"cli-{nproc}-{os.getpid()}-{time.time_ns()}.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(nproc), "-m", "repro_torch.launch.simulate", *argv, "--result-json", out_json]
-    if device == "cpu":
-        cmd += ["--device", "cpu"]
+           str(nproc), *target]
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     log("  " + " ".join(cmd[1:]))
     t0 = time.time()
@@ -1021,6 +1036,21 @@ def torchrun(nproc: int, argv: list, timeout: float, device: str = "cuda") -> tu
     seconds = time.time() - t0
     require(proc.returncode == 0,
             f"torchrun exited {proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}")
+    return out, seconds
+
+
+def torchrun(nproc: int, argv: list, timeout: float, device: str = "cuda") -> tuple:
+    """``torchrun_launch`` of ``-m repro_torch.launch.simulate argv --result-json
+    ...``: ``(stdout, the JSON rank 0 wrote, seconds)``; raises unless
+    every rank exited 0. Only rank 0 prints, so stdout is its lines. The
+    argv spells ``--n`` as ``--qubits``: the card's Python takes ``--n``
+    after the script name for an abbreviation of torchrun's options."""
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    out_json = os.path.join(RESULTS_DIR, f"cli-{nproc}-{os.getpid()}-{time.time_ns()}.json")
+    target = ["-m", "repro_torch.launch.simulate", *argv, "--result-json", out_json]
+    if device == "cpu":
+        target += ["--device", "cpu"]
+    out, seconds = torchrun_launch(nproc, target, timeout)
     with open(out_json) as f:
         doc = json.load(f)
     os.remove(out_json)
@@ -2794,7 +2824,7 @@ def calibrated_phase(ops, ref, probe, card: str, name: str, fused: dict) -> dict
 
 
 def autotune_phase(simulate, ops, ref, card: str) -> dict:
-    """``--autotune`` on ``ising(28)`` L=26 R=2 (``AUTOTUNE``) through the CLI: every
+    """``--autotune`` on ``ising(27)`` L=25 R=2 (``AUTOTUNE``) through the CLI: every
     candidate's replay, the choice and its speedup, the tuning's peak device
     memory; then ``engine_for`` with default knobs is a cache hit that runs
     no solver, and the tuned run holds against the dense oracle."""
@@ -3873,6 +3903,328 @@ def train_phase(ops, card: str, device: str = "cuda", spec: dict = TRAIN) -> dic
     return {"figures": figures, "launches": dict(launched, by_k={})}
 
 
+# LM sharding (A14c: models/sharding.py, models/parallel.py, launch/mesh.py,
+# MoE's exchange, serve_llm/train with --data-par/--model-par under torchrun):
+# qwen2-1.5b at full width on `ranks` gloo ranks of the one card as data x
+# model (NCCL takes one rank per card), one torchrun whose ranks first probe
+# which collectives gloo runs on CUDA tensors (each in turn: gloo aborts the
+# process on CUDA send/recv; the path uses all-gather, all-reduce and
+# reduce-scatter), then call the two CLIs' main in process, bf16 at full
+# depth: serve_llm (4 prompts of 128, `gen` generated: decode ms a step) and
+# train (`train_steps` steps of 8 x 128, remat: step ms, the second step's),
+# each with its collective bytes per rank and every rank's peak. Then the
+# float32 checks, the model cut to `check_layers` layers at full width (TF32
+# off), ranks against rank 0's one-card run of the same weights: prefill
+# logits and `check_gen` - 1 teacher-forced decode steps on the one-card
+# run's greedy tokens within twice the one-card float32 floor (the move
+# under a one-ulp embedding); one train step's loss (rtol 1e-5), grad norm
+# (rtol 1e-5) and parameters (0.5 lr). The path reaches no pallas_call: no
+# hand kernel may launch, on any rank.
+LM_SHARD = {"arch": "qwen2-1.5b", "ranks": 4, "data": 2, "model": 2, "batch": 4, "prompt": 128,
+            "gen": 8, "train_batch": 8, "seq": 128, "train_steps": 2, "lr": 1e-3, "seed": 0,
+            "check_layers": 2, "check_gen": 4, "check_lr": 2e-3, "timeout": 600,
+            "device": "cuda", "reduced": False}
+GLOO_PROBE = ("all_gather", "all_reduce", "broadcast", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single")
+
+
+def probe_collectives(device: str) -> dict:
+    """Each collective of GLOO_PROBE on tensors of ``device`` over the
+    default group: ``{name: "works" | "wrong" | "raises ..."}`` (every rank
+    calls it; a collective that aborts the process ends the run)."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((1024,), float(rank + 1), device=device)
+    total = sum(range(1, world + 1))
+    found = {}
+    for name in GLOO_PROBE:
+        try:
+            if name == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                ok = float(torch.cat(parts).sum()) == 1024 * total
+            elif name == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = float(y[0]) == total
+            elif name == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, 0)
+                ok = float(y[0]) == 1.0
+            elif name == "all_gather_into_tensor":
+                y = torch.empty(1024 * world, device=device)
+                dist.all_gather_into_tensor(y, x)
+                ok = float(y.sum()) == 1024 * total
+            elif name == "reduce_scatter_tensor":
+                y = torch.empty(1024 // world, device=device)
+                dist.reduce_scatter_tensor(y, x)
+                ok = float(y[0]) == total
+            else:
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x)
+                ok = float(y.sum()) == (1024 // world) * total
+            sync(device)
+            found[name] = "works" if ok else "wrong"
+        except RuntimeError as e:
+            found[name] = f"raises {str(e).splitlines()[0][:80]}"
+    return found
+
+
+def lm_shard_argv(spec: dict, cli: str) -> list:
+    """``serve_llm``'s or ``train``'s arguments for ``lm_shard_phase``'s
+    bf16 runs on the mesh."""
+    mesh = ["--arch", spec["arch"], "--seed", str(spec["seed"]), "--data-par", str(spec["data"]),
+            "--model-par", str(spec["model"]), "--dist-backend", "gloo", "--device",
+            spec["device"]] + (["--reduced"] if spec["reduced"] else [])
+    if cli == "serve":
+        return mesh + ["--batch", str(spec["batch"]), "--prompt-len", str(spec["prompt"]),
+                       "--gen-len", str(spec["gen"])]
+    return mesh + ["--steps", str(spec["train_steps"]), "--global-batch",
+                   str(spec["train_batch"]), "--seq", str(spec["seq"]), "--lr", str(spec["lr"]),
+                   "--warmup", "2", "--log-every", "1"]
+
+
+def lm_shard_check_rank(spec_path: str) -> None:
+    """Under torchrun, each rank of ``lm_shard_phase`` (see LM_SHARD): the
+    gloo probe; ``serve_llm.main`` and ``train.main`` in bf16 at full
+    depth, in this process (they join its group), rank 0 keeping what they
+    print; then the float32 checks: rank 0 runs the one-card model first
+    (the others wait), then every rank the sharded one. Rank 0 writes the
+    figures to ``spec["out"]``."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch import serve_llm, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_model, make_train_step
+    from repro_torch.models.parallel import collective_bytes, gather_full, reset_collectives
+    from repro_torch.optim import adamw
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_kernel_counters()
+    ctx = launch_dist.join("gloo", spec["device"])
+    dev = ctx.device
+    gloo = probe_collectives(spec["device"])
+    clis = {}
+    for name, cli in (("serve", serve_llm), ("train", train)):
+        _fresh(spec["device"])
+        printed = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed):
+            cli.main(lm_shard_argv(spec, name))
+        clis[name] = {"printed": printed.getvalue(), "seconds": time.time() - t0}
+    _fresh(spec["device"])
+    mesh = make_host_mesh(data=spec["data"], model=spec["model"], device=spec["device"])
+    cfg = get_arch(spec["arch"])
+    cfg = dataclasses.replace(cfg.reduced() if spec["reduced"] else cfg, dtype="float32",
+                              n_layers=spec["check_layers"])
+    B, P, G, seed = spec["batch"], spec["prompt"], spec["check_gen"], spec["seed"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(
+        seed), dtype=torch.int32).to(dev)
+    opt = adamw.AdamWConfig(lr=spec["check_lr"], warmup_steps=0, moment_dtype="float32")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(SyntheticConfig(
+        vocab_size=cfg.vocab_size, seq_len=spec["seq"], global_batch=B, seed=seed)).batch(0).items()}
+
+    def weights():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out = {}
+    ref = {}
+    if ctx.rank == 0:
+        one = build_model(cfg, dev, weights(), remat=False)
+        params = one.cast_params()
+        logits, cache = one.prefill(prompts, cache_len=P + G, params=params)
+        with torch.no_grad():
+            emb = params["embed"]
+            sign = torch.randint(0, 2, emb.shape, generator=weights(), device=dev,
+                                 dtype=torch.int8)
+            moved = dict(params, embed=emb * (1 + (2 * sign - 1) * 2.0**-24))
+            base = one.forward(prompts, params=params)[0][:, -1]
+            pert = one.forward(prompts, params=moved)[0][:, -1]
+        out["floor"] = float((pert - base).abs().max())
+        del sign, moved, pert, base
+        steps_l = [logits]
+        toks = [torch.argmax(logits, -1)[:, None]]
+        for _ in range(G - 1):
+            logits, cache = one.decode_step(toks[-1], cache, params=params)
+            steps_l.append(logits)
+            toks.append(torch.argmax(logits, -1)[:, None])
+        ref["logits"], ref["tokens"] = steps_l, torch.cat(toks, 1)
+        del one, params, cache
+        _fresh(spec["device"])
+        one = build_model(cfg, dev, weights())
+        pp = dict(one.named_parameters())
+        pp, _, m = make_train_step(one, opt)(pp, adamw.init(opt, pp), batch)
+        ref["loss"], ref["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+        ref["params"] = {k: v.detach() for k, v in pp.items()}
+        del one, pp, m
+        _fresh(spec["device"])
+        held = [ref["tokens"].cpu()]
+    else:
+        held = [None]
+    dist.broadcast_object_list(held, src=0)
+    tokens = held[0].to(dev)
+
+    sharded = build_model(cfg, dev, weights(), remat=False, mesh=mesh)
+    params = sharded.cast_params()
+    reset_collectives()
+    logits, cache = sharded.prefill(prompts, cache_len=P + G, params=params)
+    got = [logits]
+    for i in range(G - 1):
+        logits, cache = sharded.decode_step(tokens[:, i:i + 1], cache, params=params)
+        got.append(logits)
+    out["serve_collective_bytes"] = collective_bytes()
+    if ctx.rank == 0:
+        scale = float(ref["logits"][0].abs().max())
+        out["scale"] = scale
+        out["serve_err"] = [float((a - b).abs().max()) for a, b in zip(got, ref["logits"])]
+    del sharded, params, cache, got
+    _fresh(spec["device"])
+
+    sharded = build_model(cfg, dev, weights(), mesh=mesh)
+    pp = dict(sharded.named_parameters())
+    reset_collectives()
+    pp, _, m = make_train_step(sharded, opt)(pp, adamw.init(opt, pp), batch)
+    out["train_collective_bytes"] = collective_bytes()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    worst = 0.0
+    for k, p in pp.items():
+        whole = gather_full(p)
+        if ctx.rank == 0:
+            worst = max(worst, float((whole - ref["params"][k]).abs().max()))
+        del whole
+    gathered = [None] * ctx.world
+    dist.all_gather_object(gathered, {"loss": loss, "grad_norm": gnorm,
+                                      "launches": ops.kernel_call_counts(),
+                                      "peak": _peak(spec["device"])})
+    if ctx.rank == 0:
+        out.update(clis=clis, gloo=gloo, loss=loss, grad_norm=gnorm, ref_loss=ref["loss"],
+                   ref_grad_norm=ref["grad_norm"], param_err=worst, ranks=gathered,
+                   lr=spec["check_lr"])
+        with open(spec["out"], "w") as f:
+            json.dump(out, f)
+    ctx.close()
+
+
+def _printed_peaks(out: str, device: str) -> list:
+    """The ranks' peaks a CLI printed on the card (none on the CPU: one
+    zero a rank)."""
+    import re
+
+    if device != "cuda":
+        return [0] * LM_SHARD["ranks"]
+    found = re.search(r"^peak device memory per rank: ([\d, ]+) bytes", out, re.M)
+    return [int(x) for x in found.group(1).split(", ")]
+
+
+def lm_shard_phase(ops, card: str, spec: dict = LM_SHARD) -> dict:
+    """See ``LM_SHARD``: one ``torchrun`` of ``lm_shard_check_rank``.
+    ``spec=dict(LM_SHARD, device="cpu", reduced=True)`` dry-runs it on the
+    host."""
+    import re
+    import statistics
+
+    world = spec["ranks"]
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    spec_path = os.path.join(RESULTS_DIR, f"lm-shard-{os.getpid()}.json")
+    res_path = os.path.join(RESULTS_DIR, f"lm-shard-{os.getpid()}-out.json")
+    with open(spec_path, "w") as f:
+        json.dump(dict(spec, out=res_path), f)
+    _, seconds = torchrun_launch(world, [os.path.join(HERE, "chip_smoke.py"),
+                                         "--lm-shard-check", spec_path], spec["timeout"])
+    with open(res_path) as f:
+        chk = json.load(f)
+    os.remove(spec_path)
+    os.remove(res_path)
+    clis = chk.pop("clis")
+    figures = {"seconds": seconds}
+    log(f"  gloo on {spec['device']} tensors, {world} ranks: "
+        + ", ".join(f"{k} {v}" for k, v in chk["gloo"].items()))
+    for name in ("all_gather", "all_reduce", "reduce_scatter_tensor"):
+        require(chk["gloo"][name] == "works", f"gloo's {name}: {chk['gloo'][name]} (the sharded "
+                "LM path uses it)")
+
+    # bf16 at full depth through the entry points
+    out, took = clis["serve"]["printed"], clis["serve"]["seconds"]
+    B, P, G = spec["batch"], spec["prompt"], spec["gen"]
+    t_prefill = float(re.search(rf"^prefill: {B}x{P} tokens in ([\d.]+)s", out, re.M).group(1))
+    t_decode = float(re.search(rf"^decode: {B}x{G - 1} tokens in ([\d.]+)s", out,
+                               re.M).group(1))
+    moved = dict(zip(("weights", "prefill", "decode"), map(int, re.search(
+        r"^collective bytes per rank: weights (\d+), prefill (\d+), decode (\d+) a step",
+        out, re.M).groups())))
+    peaks = _printed_peaks(out, spec["device"])
+    require(len(peaks) == world and len(re.findall(r"^prefill:", out, re.M)) == 1,
+            "serve_llm on the mesh: one rank prints, every rank's peak")
+    figures["serve"] = {"seconds": took, "prefill_s": t_prefill,
+                        "decode_ms_step": 1e3 * t_decode / (G - 1), "collective_bytes": moved,
+                        "peaks": peaks}
+    log(f"  serve_llm bf16 on {spec['data']} x {spec['model']}: prefill {t_prefill:.3f}s, decode "
+        f"{figures['serve']['decode_ms_step']:.2f} ms a step; collective bytes per rank: "
+        f"weights {moved['weights']}, prefill {moved['prefill']}, decode {moved['decode']} a "
+        f"step; peaks {peaks} bytes; {took:.1f}s in main ({card})")
+    for line in out.splitlines():
+        if line.startswith("   ["):
+            log("  " + line)
+
+    out, took = clis["train"]["printed"], clis["train"]["seconds"]
+    steps = re.findall(r"^step +(\d+) loss +([\d.]+) gnorm +([\d.]+) lr \S+ +(\d+) ms$", out,
+                       re.M)
+    require(len(steps) == spec["train_steps"], f"train on the mesh printed {len(steps)} steps")
+    losses = [float(s[1]) for s in steps]
+    ms = [float(s[3]) for s in steps]
+    moved = [int(x) for x in re.search(r"^collective bytes per rank a step: ([\d, ]+)$", out,
+                                       re.M).group(1).split(", ")]
+    peaks = _printed_peaks(out, spec["device"])
+    require(all(np.isfinite(losses)) and len(peaks) == world, f"train on the mesh: {losses}")
+    figures["train"] = {"seconds": took, "step_ms": statistics.median(ms[1:]),
+                        "first_step_ms": ms[0], "losses": losses, "collective_bytes": moved,
+                        "peaks": peaks,
+                        "tok_s": spec["train_batch"] * spec["seq"] * 1e3 / statistics.median(
+                            ms[1:])}
+    log(f"  train bf16 on {spec['data']} x {spec['model']} (remat, {spec['train_batch']} x "
+        f"{spec['seq']}): step {figures['train']['step_ms']:.0f} ms (median after the first, "
+        f"{ms[0]:.0f} ms), {figures['train']['tok_s']:.0f} tok/s; losses {losses}; collective "
+        f"bytes per rank a step {moved}; peaks {peaks} bytes; {took:.1f}s in main ({card})")
+
+    # float32 at full width, cut depth: ranks against rank 0's one-card run
+    bound = 2 * chk["floor"]
+    figures["float32"] = dict(chk, bound=bound)
+    log(f"  float32, {spec['check_layers']} layers at full width, {world} ranks against rank 0's "
+        f"one-card run: prefill and {spec['check_gen'] - 1} decode steps max |d| "
+        + ", ".join(f"{e:.2e}" for e in chk["serve_err"])
+        + f" on logits up to {chk['scale']:.3f} (bound {bound:.3e}: twice the one-ulp floor "
+        f"{chk['floor']:.3e}); train step loss "
+        f"{chk['loss']:.6f} against {chk['ref_loss']:.6f}, grad norm {chk['grad_norm']:.6f} "
+        f"against {chk['ref_grad_norm']:.6f}, parameters max |d| {chk['param_err']:.2e} "
+        f"({chk['param_err'] / chk['lr']:.3f} lr); collective bytes per rank: serving "
+        f"{chk['serve_collective_bytes']}, the step {chk['train_collective_bytes']}; "
+        f"{seconds:.1f}s launch to exit")
+    require(max(chk["serve_err"]) <= bound, "float32 on the mesh: logits differ from one card")
+    require(abs(chk["loss"] - chk["ref_loss"]) <= 1e-5 * abs(chk["ref_loss"]),
+            "float32 on the mesh: the step's loss differs from one card")
+    require(abs(chk["grad_norm"] - chk["ref_grad_norm"]) <= 1e-5 * chk["ref_grad_norm"],
+            "float32 on the mesh: the grad norm differs from one card")
+    require(chk["param_err"] <= 0.5 * chk["lr"], "float32 on the mesh: parameters differ")
+    require(all(r["loss"] == chk["loss"] for r in chk["ranks"]), "the ranks' losses differ")
+    launched = {k: sum(r["launches"][k] for r in chk["ranks"]) for k in ("fused", "shm")}
+    require(not any(launched.values()) and not any(ops.kernel_call_counts().values()),
+            f"the sharded LM path launched a hand kernel: ranks {launched}, this process "
+            f"{ops.kernel_call_counts()}")
+    return {"figures": figures, "launches": {"fused": 0, "shm": 0, "by_k": {}}}
+
+
 def width_rows(ops, ref, probe, ks, n: int) -> list:
     """``fused_apply`` rows at widths ``ks`` that no plan launched (the
     profile's k on bits 0..k-1 of one shard of 2^n): against the plain
@@ -4083,7 +4435,7 @@ def main() -> None:
     log("== stage checkpoints: ising({n}) L={L} R={R}, killed in stage 1 and resumed"
         .format(**CHECKPOINT))
     ckpt = checkpoint_phase(card, ops, ref, **CHECKPOINT)
-    paths["ising28_checkpoint_resumed"] = ckpt["launches"]
+    paths["ising{n}_checkpoint_resumed".format(**CHECKPOINT)] = ckpt["launches"]
     worst.append(ckpt["worst"])
     log(f"  the store and checkpoint phases took {time.time() - t_store:.1f}s")
 
@@ -4140,6 +4492,15 @@ def main() -> None:
     paths["lm_training"] = trained["launches"]
     log("  train figures: " + json.dumps(trained["figures"]))
     log(f"  the LM training phase took {time.time() - t_train:.1f}s")
+    t_shard = time.time()
+    log("== LM sharding: {arch} at full width on {ranks} gloo ranks of the one card as data "
+        "{data} x model {model}: serve_llm and train under torchrun (bf16), then float32 at "
+        "{check_layers} layers against one card".format(**LM_SHARD))
+    ops.reset_kernel_counters()
+    sharded = lm_shard_phase(ops, card)
+    paths["lm_sharded"] = sharded["launches"]
+    log("  LM sharding figures: " + json.dumps(sharded["figures"]))
+    log(f"  the LM sharding phase took {time.time() - t_shard:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}
@@ -4168,4 +4529,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--lm-shard-check"]:
+        lm_shard_check_rank(sys.argv[2])
+    else:
+        main()

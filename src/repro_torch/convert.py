@@ -14,7 +14,10 @@ model.init(key))`` gives it) into a port :class:`~repro_torch.models.
 transformer.Model`'s parameters, stacked leaves one to one;
 :func:`adamw_state_from_reference` carries its optimizer state (the
 reference's ``AdamWState`` as numpy) into the port's, keyed by the same
-parameter names, so a training run crosses mid-run.
+parameter names, so a training run crosses mid-run. On a model on a mesh
+(or with ``mesh``) every rank passes the whole tree, and each keeps the
+slices the reference's placements give it, as ``build_model`` places drawn
+weights.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from .core.circuit import Circuit
 from .core.partition import SimulationPlan
 from .device import DeviceLike
+from .models.parallel import distribute_like
 from .models.transformer import Model, flatten_tree
 from .optim.adamw import AdamWState
 from .sim.engine import ExecutionEngine
@@ -64,15 +68,22 @@ def _same_names(model: Model, leaves: Mapping[str, Any], what: str) -> dict:
     return own
 
 
-def lm_params_from_reference(model: Model, tree: Any) -> Model:
+def lm_params_from_reference(model: Model, tree: Any, mesh=None) -> Model:
     """Load the reference's parameter tree into ``model`` (in place; returns
     it). Each leaf's path joined by ``.`` names a parameter. A missing or
     extra key, or a shape that differs, raises ``ValueError``; bf16 leaves
-    go through float32, which ``torch.from_numpy`` needs."""
+    go through float32, which ``torch.from_numpy`` needs. ``mesh``: a
+    ``DeviceMesh`` to shard a one-device ``model`` on after the load
+    (every rank calls it with the same tree); a model already on a mesh
+    keeps its slices of each leaf."""
     leaves = flatten_tree(tree)
     own = _same_names(model, leaves, "parameter")
-    model.load_state_dict({name: torch.from_numpy(np.array(leaf, np.float32)).to(own[name].dtype)
-                           for name, leaf in leaves.items()})
+    model.load_full({name: torch.from_numpy(np.array(leaf, np.float32)).to(own[name].dtype)
+                     for name, leaf in leaves.items()})
+    if mesh is not None and model.mesh is None:
+        model.shard(mesh)
+    elif mesh is not None and model.mesh is not mesh:
+        raise ValueError("the model is on another mesh")
     return model
 
 
@@ -89,7 +100,8 @@ def adamw_state_from_reference(model: Model, state: Any) -> AdamWState:
         for name in own:
             arr = np.asarray(leaves[name])
             dt = torch.bfloat16 if str(arr.dtype) == "bfloat16" else torch.float32
-            out[name] = torch.from_numpy(np.array(arr, np.float32)).to(model.device, dt)
+            t = torch.from_numpy(np.array(arr, np.float32)).to(model.device, dt)
+            out[name] = distribute_like(t, own[name]) if model.mesh is not None else t
         return out
 
     return AdamWState(step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),

@@ -95,20 +95,22 @@ class RankContext:
 
 
 def join(backend: Optional[str], device_type: str,
-         timeout_s: float = INIT_TIMEOUT_S) -> RankContext:
+         timeout_s: float = INIT_TIMEOUT_S,
+         what: str = "--executor shardmap runs one process per rank of the bit-mesh",
+         example: str = "repro_torch.launch.simulate ... --executor shardmap") -> RankContext:
     """Join the job as set out in the module docstring. ``backend``:
     ``"nccl"``, ``"gloo"`` or None (the device's default); ``device_type``:
-    ``"cuda"`` or ``"cpu"``."""
+    ``"cuda"`` or ``"cpu"``; ``what`` and ``example`` word the error of a
+    process started without a launcher."""
     if backend == "nccl" and device_type != "cuda":
         raise LaunchError(NCCL_ON_CPU)
     in_group = dist.is_available() and dist.is_initialized()
     missing = [v for v in TORCHRUN_VARS if v not in os.environ]
     if not in_group and missing:
         raise LaunchError(
-            "--executor shardmap runs one process per rank of the bit-mesh, and this process "
+            f"{what}, and this process "
             f"is in no process group and has no launcher's environment (no {', '.join(missing)})"
-            ": start it with torchrun, e.g. `torchrun --nproc-per-node 8 -m "
-            "repro_torch.launch.simulate ... --executor shardmap`")
+            f": start it with torchrun, e.g. `torchrun --nproc-per-node 8 -m {example}`")
     resolve_device(device_type)  # CUDA asked for and absent raises here
     cards = torch.cuda.device_count() if device_type == "cuda" else 0
     if in_group:

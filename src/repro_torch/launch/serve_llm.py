@@ -8,21 +8,34 @@ from ``--seed``; prompts and the audio/vision stub inputs come from a CPU
 ``torch.Generator(seed)``, so every device sees the same ones. Runs on the
 card unless given ``--device cpu``.
 
+With ``--data-par``/``--model-par`` above 1 it runs under ``torchrun``, one
+process per device of the ``data x model`` mesh (``--dist-backend``:
+``nccl``, one rank per card, the default on CUDA; ``gloo``, the default on
+the CPU and the way to run several ranks on one card): the model is
+sharded with the reference's rules, each data shard decodes its rows, and
+only rank 0 prints.
+
 Example (CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_llm --arch qwen2-1.5b --reduced \\
       --batch 4 --prompt-len 32 --gen-len 16 --device cpu
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve_llm \\
+      --arch qwen2-1.5b --reduced --data-par 2 --model-par 2 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import torch
 
 from ..configs.registry import get_arch
 from ..device import resolve_device
-from .steps import ParallelismNotPorted, build_model, make_decode_step
+from ..models.parallel import collective_bytes, reset_collectives
+from .mesh import join_lm_mesh, print_peaks
+from .steps import build_model, make_decode_step
 
 
 def _sync(device: torch.device) -> None:
@@ -32,7 +45,7 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> torch.Tensor:
     """Returns the generated tokens, [B, G] int32 (the prefill's token and
-    G - 1 decode steps)."""
+    G - 1 decode steps; on a mesh, the whole batch on every rank)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -43,18 +56,40 @@ def main(argv=None) -> torch.Tensor:
     ap.add_argument("--model-par", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="with --data-par/--model-par above 1: the process group's backend "
+                         "(nccl on cuda, one rank per card; gloo on cpu)")
     args = ap.parse_args(argv)
 
+    ctx = mesh = None
     if args.data_par > 1 or args.model_par > 1:
-        raise ParallelismNotPorted(
-            f"--data-par {args.data_par} --model-par {args.model_par}: serving over ranks "
-            "is A14c of the port's roadmap; run with both at 1")
-    device = resolve_device(args.device)
+        ctx, mesh = join_lm_mesh(ap, args.arch, args.data_par, args.model_par, args.dist_backend,
+                                 args.device, "repro_torch.launch.serve_llm")
+    elif args.dist_backend is not None:
+        ap.error("--dist-backend needs --data-par or --model-par above 1")
+    try:
+        # only rank 0 prints
+        quiet = ctx is not None and ctx.rank != 0
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            return _serve(args, ctx, mesh)
+    finally:
+        if ctx is not None:
+            ctx.close()
+
+
+def _serve(args, ctx, mesh) -> torch.Tensor:
+    device = resolve_device(args.device) if ctx is None else ctx.device
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, device, torch.Generator(device=device).manual_seed(args.seed))
+    if mesh is not None:
+        print(f"mesh: data {args.data_par} x model {args.model_par} on {ctx.world} ranks "
+              f"({ctx.backend})")
+    model = build_model(cfg, device, torch.Generator(device=device).manual_seed(args.seed),
+                        remat=False, mesh=mesh)
+    reset_collectives()
     params = model.cast_params()  # cast once: the bits each forward would cast to
+    moved = {"weights": collective_bytes()}
 
     B, P, G = args.batch, args.prompt_len, args.gen_len
     gen = torch.Generator().manual_seed(args.seed)
@@ -68,19 +103,23 @@ def main(argv=None) -> torch.Tensor:
     decode = make_decode_step(model)
 
     _sync(device)
+    reset_collectives()
     t0 = time.perf_counter()
     logits, cache = model.prefill(prompts, extras=extras, cache_len=P + G, params=params)
     _sync(device)
     t_prefill = time.perf_counter() - t0
+    moved["prefill"] = collective_bytes()
     tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
     out = [tok]
+    reset_collectives()
     t0 = time.perf_counter()
     for _ in range(G - 1):
         tok, cache = decode(params, tok, cache, extras)
         out.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t0
+    moved["decode"] = collective_bytes()
     tokens = torch.cat(out, dim=1)
     print(f"prefill: {B}x{P} tokens in {t_prefill:.3f}s "
           f"({B*P/max(t_prefill, 1e-9):,.0f} tok/s)")
@@ -89,6 +128,10 @@ def main(argv=None) -> torch.Tensor:
     print("sample generations (token ids):")
     for row in tokens[: min(B, 3)].cpu():
         print("  ", row[:16].tolist())
+    if mesh is not None:
+        print(f"collective bytes per rank: weights {moved['weights']}, prefill "
+              f"{moved['prefill']}, decode {moved['decode'] // max(G - 1, 1)} a step")
+        print_peaks(device)
     return tokens
 
 

@@ -1,35 +1,27 @@
-"""Step builders for LM training and serving: ``repro.launch.steps`` on
-one device.
+"""Step builders for LM training and serving; the port of
+``repro.launch.steps``.
 
 The reference jits its steps with production shardings over a mesh; here a
 step is a plain function on the port's :class:`Model`, its backward
-autograd's. Sharding over ranks (``--data-par``/``--model-par``) is not
-ported yet: :class:`ParallelismNotPorted`. The reference's dry-run tooling
-(``abstract_state``, ``jitted_train_step``, ``jitted_serve_step``) has no
-twin yet either (A14d of the port's roadmap).
+autograd's. On a mesh (a ``DeviceMesh`` from ``launch/mesh.py``) the model's
+parameters are DTensors with the reference's placements, and the steps take
+and give global batches (``models/parallel.py``). The reference's dry-run
+tooling (``abstract_state``, ``jitted_train_step``, ``jitted_serve_step``)
+has no twin yet (A14d of the port's roadmap).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
+from ..models.sharding import data_axes_for  # noqa: F401 (the reference's steps.data_axes_for)
 from ..models.transformer import Model
 from ..optim import adamw
-
-
-class ParallelismNotPorted(NotImplementedError):
-    """Data or model parallelism over ranks: A14c of the port's roadmap
-    (``models/sharding``, ``launch/mesh``, MoE's exchange under torchrun)."""
-
-
-def data_axes_for(axis_names: Sequence[str]) -> Tuple[str, ...]:
-    """The batch axes of a mesh with these axis names."""
-    return ("pod", "data") if "pod" in axis_names else ("data",)
 
 
 def pad_heads_for_tp(cfg: ArchConfig, tp: int) -> ArchConfig:
@@ -49,11 +41,22 @@ def pad_heads_for_tp(cfg: ArchConfig, tp: int) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None, remat: bool = True) -> Model:
-    """The model of ``cfg`` on one device (no mesh), its weights drawn from
+                generator: Optional[torch.Generator] = None, remat: bool = True,
+                mesh=None, pad_heads: bool = True) -> Model:
+    """The model of ``cfg`` on ``device``, its weights drawn from
     ``generator`` (unset without one); ``remat``: recompute each body
-    unit's activations in a training step's backward pass."""
-    return Model(cfg, device=device, generator=generator, remat=remat)
+    unit's activations in a training step's backward pass. ``mesh``: a
+    ``DeviceMesh`` to shard it on (every rank draws the same weights and
+    keeps its slices), with the reference's policy: with a model axis above
+    1, the query heads are padded for TP (:func:`pad_heads_for_tp`), or with
+    ``pad_heads=False`` (the decode policy) QKV fusion is turned off."""
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        tp = mesh.shape[mesh.mesh_dim_names.index("model")]
+        if pad_heads:
+            cfg = pad_heads_for_tp(cfg, tp)
+        elif not cfg.mla and cfg.n_heads:
+            cfg = dataclasses.replace(cfg, qkv_fused=False)
+    return Model(cfg, device=device, generator=generator, remat=remat, mesh=mesh)
 
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
@@ -66,7 +69,13 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int 
     them. ``metrics`` are tensors on the device (nothing waits for them):
     the loss's metrics (``loss``, ``ce_loss``, ``aux_loss``, ``mtp_loss``
     where the config has MTP) with one microbatch, only ``ce_loss`` (the
-    mean total loss) with several; then ``grad_norm``, ``lr`` and ``loss``."""
+    mean total loss) with several; then ``grad_norm``, ``lr`` and ``loss``.
+
+    On a mesh the parameters (and moments) are DTensors, ``batch`` is the
+    global batch, and each microbatch is the reference's (a slice of the
+    global batch, then each data shard's rows of it); the gradients come
+    back on their parameters' placements, averaged over the data shards,
+    and the metrics are the reference's global ones, on every rank."""
 
     def value_and_grad(leaves: Dict[str, torch.Tensor], batch: Mapping[str, torch.Tensor]):
         loss, metrics = model.loss(batch, params=model.tree(leaves))
@@ -83,8 +92,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, microbatches: int 
                 b = x.shape[0]
                 return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))[i]
 
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
+            grads = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
             loss = 0.0
             for i in range(microbatches):
                 mb = {k: microbatch(x, i) for k, x in batch.items()}

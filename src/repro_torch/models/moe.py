@@ -6,18 +6,21 @@ The reference gives each device of its 'model' mesh axis ``E / ep`` experts
 places each (token, expert) assignment of its slice into a capacity-bounded
 buffer with a *stable* sort, so exactly the reference's assignments are
 dropped at capacity, and runs its experts' SwiGLU. :func:`moe_apply` runs
-the one slice a single device holds (all experts, no exchange) and adds the
-shared experts.
+the one slice a single device holds (all experts, no exchange), or on a
+mesh (a :class:`~repro_torch.models.parallel.MeshPlan`) each rank's slice
+of its data shard's tokens, summed over the model axis by one all-reduce,
+the reference's ``psum``; then it adds the shared experts.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .layers import dense_init, einsum_as, pdot, silu
+from .parallel import MeshPlan
 
 
 def moe_params(generator, cfg, dtype=torch.float32, device=None) -> Dict:
@@ -53,18 +56,23 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_slice(p: Dict, x: torch.Tensor, cfg, my: int = 0, ep: int = 1
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_slice(p: Dict, x: torch.Tensor, cfg, my: int = 0, ep: int = 1,
+              enter: Optional[Callable] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Slice ``my`` of ``ep`` (experts ``my * e_loc`` to ``(my + 1) * e_loc``,
     ``e_loc = E / ep``): its share of the routed output [B, S, D] and the
     aux load-balancing loss. ``p["wi"]``/``["wg"]``/``["wo"]`` hold all E
-    experts; the slice takes its own."""
+    experts (the slice takes its own) or the slice's ``e_loc``. ``enter``
+    (on a mesh, ``MeshPlan.enter_tp``) is applied to the tokens and the
+    combine weights where they enter the slice's own experts: the routing
+    before it is the same on every slice, the share after it is partial."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_top_k
     cf = cfg.moe_capacity_factor
     e_loc = e // ep
-    mine = slice(my * e_loc, (my + 1) * e_loc)
-    wi, wg, wo = p["wi"][mine], p["wg"][mine], p["wo"][mine]
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    if wi.shape[0] != e_loc:
+        mine = slice(my * e_loc, (my + 1) * e_loc)
+        wi, wg, wo = wi[mine], wg[mine], wo[mine]
     dev = x.device
 
     t = b * s
@@ -81,6 +89,8 @@ def moe_slice(p: Dict, x: torch.Tensor, cfg, my: int = 0, ep: int = 1
     aux = e * torch.sum(me * ce)
 
     cap = max(int(np.ceil(t * k / e * cf)), 1)
+    if enter is not None:
+        xt, topw = enter(xt), enter(topw)
 
     # position of each assignment within its expert, by a stable sort
     flat_e = topi.reshape(-1)
@@ -108,10 +118,32 @@ def moe_slice(p: Dict, x: torch.Tensor, cfg, my: int = 0, ep: int = 1
     return yt.reshape(b, s, d), aux
 
 
-def moe_apply(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output [B, S, D], aux load-balancing loss)."""
-    y, aux = moe_slice(p, x, cfg)
-    if cfg.n_shared_experts:
-        sh = p["shared"]
-        y = y + pdot(silu(pdot(x, sh["wi"])) * pdot(x, sh["wg"]), sh["wo"])
-    return y, aux
+def _shared(sh: Dict, x: torch.Tensor) -> torch.Tensor:
+    return pdot(silu(pdot(x, sh["wi"])) * pdot(x, sh["wg"]), sh["wo"])
+
+
+def moe_apply(p: Dict, x: torch.Tensor, cfg, mesh: Optional[MeshPlan] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output [B, S, D], aux load-balancing loss).
+
+    ``mesh``: None (one device), or the model's :class:`MeshPlan`. On a
+    mesh ``x`` is this rank's tokens: its data shard's rows, or every row
+    where the batch does not divide the data axes (``MeshPlan.rows``), so
+    capacity is per data shard, from the local token count, as in the
+    reference. Each rank runs its ``E / ep`` experts (``p``'s expert
+    weights: the rank's slice, or all E), and one all-reduce over the model
+    axis sums the slices (with the shared experts' partial sums when they
+    run tensor parallel); the aux loss is averaged over the data shards."""
+    if mesh is None:
+        y, aux = moe_slice(p, x, cfg)
+        if cfg.n_shared_experts:
+            y = y + _shared(p["shared"], x)
+        return y, aux
+    y, aux = moe_slice(p, x, cfg, my=mesh.tp_index, ep=mesh.tp, enter=mesh.enter_tp)
+    tp_shared = cfg.n_shared_experts and mesh.shared_tp
+    if tp_shared:
+        y = y + _shared(p["shared"], mesh.enter_tp(x))
+    y = mesh.exit_tp(y)
+    if cfg.n_shared_experts and not tp_shared:
+        y = y + _shared(p["shared"], x)
+    return y, mesh.data_mean(aux)

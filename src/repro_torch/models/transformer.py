@@ -18,6 +18,12 @@ at 0), 'decode' (single-token step against the cache). With ``remat`` (the
 default, as the reference's) each body unit of a 'train' forward runs under
 ``torch.utils.checkpoint``: its activations are recomputed in the backward
 pass, as the reference's ``jax.checkpoint`` recomputes them.
+
+On a mesh (:meth:`Model.shard`, ``build_model(..., mesh=...)``) each
+parameter is a DTensor with the reference's placements, and a forward makes
+each layer's weights whole at its use (``models/parallel.py``): the data
+shards take their rows of the batch, MLPs run tensor parallel and MoE
+experts expert parallel over the model axis.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from .layers import (
     softmax_cross_entropy,
 )
 from .moe import moe_apply, moe_params
+from .parallel import MeshPlan, Sharded, full
 from .ssm import mamba2_apply, mamba2_cache_shape, mamba2_params
 
 KEEP_F32 = ("A_log", "dt_bias", "D", "router", "q_norm", "kv_norm")
@@ -72,10 +79,14 @@ def _tree_map(fn: Callable, tree):
 def _unstacked(tree, n: int) -> List:
     """``n`` trees, the stacked ``tree``'s slices along axis 0 (views): one
     ``unbind`` a leaf, whose backward is one ``stack``, where indexing each
-    slice alone would add ``n`` leaf-sized zero tensors to the backward."""
+    slice alone would add ``n`` leaf-sized zero tensors to the backward. A
+    sharded leaf unbinds its local shard (the rules never shard the reps
+    dim)."""
     if isinstance(tree, dict):
         parts = {k: _unstacked(v, n) for k, v in tree.items()}
         return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, Sharded):
+        return tree.unbind()
     return list(torch.unbind(tree))
 
 
@@ -209,7 +220,11 @@ def block_apply(
     cache: Optional[Dict],
     cache_len_now: Optional[int],  # tokens already in the cache, or None
     cross_kv: Optional[torch.Tensor],
+    par: Optional[MeshPlan] = None,
 ):
+    """One layer. ``par``: the mesh plan of a sharded model (``lp``'s
+    weights made whole, except the model axis's shards of a tensor-parallel
+    MLP and of the experts)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None
     h = apply_norm(cfg.norm, x, lp["norm1"])
@@ -235,7 +250,9 @@ def block_apply(
     if "ffn" in lp:
         h = apply_norm(cfg.norm, x, lp["norm2"])
         if "+moe" in kind:
-            h, aux = moe_apply(lp["ffn"], h, cfg)
+            h, aux = moe_apply(lp["ffn"], h, cfg, par)
+        elif par is not None and par.mlp_tp:
+            h = par.exit_tp(mlp_apply(lp["ffn"], par.enter_tp(h), cfg.act))
         else:
             h = mlp_apply(lp["ffn"], h, cfg.act)
         x = x + h
@@ -250,20 +267,78 @@ class Model(nn.Module):
     asks for the CPU). Parameters are fp32 masters, cast to the compute
     dtype at each forward (or once, by :meth:`cast_params`, for serving).
     ``generator`` draws them as :meth:`init` does; without one they are
-    allocated and left unset, for a load."""
+    allocated and left unset, for a load. ``mesh``: a ``DeviceMesh`` over
+    the job's ranks to shard the model on (:meth:`shard`); every rank draws
+    the whole weights from the same generator and keeps its slices, so a
+    sharded model holds exactly the one-device model's weights."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None, remat: bool = True):
+                 generator: Optional[torch.Generator] = None, remat: bool = True,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
         self.prefix_kinds, self.unit_kinds, self.reps = body_structure(cfg)
         self.compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        self.par: Optional[MeshPlan] = None
         _register(self, self._param_tree(generator, resolve_device(device)))
+        if mesh is not None:
+            self.shard(mesh)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def mesh(self):
+        return None if self.par is None else self.par.mesh
+
+    # ------------------------------------------------------------- mesh
+    @torch.no_grad()
+    def shard(self, mesh) -> "Model":
+        """Put the model on ``mesh`` (every rank calls it, with the same
+        weights): each parameter becomes a DTensor with the reference's
+        placements (``models/sharding.py``), each rank keeping its slices.
+        Returns the model."""
+        if self.par is not None:
+            raise ValueError("the model is already on a mesh")
+        plan = MeshPlan(mesh, self.cfg)
+        for name, p in list(self.named_parameters()):
+            plan.add(name, p.shape)
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            module._parameters[leaf] = nn.Parameter(plan.distribute(name, p.detach()),
+                                                    requires_grad=p.requires_grad)
+        self.par = plan
+        return self
+
+    @torch.no_grad()
+    def load_full(self, named: Mapping[str, torch.Tensor]) -> None:
+        """Set every parameter from a whole tensor of its name (the same on
+        every rank of a mesh: each keeps its slices)."""
+        own = dict(self.named_parameters())
+        if sorted(own) != sorted(named):
+            raise ValueError(f"parameters {sorted(set(own) ^ set(named))} are missing or extra")
+        for name, p in own.items():
+            src = named[name].to(device=self.device, dtype=p.dtype)
+            if self.par is not None:
+                p.to_local().copy_(self.par.distribute(name, src).to_local())
+            else:
+                p.copy_(src)
+
+    def _local(self, tree):
+        """A parameter tree for a forward: on a mesh each DTensor becomes its
+        :class:`~repro_torch.models.parallel.Sharded` local shard."""
+        return tree if self.par is None else self.par.local(tree)
+
+    def _rows(self, x):
+        return x if self.par is None else self.par.rows(x)
+
+    def _rows_of(self, extras):
+        return None if not extras else {k: self._rows(v) for k, v in extras.items()}
+
+    def _gathered(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        return x if self.par is None else self.par.gather_rows(x, b)
 
     # ------------------------------------------------------------- params
     def _param_tree(self, generator, device) -> Dict:
@@ -299,7 +374,7 @@ class Model(nn.Module):
         values land on the model's), as the constructor draws them; holds a
         second copy of the weights while it loads them. Returns the
         parameter tree."""
-        self.load_state_dict(flatten_tree(self._param_tree(generator, self.device)))
+        self.load_full(flatten_tree(self._param_tree(generator, self.device)))
         return self.tree()
 
     def tree(self, named: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
@@ -311,11 +386,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def cast_params(self) -> Dict:
         """The tree as a forward sees it after the cast rule: computed once
-        for serving, the same bits a forward casts to."""
-        return _cast_params(self.tree(), self.compute_dtype)
+        for serving, the same bits a forward casts to. On a mesh, each
+        weight made whole once (the model axis's shards of a tensor- or
+        expert-parallel layer stay this rank's)."""
+        return full(_cast_params(self._local(self.tree()), self.compute_dtype))
 
     # ------------------------------------------------------------- caches
     def init_cache(self, batch: int, cache_len: int) -> Dict:
+        """An empty cache of ``batch`` rows (on a mesh, this data shard's
+        rows)."""
         cfg = self.cfg
         dt, dev = self.compute_dtype, self.device
         cache: Dict[str, Any] = {"len": 0}
@@ -335,12 +414,13 @@ class Model(nn.Module):
         x = frames.to(self.compute_dtype)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         for lp in _unstacked(params["encoder"], cfg.encoder_layers):
+            lp = full(lp)
             h = apply_norm(cfg.norm, x, lp["norm1"])
             h, _ = gqa_apply(lp["mixer"], h, cfg, pos)
             x = x + h
             h = apply_norm(cfg.norm, x, lp["norm2"])
             x = x + mlp_apply(lp["ffn"], h, cfg.act)
-        return apply_norm(cfg.norm, x, params["enc_norm"])
+        return apply_norm(cfg.norm, x, full(params["enc_norm"]))
 
     # ------------------------------------------------------------ forward
     def forward(
@@ -356,12 +436,20 @@ class Model(nn.Module):
         own (e.g. :meth:`cast_params`'s). The cache is updated in place
         (the reference donates it) and returned with its new ``len``; the
         encoder re-encodes ``frames`` at every call, as the reference's
-        does."""
+        does. On a mesh ``tokens`` and ``extras`` are the global batch, and
+        the logits, hidden state and cache are this data shard's rows
+        (``MeshPlan.rows``)."""
+        return self._forward(self._rows(tokens), self._rows_of(extras), cache, mode, params)
+
+    def _forward(self, tokens, extras, cache, mode, params):
         cfg = self.cfg
-        params = _cast_params(self.tree() if params is None else params, self.compute_dtype)
+        par = self.par
+        params = _cast_params(self._local(self.tree() if params is None else params),
+                              self.compute_dtype)
         s = tokens.shape[1]
         dev = tokens.device
-        x = params["embed"][tokens.to(torch.int64)]  # [B, S, D]
+        embed = full(params["embed"])  # once: a tied head reuses it
+        x = embed[tokens.to(torch.int64)]  # [B, S, D]
         cache_len_now = cache["len"] if cache is not None else None
         positions = torch.arange(s, device=dev)[None, :]
         if cache is not None:
@@ -384,20 +472,23 @@ class Model(nn.Module):
             npfx = []
             for i, kind in enumerate(self.prefix_kinds):
                 c = cache["prefix"][i] if cache is not None else None
-                x, aux, nc = block_apply(kind, params["prefix"][i], x, cfg, positions, mode, c,
-                                         cache_len_now, cross_kv)
+                x, aux, nc = block_apply(kind, full(params["prefix"][i]), x, cfg, positions, mode,
+                                         c, cache_len_now, cross_kv, par)
                 aux_total = aux_total + aux
                 npfx.append(nc)
             if cache is not None:
                 new_cache["prefix"] = npfx
 
         # periodic body: the reference scans the stacked reps, under
-        # jax.checkpoint in a 'train' forward with remat
+        # jax.checkpoint in a 'train' forward with remat (on a mesh each
+        # unit's weights are made whole inside it, so remat gathers them
+        # again in the backward pass and never keeps them)
         def unit(xc, aux_acc, pu, cu):
+            pu = full(pu)
             for j, kind in enumerate(self.unit_kinds):
                 cj = cu[f"l{j}"] if cu is not None else None
                 xc, aux, ncj = block_apply(kind, pu[f"l{j}"], xc, cfg, positions, mode, cj,
-                                           cache_len_now, cross_kv)
+                                           cache_len_now, cross_kv, par)
                 aux_acc = aux_acc + aux
                 if ncj is not None:
                     for key, new in ncj.items():
@@ -416,38 +507,43 @@ class Model(nn.Module):
         if cache is not None:
             new_cache["body"] = cache["body"]
 
-        x = apply_norm(cfg.norm, x, params["final_norm"])
-        head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(
-            self.compute_dtype)
-        logits = einsum_as("bsd,dv->bsv", x, head, x.dtype)
+        x = apply_norm(cfg.norm, x, full(params["final_norm"]))
+        head = embed.T if cfg.tie_embeddings else full(params["lm_head"])
+        logits = einsum_as("bsd,dv->bsv", x, head.to(self.compute_dtype), x.dtype)
         return logits, aux_total, (new_cache if cache is not None else None), x
 
     # --------------------------------------------------------------- loss
     def loss(self, batch: Dict, params: Optional[Dict] = None):
         """Mean cross-entropy (z-loss 1e-4) + 0.01 aux, + 0.3 MTP where the
-        config has it. Returns (total, metrics)."""
+        config has it. Returns (total, metrics). On a mesh ``batch`` is the
+        global batch; each data shard computes its rows' losses, and what
+        returns (on every rank) is their mean, the reference's loss, whose
+        backward gives each rank its shard's gradients."""
         cfg = self.cfg
+        mean = (lambda v: v) if self.par is None else self.par.data_mean
+        batch = {k: self._rows(v) for k, v in batch.items()}
         extras = {k: v for k, v in batch.items() if k in ("frames", "patches")}
-        logits, aux, _, h = self.forward(batch["tokens"], extras=extras or None, mode="train",
-                                         params=params)
-        loss = softmax_cross_entropy(logits, batch["labels"])
+        logits, aux, _, h = self._forward(batch["tokens"], extras or None, None, "train", params)
+        loss = mean(softmax_cross_entropy(logits, batch["labels"]))
         metrics = {"ce_loss": loss, "aux_loss": aux}
         total = loss + 0.01 * aux
         if cfg.mtp:
-            params_c = _cast_params(self.tree() if params is None else params,
+            params_c = _cast_params(self._local(self.tree() if params is None else params),
                                     self.compute_dtype)
-            mtp = params_c["mtp"]
+            mtp = full(params_c["mtp"])
+            embed = full(params_c["embed"])
             labels = batch["labels"].to(torch.int64)
-            emb_next = params_c["embed"][labels]
+            emb_next = embed[labels]
             hm = einsum_as("bsd,de->bse", torch.cat([h, emb_next], dim=-1), mtp["proj"], h.dtype)
             pos = torch.arange(hm.shape[1], device=hm.device)[None, :]
-            hm = block_apply("attn", mtp["block"], hm, cfg, pos, "train", None, None, None)[0]
+            hm = block_apply("attn", mtp["block"], hm, cfg, pos, "train", None, None, None,
+                             self.par)[0]
             hm = apply_norm(cfg.norm, hm, mtp["norm"])
-            head = params_c["embed"].T if cfg.tie_embeddings else params_c["lm_head"]
+            head = embed.T if cfg.tie_embeddings else full(params_c["lm_head"])
             mtp_logits = einsum_as("bsd,dv->bsv", hm, head,
                                    torch.promote_types(hm.dtype, head.dtype))
             labels2 = torch.roll(labels, -1, dims=1)
-            mtp_loss = softmax_cross_entropy(mtp_logits[:, :-1], labels2[:, :-1])
+            mtp_loss = mean(softmax_cross_entropy(mtp_logits[:, :-1], labels2[:, :-1]))
             metrics["mtp_loss"] = mtp_loss
             total = total + 0.3 * mtp_loss
         metrics["loss"] = total
@@ -457,17 +553,21 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, extras=None, cache_len: Optional[int] = None,
                 params: Optional[Dict] = None):
-        """Returns (last-token logits [B, V], filled cache)."""
+        """Returns (last-token logits [B, V], filled cache). On a mesh the
+        logits are the global batch's (gathered over the data shards) and
+        the cache holds this shard's rows."""
         b, s = tokens.shape
-        cache = self.init_cache(b, cache_len or s)
-        logits, _, new_cache, _ = self.forward(tokens, extras=extras, cache=cache,
-                                               mode="prefill", params=params)
-        return logits[:, -1], new_cache
+        tokens = self._rows(tokens)
+        cache = self.init_cache(tokens.shape[0], cache_len or s)
+        logits, _, new_cache, _ = self._forward(tokens, self._rows_of(extras), cache, "prefill",
+                                                params)
+        return self._gathered(logits[:, -1], b), new_cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, extras=None, params: Optional[Dict] = None):
-        """tokens: [B, 1]. Returns (logits [B, V], updated cache)."""
-        logits, _, new_cache, _ = self.forward(tokens, extras=extras, cache=cache,
-                                               mode="decode", params=params)
-        return logits[:, -1], new_cache
-
+        """tokens: [B, 1]. Returns (logits [B, V], updated cache); on a mesh
+        as :meth:`prefill`."""
+        b = tokens.shape[0]
+        logits, _, new_cache, _ = self._forward(self._rows(tokens), self._rows_of(extras), cache,
+                                                "decode", params)
+        return self._gathered(logits[:, -1], b), new_cache

@@ -16,6 +16,12 @@ full-width model's update holds a few chunks of float32 temporaries and
 never a second copy of a stacked leaf. The step count stays on the CPU, so
 the schedule and bias corrections are host scalars and cost the device no
 synchronisation.
+
+On a mesh the parameters are DTensors (``repro_torch.models.sharding``'s
+placements), and so are their gradients and moments: the update runs on
+each rank's local shards, and the gradient norm counts each element once
+(a shard held by several ranks is divided by their number before one
+all-reduce over the job).
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Mapping, NamedTuple, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 Params = Union[torch.Tensor, Sequence[torch.Tensor], Mapping[str, torch.Tensor]]
 Moments = Union[List[torch.Tensor], Dict[str, torch.Tensor]]
@@ -76,7 +84,9 @@ def init(cfg: AdamWConfig, params: Params) -> AdamWState:
     mdt = _moment_dtype(cfg)
     if isinstance(params, Mapping):
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=mdt, device=p.device) for k, p in params.items()}
+            return {k: (torch.zeros_like(p, dtype=mdt) if isinstance(p, DTensor)
+                        else torch.zeros(p.shape, dtype=mdt, device=p.device))
+                    for k, p in params.items()}
         return AdamWState(step=torch.zeros((), dtype=torch.int32), m=zeros(), v=zeros())
     ps = _as_list(params)
     return AdamWState(
@@ -86,10 +96,28 @@ def init(cfg: AdamWConfig, params: Params) -> AdamWState:
     )
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _replication(x: torch.Tensor) -> int:
+    """How many ranks hold each element of ``x`` (1 for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return 1
+    n = 1
+    for size, p in zip(x.device_mesh.shape, x.placements):
+        if not p.is_shard():
+            n *= size
+    return n
+
+
 def global_norm(tensors: Params) -> torch.Tensor:
     if isinstance(tensors, Mapping):
-        return torch.sqrt(sum(torch.sum(torch.square(c.to(torch.float32)))
-                              for x in tensors.values() for c in _chunks(x)))
+        sq = sum(sum(torch.sum(torch.square(c.to(torch.float32))) for c in _chunks(_local(x)))
+                 / _replication(x) for x in tensors.values())
+        if any(isinstance(x, DTensor) for x in tensors.values()):
+            dist.all_reduce(sq)  # the mesh spans the job
+        return torch.sqrt(sq)
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in _as_list(tensors)))
 
@@ -130,9 +158,13 @@ def update(cfg: AdamWConfig, grads: Params, state: AdamWState, params: Params
     if isinstance(params, Mapping):
         with torch.no_grad():
             for name, p in params.items():
-                m, v = state.m[name], state.v[name]
-                for pc, gc, mc, vc in zip(_chunks(p, True), _chunks(grads[name]),
-                                          _chunks(m, True), _chunks(v, True)):
+                g, m, v = grads[name], state.m[name], state.v[name]
+                if isinstance(p, DTensor) and not (
+                        g.placements == m.placements == v.placements == p.placements):
+                    raise ValueError(f"{name}: gradient or moments not on the parameter's "
+                                     "placements")
+                for pc, gc, mc, vc in zip(_chunks(_local(p), True), _chunks(_local(g)),
+                                          _chunks(_local(m), True), _chunks(_local(v), True)):
                     for dst, new in zip((pc, mc, vc), upd(pc, gc, mc, vc, p.dim())):
                         dst.copy_(new)
         return params, AdamWState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}

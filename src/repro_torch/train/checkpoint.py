@@ -15,8 +15,15 @@ as the reference stores it. Each package restores the other's checkpoints.
 Saving copies every leaf to the host first, synchronously (a training step
 may write the parameters in place the moment ``save`` returns); the file is
 then written by a background thread and published by a rename. Restore
-puts each leaf on its ``like`` leaf's device (or ``device``): resharding
-over ranks waits for the port's sharding (A14c).
+puts each leaf on its ``like`` leaf's device (or ``device``).
+
+Sharded state (DTensor leaves, a model on a mesh): every rank calls
+``save``, each DTensor is gathered whole (an all-gather per leaf, in the
+same order on every rank), and rank 0 alone writes, in the same format, so
+the file does not depend on the mesh. ``restore`` reads the whole leaf on
+every rank and keeps the slice that ``like``'s leaf has, on its mesh and
+placements: a state saved on one mesh restores on another (or on one
+device).
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike
+from ..models.parallel import distribute_like, gather_full
 
 
 
@@ -60,6 +70,13 @@ def _leaves(tree, path: Tuple[str, ...] = ()):
         yield from _leaves(child, path + parts)
 
 
+def _writes(tree) -> bool:
+    """Whether this process writes ``tree``: always, unless the state is
+    sharded and this is not rank 0."""
+    sharded = any(isinstance(leaf, DTensor) for _, leaf in _leaves(tree))
+    return not sharded or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a numpy array (a copy) and its key's dtype suffix."""
     if torch.is_tensor(leaf):
@@ -70,11 +87,16 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     return np.array(leaf), ""
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
+def _flatten(tree, keep: bool = True) -> Dict[str, np.ndarray]:
+    """``{key: array}`` of ``tree``'s leaves, each DTensor gathered whole (a
+    collective); with ``keep`` False nothing is copied to the host."""
     flat = {}
     for key, leaf in _leaves(tree):
-        arr, suffix = _to_host(leaf)
-        flat[key + suffix] = arr
+        if isinstance(leaf, DTensor):
+            leaf = gather_full(leaf)
+        if keep:
+            arr, suffix = _to_host(leaf)
+            flat[key + suffix] = arr
     return flat
 
 
@@ -98,7 +120,8 @@ def _unflatten(like, flat: Dict[str, Tuple[np.ndarray, Optional[str]]], device: 
         if not torch.is_tensor(like):
             return arr
         dev = like.device if device is None else torch.device(device)
-        return _decode(arr, dtype_name).to(dev)
+        t = _decode(arr, dtype_name).to(dev)
+        return distribute_like(t, like) if isinstance(like, DTensor) else t
     out = [_unflatten(child, flat, device, path + parts) for parts, child in kids]
     if isinstance(like, dict):
         return dict(zip(like, out))
@@ -117,7 +140,15 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
-        flat = _flatten(state)  # device->host copy happens here, synchronously
+        """Write ``state`` as ``step``. Sharded state: every rank calls it
+        and rank 0 writes (``blocking`` then returns when the file is
+        published and every rank has passed a barrier)."""
+        writes = _writes(state)
+        flat = _flatten(state, writes)  # device->host copy happens here, synchronously
+        if not writes:
+            if blocking:
+                dist.barrier()
+            return
 
         def _write():
             tmp = tempfile.mkdtemp(dir=self.dir)
@@ -142,6 +173,8 @@ class CheckpointManager:
             self._thread.start()
         else:
             _write()
+            if any(isinstance(leaf, DTensor) for _, leaf in _leaves(state)):
+                dist.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -170,7 +203,8 @@ class CheckpointManager:
     def restore(self, step: int, like: Any, device: DeviceLike = None) -> Any:
         """The state saved at ``step``, in ``like``'s structure (dicts,
         named tuples, lists; tensors of the saved dtype on each ``like``
-        tensor's device, or ``device``)."""
+        tensor's device, or ``device``; a DTensor ``like`` leaf gives a
+        DTensor on its mesh and placements)."""
         path = os.path.join(self.dir, f"step_{step:08d}", "state.npz")
         flat = {}
         with np.load(path) as z:

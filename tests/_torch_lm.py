@@ -80,6 +80,15 @@ def ref_params(ref_cfg, seed: int = 0):
     return jax.tree.map(np.asarray, RefModel(ref_cfg, remat=False).init(jax.random.PRNGKey(seed)))
 
 
+def one_ulp(params, seed=0):
+    """``params`` with every embedding entry moved by one float32 ulp (a
+    random sign): how far a run moves from this start is its own rounding
+    floor."""
+    e = params["embed"]
+    sign = np.where(np.random.default_rng(seed).random(e.shape) < 0.5, -1.0, 1.0)
+    return dict(params, embed=(e * (1 + sign * 2.0**-24)).astype(np.float32))
+
+
 def port_model(port_cfg, params) -> Model:
     """The port's model on the CPU holding the reference's ``params``."""
     return lm_params_from_reference(Model(port_cfg, device="cpu"), params)

@@ -5,9 +5,9 @@ shardmap``) on the CPU, against the reference CLI's.
 each call ``repro_torch.launch.simulate.main([... "--executor", "shardmap",
 "--device", "cpu"])`` on the cases below (L=7, R=2, G=1); the reference,
 ``repro.launch.simulate.main([... "--executor", "shardmap"])``, runs the same
-cases on 8 virtual devices in an ``XLA_FLAGS`` subprocess after them (one
-heavy job at a time, so the suite's other workers keep their share of the
-cores) and returns its results as JSON. Held: the reference's shots for the seed,
+cases on 8 virtual devices in an ``XLA_FLAGS`` subprocess before them (at
+the suite's priority; the ranks run under ``nice``) and returns its results
+as JSON. Held: the reference's shots for the seed,
 marginals and expectations within 1e-6, states within 1e-5, fidelity
 ``>= 1 - 1e-6``, and the same result (and autotune choice) on every rank;
 only rank 0 prints, with one line per remap whose bytes are Eq. 2's.
@@ -114,13 +114,16 @@ def runs(sweep_file, tmp_path_factory):
     port = {name: argv + ["--device", "cpu"] + (BASE if name != "world" else [])
             for name, (argv, _) in cases.items()}
     ref = {name: argv + BASE for name, (_, argv) in cases.items() if argv is not None}
-    ranks = run_ranks(rank_side.main, WORLD, str(tmp_path_factory.mktemp("rendezvous")),
-                      args=(port, MISMATCH_RANK), threads=1, timeout=TIMEOUT, init_timeout=120)
     env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
                PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    proc = subprocess.run(NICE + [sys.executable, "-c", REFERENCE, json.dumps(ref)], env=env,
+    # the reference runs first, at the suite's priority (under nice, after
+    # the ranks, among the suite's workers, it overran its limit), then the
+    # ranks, under nice
+    proc = subprocess.run([sys.executable, "-c", REFERENCE, json.dumps(ref)], env=env,
                           capture_output=True, text=True, timeout=TIMEOUT)
     assert proc.returncode == 0, proc.stderr[-3000:]
+    ranks = run_ranks(rank_side.main, WORLD, str(tmp_path_factory.mktemp("rendezvous")),
+                      args=(port, MISMATCH_RANK), threads=1, timeout=TIMEOUT, init_timeout=120)
     return json.loads(proc.stdout.strip().splitlines()[-1]), ranks
 
 

@@ -64,9 +64,15 @@ def test_cli_refuses_cuda_without_a_card():
 
 
 @pytest.mark.parametrize("flag", ["--model-par", "--data-par"])
-def test_cli_refuses_parallelism_by_name(flag):
-    with pytest.raises(steps.ParallelismNotPorted, match="A14c"):
-        serve_llm.main(["--arch", "qwen2-1.5b", "--reduced", flag, "2", "--device", "cpu"])
+def test_cli_refuses_parallelism_by_name(flag, capsys):
+    """Outside torchrun, a mesh flag is refused before any process group,
+    naming the flags and the launcher, for any arch
+    (tests/test_torch_lm_sharding_cli.py runs the mesh under torchrun)."""
+    with pytest.raises(SystemExit):
+        serve_llm.main(["--arch", "mamba2-1.3b", "--reduced", flag, "2", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "--data-par/--model-par above 1" in err and "start it with torchrun" in err
+    assert "--arch mamba2-1.3b" in err
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "whisper-base", "mamba2-1.3b",

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.launch import steps, train
+from repro_torch.launch import train
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import RunJournal
 
@@ -121,9 +121,16 @@ def test_printed_lines_and_microbatches(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--model-par", "--data-par"])
-def test_cli_refuses_parallelism_by_name(flag):
-    with pytest.raises(steps.ParallelismNotPorted, match="A14c"):
-        train.main([*SMALL, "--steps", "1", flag, "2"])
+def test_cli_refuses_parallelism_by_name(flag, capsys):
+    """Outside torchrun, a mesh flag is refused before any process group,
+    naming the flags and the launcher, for any arch
+    (tests/test_torch_lm_sharding_cli.py runs the mesh under torchrun)."""
+    other = [a if a != "qwen2-1.5b" else "mamba2-1.3b" for a in SMALL]
+    with pytest.raises(SystemExit):
+        train.main([*other, "--steps", "1", flag, "2"])
+    err = capsys.readouterr().err
+    assert "--data-par/--model-par above 1" in err and "start it with torchrun" in err
+    assert "--arch mamba2-1.3b" in err
 
 
 def test_cli_refuses_cuda_without_a_card():

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_lm import configs, flat, port_model, ref_params
+from _torch_lm import configs, flat, one_ulp, port_model, ref_params
 from repro.launch import steps as r_steps
 from repro.models.transformer import Model as RefModel
 from repro.optim import adamw as r_adamw
@@ -45,14 +45,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def _one_ulp(params, seed=0):
-    """``params`` with every embedding entry moved by one float32 ulp (a
-    random sign)."""
-    e = params["embed"]
-    sign = np.where(np.random.default_rng(seed).random(e.shape) < 0.5, -1.0, 1.0)
-    return dict(params, embed=(e * (1 + sign * 2.0**-24)).astype(np.float32))
 
 
 class Runs:
@@ -112,7 +104,7 @@ def _hold(ref_out, port_out, floors):
 def _floors(runs, ref_out):
     """Per step: the largest relative move of the reference's grad norm
     under a one-ulp embedding move, at that step or before."""
-    _, _, moved = runs.ref_run(*runs.ref_start(_one_ulp(runs.params)), 0, len(ref_out))
+    _, _, moved = runs.ref_run(*runs.ref_start(one_ulp(runs.params)), 0, len(ref_out))
     return np.maximum.accumulate([abs(m["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
                                   for (_, r), (_, m) in zip(ref_out, moved)]).tolist()
 

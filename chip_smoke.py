@@ -191,6 +191,17 @@ store and checkpoint runs were cut by two qubits each, the shardmap
 gradients from n=29 to 28, and ``--autotune`` from ``ising(28)`` to
 ``ising(27)``.)
 
+Then the LM dry run (``repro_torch.launch.dryrun``,
+``launch/hlo_analysis.py``; plain PyTorch, neither hand kernel may launch):
+``qwen2-1.5b x train_4k`` on the 16x16 mesh and ``deepseek-v3-671b x
+decode_32k`` on 2x16x16, each through the CLI in a process with no card
+visible (per device: flops, bytes, collectives, peak against 80 GB, the
+dominant term, seconds); then the census of a full-width qwen2-1.5b train
+step and decode step on the card against the card's own figures (its peak
+within 10% of ``max_memory_allocated``, its op count within 2x of the
+profiler's kernel count, its flops and bytes over the data-sheet peaks
+beside the step's ms).
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -669,10 +680,10 @@ def entry(name, launches, err, ms, plain_ms, nbytes, nops, ops_per_s, fp32_ops, 
             "bound_fp32_ms": bound_fp32, "library_ms": library_ms, "shape": shape}
 
 
-def trace_run(run, untraced_s: float, what: str = "run_packed") -> None:
+def trace_run(run, untraced_s: float, what: str = "run_packed") -> dict:
     """One more call of ``run`` under torch.profiler: device time by kernel,
     against the untraced call's wall time (the profiled wall time includes
-    the profiler's own start-up)."""
+    the profiler's own start-up). Returns ``{"device_ms", "kernels"}``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -693,6 +704,7 @@ def trace_run(run, untraced_s: float, what: str = "run_packed") -> None:
         f"{sum(r[1] for r in rows)} kernels; by kernel:")
     for ms, count, key in rows[:10]:
         log(f"    {ms:9.2f} ms  x{count:<3d} {key[:100]}")
+    return {"device_ms": busy_ms, "kernels": sum(r[1] for r in rows)}
 
 
 def shard_fingerprint(shard: torch.Tensor, stride: int) -> dict:
@@ -4225,6 +4237,224 @@ def lm_shard_phase(ops, card: str, spec: dict = LM_SHARD) -> dict:
     return {"figures": figures, "launches": {"fused": 0, "shm": 0, "by_k": {}}}
 
 
+# The dry run (repro_torch.launch.dryrun, launch/hlo_analysis.py): two cells
+# of the reference's sweep, each `python -m repro_torch.launch.dryrun` with
+# no card visible (CUDA_VISIBLE_DEVICES empty; the census runs on meta
+# tensors over a fake group of 256 or 512 ranks), started first and run on
+# the host's other cores beside the census on the card: one full-width qwen2-1.5b bf16 train step
+# (remat, 8 x 128, as train_phase runs it) and one decode step (4 rows after
+# a 128-token prefill, the weights cast as jitted_serve_step casts them, as
+# lm_phase runs it), each against the card's own figures: the census's peak
+# live bytes within `peak_rtol` of max_memory_allocated over the same step
+# after a reset, its count of ops that do device work within `ops_ratio`x of
+# the profiler's kernel count (trace_run's), and its flops / 989e12 and
+# bytes_upper / 3.35e12 (an H100 SXM's data-sheet peaks at 700 W) beside the
+# step's measured ms.
+DRYRUN = {"cells": (("qwen2-1.5b", "train_4k", "single"), ("deepseek-v3-671b", "decode_32k",
+                                                             "multi")),
+          "timeout": 300, "arch": "qwen2-1.5b", "batch": 8, "seq": 128, "serve_batch": 4,
+          "prompt": 128, "gen": 8, "seed": 0, "repeats": 3, "peak_rtol": 0.10, "ops_ratio": 2.0,
+          "device": "cuda", "reduced": False}
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun_smoke")
+
+
+def start_dryrun_cells(spec: dict) -> list:
+    """``spec["cells"]`` through the dry-run CLI, each in its own process
+    (and session: killed whole on a timeout) with no card visible, under
+    ``nice`` (they share the host with the card's steps), all started now."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    for arch, shape, mesh in spec["cells"]:
+        cmd = ["nice", "-n", "10", sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--results-dir", DRYRUN_DIR]
+        procs.append(subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True, start_new_session=True))
+    return procs
+
+
+def dryrun_cells(spec: dict, procs: list, t0: float, card: str) -> dict:
+    """The cells of :func:`start_dryrun_cells` (started at ``t0``): each
+    exited 0 with one cell ok; their figures. The caller kills what is
+    left of ``procs`` if this raises."""
+    cells = {}
+    for (arch, shape, mesh), proc in zip(spec["cells"], procs):
+        try:
+            out, err = proc.communicate(timeout=max(1.0, spec["timeout"] - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"the dry run of {arch} {shape} {mesh} overran "
+                               f"{spec['timeout']} s") from None
+        require(proc.returncode == 0 and "dry-run done: 1 ok, 0 skipped, 0 failed" in out,
+                f"dry run {arch} {shape} {mesh} exited {proc.returncode}:\n{out[-2000:]}\n"
+                f"{err[-3000:]}")
+        with open(os.path.join(DRYRUN_DIR, f"{arch}__{shape}__{mesh}.json")) as f:
+            cell = json.load(f)
+        rl, step = cell["roofline"], cell["census"]["step"]
+        colls = ", ".join(f"{k} x{v['count']} {v['moved']}" for k, v in
+                          step["collectives"].items())
+        log(f"  {arch} {shape} on {cell['mesh']} ({cell['n_chips']} ranks, no card visible): a "
+            f"device {rl['flops']:.4g} flops, {rl['hbm_bytes']:.4g} bytes fused "
+            f"({rl['hbm_bytes_upper']:.4g} unfused), {step['ops']} ops; collectives {colls} "
+            f"bytes moved ({rl['coll_bytes']:.4g} traffic); peak {rl['peak_bytes']} bytes of "
+            f"80e9 (fits: {rl['fits']}); compute {rl['t_compute_s']:.4g}s, memory "
+            f"{rl['t_memory_s']:.4g}s, collective {rl['t_collective_s']:.4g}s: {rl['dominant']}; "
+            f"traced in {cell['trace_s']:.1f}s ({cell['wall_s']:.1f}s the cell)")
+        cells[f"{arch}|{shape}|{mesh}"] = {
+            "flops": rl["flops"], "bytes": rl["hbm_bytes"], "bytes_upper": rl["hbm_bytes_upper"],
+            "ops": step["ops"], "collectives": step["collectives"], "peak": rl["peak_bytes"],
+            "fits": rl["fits"], "dominant": rl["dominant"], "trace_s": cell["trace_s"],
+            "wall_s": cell["wall_s"]}
+    cells["seconds"] = time.time() - t0
+    return cells
+
+
+def census_against_card(what: str, step, census_step, spec: dict, card: str) -> dict:
+    """``census_step()`` (the step once more, its census returned) against
+    the card's figures of ``step()``: measured ms (median of
+    ``spec["repeats"]``), the peak over it after a reset, and the
+    profiler's kernel count."""
+    import statistics
+
+    from repro_torch.launch import hlo_analysis as ha
+
+    device = spec["device"]
+    ms = []
+    for _ in range(spec["repeats"]):
+        sync(device)
+        t0 = time.perf_counter()
+        step()
+        sync(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    step_ms = statistics.median(ms)
+    gc.collect()
+    sync(device)
+    before = torch.cuda.memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    census = census_step()
+    sync(device)
+    card_peak = _peak(device)
+    traced = trace_run(step, step_ms / 1e3, what) if device == "cuda" else {"kernels": 0}
+    hw = ha.HardwareSpec()
+    c = ha.Tally(flops=sum(t.flops for t in census.sections.values()),
+                 bytes=sum(t.bytes for t in census.sections.values()),
+                 bytes_upper=sum(t.bytes_upper for t in census.sections.values()),
+                 ops=sum(t.ops for t in census.sections.values()),
+                 dtensor_ops=sum(t.dtensor_ops for t in census.sections.values()))
+    fig = {"step_ms": step_ms, "census_peak": census.peak, "card_peak": card_peak,
+           "census_argument": census.argument, "card_before": before, "census_ops": c.ops,
+           "card_kernels": traced["kernels"], "flops": c.flops, "bytes_upper": c.bytes_upper,
+           "bytes": c.bytes, "t_compute_ms": 1e3 * c.flops / hw.peak_flops,
+           "t_memory_ms": 1e3 * c.bytes_upper / hw.hbm_bw, "dtensor_ops": c.dtensor_ops}
+    fig["peak_ratio"] = census.peak / card_peak if card_peak else None
+    fig["ops_ratio"] = c.ops / traced["kernels"] if traced["kernels"] else None
+    log(f"  {what}: census peak {census.peak} bytes (arguments {census.argument}) against "
+        f"max_memory_allocated {card_peak} (allocated before it {before}): "
+        f"{fig['peak_ratio'] or 0:.4f}; {c.ops} ops against the profiler's "
+        f"{traced['kernels']} kernels: {fig['ops_ratio'] or 0:.3f}; {c.flops:.4g} flops / "
+        f"989e12 = {fig['t_compute_ms']:.3f} ms and {c.bytes_upper:.4g} bytes / 3.35e12 = "
+        f"{fig['t_memory_ms']:.3f} ms against the step's {step_ms:.1f} ms ({card})")
+    require(c.dtensor_ops == 0, f"{what}: the census saw {c.dtensor_ops} DTensor ops")
+    if device == "cuda":
+        require(abs(fig["peak_ratio"] - 1) <= spec["peak_rtol"],
+                f"{what}: the census's peak {census.peak} is not within {spec['peak_rtol']:.0%} "
+                f"of the card's {card_peak}")
+        require(1 / spec["ops_ratio"] <= fig["ops_ratio"] <= spec["ops_ratio"],
+                f"{what}: {c.ops} ops against {traced['kernels']} kernels")
+    return fig
+
+
+def dryrun_phase(ops, card: str, spec: dict = DRYRUN) -> dict:
+    """See ``DRYRUN``; the cells run in processes of their own while the
+    card's steps run. ``spec=dict(DRYRUN, device="cpu", reduced=True)``
+    dry-runs it on the host (the census steps on the CPU, where the
+    census counts nothing: its work is the host's)."""
+    import signal
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch import hlo_analysis as ha
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    t0 = time.time()
+    ops.reset_kernel_counters()
+    procs = start_dryrun_cells(spec)  # on the host's other cores while the card's steps run
+    try:
+        figures = {}
+        device = spec["device"]
+        cfg = get_arch(spec["arch"])
+        cfg = cfg.reduced() if spec["reduced"] else cfg
+        gen = torch.Generator(device=device).manual_seed(spec["seed"])
+
+        # a train step as train_phase runs it
+        _fresh(device)
+        model = steps.build_model(cfg, device, gen)
+        opt_cfg = adamw.AdamWConfig(warmup_steps=2, total_steps=10)
+        params = dict(model.named_parameters())
+        held = {"opt": adamw.init(opt_cfg, params)}
+        data = SyntheticDataset(SyntheticConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                                                global_batch=spec["batch"], seed=spec["seed"]))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(0).items()}
+        step_fn = steps.make_train_step(model, opt_cfg)
+
+        def train_step():
+            _, held["opt"], _ = step_fn(params, held["opt"], batch)
+
+        def train_census():
+            with ha.Census() as census:
+                train_step()
+            return census
+
+        train_step()  # the first step pays cuBLAS's start
+        figures["train"] = census_against_card(
+            f"{spec['arch']} train step ({spec['batch']} x {spec['seq']}, remat)", train_step,
+            train_census, spec, card)
+        del model, params, held, batch, step_fn
+        _fresh(device)
+
+        # a decode step as lm_phase runs it: the weights cast (as
+        # jitted_serve_step does), then one step on the prefilled cache
+        model = steps.build_model(cfg, device, gen, remat=False)
+        B, P, G = spec["serve_batch"], spec["prompt"], spec["gen"]
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(spec["seed"])).to(device)
+        logits, cache = model.prefill(prompts, cache_len=P + G, params=model.cast_params())
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        del logits
+        decode = steps.make_decode_step(model)
+        pos = cache["len"]
+
+        def decode_step():
+            cache["len"] = pos  # each repeat decodes the same position
+            decode(model.cast_params(), tok, cache)
+
+        def decode_census():
+            with ha.Census() as census:
+                cache["len"] = pos
+                with ha.section("weights"):
+                    weights = model.cast_params()
+                decode(weights, tok, cache)
+            return census
+
+        decode_step()
+        figures["decode"] = census_against_card(
+            f"{spec['arch']} decode step ({B} rows at position {P}, the weights cast)", decode_step,
+            decode_census, spec, card)
+        del model, cache, prompts, tok, decode
+        _fresh(device)
+        figures["cells"] = dryrun_cells(spec, procs, t0, card)
+    finally:
+        for p in procs:  # a phase that failed leaves no cell running
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    launched = ops.kernel_call_counts()
+    require(not any(launched.values()), f"the dry run launched a hand kernel: {launched}")
+    figures["seconds"] = time.time() - t0
+    return {"figures": figures, "launches": dict(launched, by_k={})}
+
+
 def width_rows(ops, ref, probe, ks, n: int) -> list:
     """``fused_apply`` rows at widths ``ks`` that no plan launched (the
     profile's k on bits 0..k-1 of one shard of 2^n): against the plain
@@ -4501,6 +4731,15 @@ def main() -> None:
     paths["lm_sharded"] = sharded["launches"]
     log("  LM sharding figures: " + json.dumps(sharded["figures"]))
     log(f"  the LM sharding phase took {time.time() - t_shard:.1f}s")
+    t_dry = time.time()
+    log("== LM dry run: " + ", ".join(" x ".join(c) for c in DRYRUN["cells"]) + " through "
+        "repro_torch.launch.dryrun with no card visible; the census of a full-width {arch} train "
+        "step and decode step against the card".format(**DRYRUN))
+    ops.reset_kernel_counters()
+    dry = dryrun_phase(ops, card)
+    paths["lm_dryrun"] = dry["launches"]
+    log("  dry-run figures: " + json.dumps(dry["figures"]))
+    log(f"  the LM dry-run phase took {time.time() - t_dry:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

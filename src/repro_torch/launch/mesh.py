@@ -32,7 +32,7 @@ class MeshSizeError(ValueError):
     """The process group's world size is not the mesh's size."""
 
 
-def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device: DeviceLike) -> DeviceMesh:
+def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device_type: str) -> DeviceMesh:
     if not (dist.is_available() and dist.is_initialized()):
         raise MeshSizeError(
             f"a {'x'.join(map(str, shape))} mesh {names} needs a process group of "
@@ -44,11 +44,16 @@ def _mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device: DeviceLike) ->
             f"a {'x'.join(map(str, shape))} mesh {names} needs {_size(shape)} ranks, and the "
             f"world has {world}: launch {_size(shape)} (torchrun --nproc-per-node "
             f"{_size(shape)}), or choose axis sizes whose product is {world}")
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape), mesh_dim_names=names)
+
+
+def _device_type(device: DeviceLike) -> str:
+    """The mesh's device type: the caller's, else cuda when a card is
+    present. A dry run's fake group passes ``"cpu"``, so it never starts
+    CUDA."""
     if device is None:
-        dev_type = "cuda" if torch.cuda.is_available() else "cpu"
-    else:
-        dev_type = torch.device(device).type
-    return DeviceMesh(dev_type, torch.arange(world).reshape(shape), mesh_dim_names=names)
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device).type
 
 
 def _size(shape: Sequence[int]) -> int:
@@ -60,10 +65,11 @@ def _size(shape: Sequence[int]) -> int:
 
 def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None) -> DeviceMesh:
     """The reference's production mesh: 16x16 ``(data, model)``, or
-    2x16x16 ``(pod, data, model)``; only in a world of 256 (512) ranks."""
+    2x16x16 ``(pod, data, model)``; only in a world of 256 (512) ranks.
+    ``device``: the ranks' device type, as in :func:`make_host_mesh`."""
     if multi_pod:
-        return _mesh(MULTI_POD_SHAPE, ("pod", "data", "model"), device)
-    return _mesh(PRODUCTION_SHAPE, ("data", "model"), device)
+        return _mesh(MULTI_POD_SHAPE, ("pod", "data", "model"), _device_type(device))
+    return _mesh(PRODUCTION_SHAPE, ("data", "model"), _device_type(device))
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1,
@@ -72,8 +78,8 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1,
     the joined group's ranks; ``device``: the ranks' device type (cuda when
     a card is present, else cpu)."""
     if pod > 1:
-        return _mesh((pod, data, model), ("pod", "data", "model"), device)
-    return _mesh((data, model), ("data", "model"), device)
+        return _mesh((pod, data, model), ("pod", "data", "model"), _device_type(device))
+    return _mesh((data, model), ("data", "model"), _device_type(device))
 
 
 def join_lm_mesh(ap, arch: str, data_par: int, model_par: int, dist_backend: Optional[str],

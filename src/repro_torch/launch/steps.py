@@ -5,9 +5,15 @@ The reference jits its steps with production shardings over a mesh; here a
 step is a plain function on the port's :class:`Model`, its backward
 autograd's. On a mesh (a ``DeviceMesh`` from ``launch/mesh.py``) the model's
 parameters are DTensors with the reference's placements, and the steps take
-and give global batches (``models/parallel.py``). The reference's dry-run
-tooling (``abstract_state``, ``jitted_train_step``, ``jitted_serve_step``)
-has no twin yet (A14d of the port's roadmap).
+and give global batches (``models/parallel.py``).
+
+The dry run's builders (:func:`abstract_state`, :func:`jitted_train_step`,
+:func:`jitted_serve_step`) keep the reference's names, but nothing is
+jitted: each returns ``(fn, args)``, ``fn`` the plain step and ``args``
+``meta`` tensors (shapes and dtypes, no storage; DTensors with meta local
+shards on a mesh). Calling ``fn(*args)`` under
+:class:`~repro_torch.launch.hlo_analysis.Census` is the port's
+``lower(...).compile()``.
 """
 
 from __future__ import annotations
@@ -17,11 +23,12 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig, input_specs
 from ..device import DeviceLike
 from ..models.sharding import data_axes_for  # noqa: F401 (the reference's steps.data_axes_for)
 from ..models.transformer import Model
 from ..optim import adamw
+from .hlo_analysis import section
 
 
 def pad_heads_for_tp(cfg: ArchConfig, tp: int) -> ArchConfig:
@@ -128,3 +135,78 @@ def make_decode_step(model: Model):
         return next_tok, cache
 
     return decode_step
+
+
+# ------------------------------------------------------------------ dry-run
+
+
+def _on_meta(model: Model) -> Model:
+    """``model`` where it lives on ``meta``, else a twin there with the same
+    config, remat and mesh (nothing allocated)."""
+    if model.device.type == "meta":
+        return model
+    return Model(model.cfg, device="meta", remat=model.remat, mesh=model.mesh)
+
+
+def _check_mesh(model: Model, mesh, multi_pod: bool) -> None:
+    if mesh is not model.mesh:
+        raise ValueError("the model is not on this mesh: build it with build_model(..., mesh=mesh)")
+    if mesh is not None and multi_pod != ("pod" in mesh.mesh_dim_names):
+        raise ValueError(f"multi_pod={multi_pod} on a mesh with axes {mesh.mesh_dim_names}")
+
+
+def abstract_state(model: Model, opt_cfg: Optional[adamw.AdamWConfig] = None):
+    """The parameters by name as ``meta`` tensors (those of ``model`` on
+    ``meta``, else of a twin there: :func:`build_model` with
+    ``device="meta"``), and with ``opt_cfg`` the AdamW state of them; on a
+    mesh, DTensors with the reference's placements. Nothing is allocated."""
+    params = dict(_on_meta(model).named_parameters())
+    return params, (adamw.init(opt_cfg, params) if opt_cfg is not None else None)
+
+
+def jitted_train_step(
+    model: Model, opt_cfg: adamw.AdamWConfig, mesh, shape: ShapeConfig, multi_pod: bool,
+    microbatches: int = 1,
+):
+    """Returns ``(train_step, (params, opt_state, batch))`` on ``meta``: the
+    parameters and moments (updated in place, as the reference donates
+    them) and ``input_specs`` at the global batch. No jit: call it under a
+    census."""
+    _check_mesh(model, mesh, multi_pod)
+    model = _on_meta(model)
+    params, opt_state = abstract_state(model, opt_cfg)
+    batch = dict(input_specs(model.cfg, shape))
+    return make_train_step(model, opt_cfg, microbatches), (params, opt_state, batch)
+
+
+def jitted_serve_step(model: Model, mesh, shape: ShapeConfig, multi_pod: bool):
+    """Prefill (``shape.kind == "prefill"``) or one decode step (``"decode"``)
+    on ``meta``, as ``launch/serve_llm.py`` runs them: ``fn`` casts the
+    parameters once (``Model.cast_params``, counted under the census section
+    ``"weights"``), then steps. Prefill's ``args`` are ``(params, batch)``;
+    decode's ``(params, tokens [B, 1], cache[, extras])`` with the cache of
+    ``shape.seq_len`` made for the data shard's rows where the data axes
+    divide the batch (else the whole batch), as ``cache_shardings`` says."""
+    _check_mesh(model, mesh, multi_pod)
+    model = _on_meta(model)
+    params, _ = abstract_state(model)
+    batch = dict(input_specs(model.cfg, shape))
+
+    def weights(p):
+        with section("weights"):
+            return model.cast_params(p)
+
+    if shape.kind == "prefill":
+        prefill = make_prefill_step(model)
+        return (lambda p, b: prefill(weights(p), b)), (params, batch)
+
+    tokens = batch["tokens"]
+    rows = tokens.shape[0] if model.par is None else model.par.rows(tokens).shape[0]
+    cache = model.init_cache(rows, shape.seq_len)
+    extras = {k: v for k, v in batch.items() if k in ("frames", "patches")}
+    decode = make_decode_step(model)
+
+    def fn(p, t, c, e=None):
+        return decode(weights(p), t, c, e)
+
+    return fn, (params, tokens, cache) + ((extras,) if extras else ())

@@ -384,12 +384,13 @@ class Model(nn.Module):
         return _tree_of(self, named)
 
     @torch.no_grad()
-    def cast_params(self) -> Dict:
+    def cast_params(self, named: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
         """The tree as a forward sees it after the cast rule: computed once
         for serving, the same bits a forward casts to. On a mesh, each
         weight made whole once (the model axis's shards of a tensor- or
-        expert-parallel layer stay this rank's)."""
-        return full(_cast_params(self._local(self.tree()), self.compute_dtype))
+        expert-parallel layer stay this rank's). ``named``: tensors to cast
+        in place of the parameters, by name (as :meth:`tree`)."""
+        return full(_cast_params(self._local(self.tree(named)), self.compute_dtype))
 
     # ------------------------------------------------------------- caches
     def init_cache(self, batch: int, cache_len: int) -> Dict:

@@ -46,6 +46,7 @@ def test_no_jax_in_the_port_process():
         "import repro_torch.launch.simulate as s\n"
         "import repro_torch.sim.profiler, repro_torch.core.autotune\n"
         "import repro_torch.launch.train, repro_torch.train.compression\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
         "s.main(['--circuit', 'ghz', '--n', '6', '--L', '4', '--R', '2', '--shots', '8',"
         " '--check', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -68,6 +69,8 @@ def _imports(path: Path):
 
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    launch = ROOT / "src" / "repro_torch" / "launch"
+    assert {launch / "dryrun.py", launch / "hlo_analysis.py", launch / "steps.py"} <= set(files)
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "repro", "ml_dtypes"), \

@@ -176,17 +176,23 @@ to two, and LM serving's generation from 32 tokens to 16.)
 
 Then LM sharding (``models/sharding.py``, ``models/parallel.py``,
 ``launch/mesh.py``; plain PyTorch, neither hand kernel may launch on any
-rank): qwen2-1.5b at full width on 4 gloo ranks of the card as data 2 x
-model 2, one ``torchrun`` of ``chip_smoke.py --lm-shard-check``: which
-collectives gloo runs on CUDA tensors; in bf16 at full depth,
-``serve_llm.main`` (4 prompts of 128, 8 generated) and ``train.main`` (2
-steps of 8 x 128, remat) with ``--data-par 2 --model-par 2 --dist-backend
-gloo`` in the ranks' own processes: decode ms a step, step ms, collective
-bytes per rank, every rank's peak; then the float32 checks at two layers of
-full width against rank 0's one-card run of the same weights: prefill and
-3 decode steps' logits (teacher-forced on the one-card greedy tokens)
-within twice the one-card logits' one-ulp floor, one train step's loss and
-grad norm (rtol 1e-5) and parameters (0.5 lr). (To make room for it, the
+rank; attention, MLA, Mamba-2's heads, the MLPs and the vocabulary tensor
+parallel over the model axis): qwen2-1.5b at full width on 4 gloo ranks of
+the card as data 2 x model 2, one ``torchrun`` of ``chip_smoke.py
+--lm-shard-check``: which collectives gloo runs on CUDA tensors; in bf16 at
+full depth, ``serve_llm.run`` (4 prompts of 128, 8 generated) and
+``train.run`` (2 steps of 8 x 128, remat) with ``--data-par 2 --model-par 2
+--dist-backend gloo`` in the ranks' own processes: decode ms a step, step
+ms, collective bytes per rank (every rank's equal to the census of the same
+steps on a fake 2 x 2 group, computed beside it with no card visible),
+every rank's peak; then the float32 checks of qwen2-1.5b, mamba2-1.3b and
+deepseek-v2-lite-16b at two layers of full width against rank 0's one-card
+run of the same weights (deepseek's a data shard at a time: a MoE's
+capacity is per shard): prefill and 3 decode steps' logits (teacher-forced
+on the one-card greedy tokens) within twice the one-card floor (one ulp of
+the embedding, or each row run alone), one train step's gradients (each
+leaf within 1e-4 of its largest), loss and grad norm (rtol 1e-5) and
+parameters (0.5 lr where the gradient's sign is held), each arch's model-axis-local leaves and collectives by kind. (To make room for it, the
 store and checkpoint runs were cut by two qubits each, the shardmap
 gradients from n=29 to 28, and ``--autotune`` from ``ising(28)`` to
 ``ising(27)``.)
@@ -3915,29 +3921,42 @@ def train_phase(ops, card: str, device: str = "cuda", spec: dict = TRAIN) -> dic
     return {"figures": figures, "launches": dict(launched, by_k={})}
 
 
-# LM sharding (A14c: models/sharding.py, models/parallel.py, launch/mesh.py,
-# MoE's exchange, serve_llm/train with --data-par/--model-par under torchrun):
-# qwen2-1.5b at full width on `ranks` gloo ranks of the one card as data x
-# model (NCCL takes one rank per card), one torchrun whose ranks first probe
-# which collectives gloo runs on CUDA tensors (each in turn: gloo aborts the
-# process on CUDA send/recv; the path uses all-gather, all-reduce and
-# reduce-scatter), then call the two CLIs' main in process, bf16 at full
+# LM sharding (A14c, A14e: models/sharding.py, models/parallel.py,
+# launch/mesh.py, MoE's exchange, attention, MLA, Mamba-2 and the vocabulary
+# tensor parallel over the model axis, serve_llm/train with
+# --data-par/--model-par under torchrun): qwen2-1.5b at full width on
+# `ranks` gloo ranks of the one card as data x model (NCCL takes one rank
+# per card), one torchrun whose ranks first probe which collectives gloo
+# runs on CUDA tensors (each in turn: gloo aborts the process on CUDA
+# send/recv; the path uses all-gather, all-reduce with SUM and MAX, and
+# reduce-scatter), then call the two CLIs' run in process, bf16 at full
 # depth: serve_llm (4 prompts of 128, `gen` generated: decode ms a step) and
 # train (`train_steps` steps of 8 x 128, remat: step ms, the second step's),
-# each with its collective bytes per rank and every rank's peak. Then the
-# float32 checks, the model cut to `check_layers` layers at full width (TF32
-# off), ranks against rank 0's one-card run of the same weights: prefill
-# logits and `check_gen` - 1 teacher-forced decode steps on the one-card
-# run's greedy tokens within twice the one-card float32 floor (the move
-# under a one-ulp embedding); one train step's loss (rtol 1e-5), grad norm
-# (rtol 1e-5) and parameters (0.5 lr). The path reaches no pallas_call: no
-# hand kernel may launch, on any rank.
+# each with its collective bytes per rank and every rank's peak; every
+# rank's bytes (the cast, the prefill, a decode step, each train step) must
+# equal the census of the same steps on a fake group of the same mesh
+# (`--lm-shard-census`, run beside the torchrun with no card visible). Then
+# the float32 checks of each of `check_archs` (dense GQA; Mamba-2's heads;
+# MLA and MoE), the model cut to `check_layers` layers at full width (TF32
+# off), ranks against rank 0's one-card run of the same weights (a MoE's a
+# data shard at a time): prefill logits and `check_gen` - 1 teacher-forced
+# decode steps on the one-card run's greedy tokens within twice the
+# one-card float32 floor (the larger of the move under a one-ulp embedding
+# and of each row run alone: the card's own rounding on other GEMM shapes,
+# which a mesh also changes); one train step's loss (rtol 1e-5), grad norm
+# (rtol 1e-5), every leaf's gradient (within 1e-4 of its largest one-card
+# entry) and the parameters (0.5 lr, where the one-card gradient exceeds
+# twice its leaf's largest difference, so the signs agree: AdamW's first
+# step makes a whole step of lr of a gradient's sign);
+# each arch's model-axis-local leaves and collectives by kind printed. The
+# path reaches no pallas_call: no hand kernel may launch, on any rank.
 LM_SHARD = {"arch": "qwen2-1.5b", "ranks": 4, "data": 2, "model": 2, "batch": 4, "prompt": 128,
             "gen": 8, "train_batch": 8, "seq": 128, "train_steps": 2, "lr": 1e-3, "seed": 0,
+            "check_archs": ("qwen2-1.5b", "mamba2-1.3b", "deepseek-v2-lite-16b"),
             "check_layers": 2, "check_gen": 4, "check_lr": 2e-3, "timeout": 600,
             "device": "cuda", "reduced": False}
-GLOO_PROBE = ("all_gather", "all_reduce", "broadcast", "all_gather_into_tensor",
-              "reduce_scatter_tensor", "all_to_all_single")
+GLOO_PROBE = ("all_gather", "all_reduce", "all_reduce_max", "broadcast",
+              "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single")
 
 
 def probe_collectives(device: str) -> dict:
@@ -3960,6 +3979,10 @@ def probe_collectives(device: str) -> dict:
                 y = x.clone()
                 dist.all_reduce(y)
                 ok = float(y[0]) == total
+            elif name == "all_reduce_max":
+                y = x.clone()
+                dist.all_reduce(y, op=dist.ReduceOp.MAX)
+                ok = float(y[0]) == world
             elif name == "broadcast":
                 y = x.clone()
                 dist.broadcast(y, 0)
@@ -3999,49 +4022,82 @@ def lm_shard_argv(spec: dict, cli: str) -> list:
 
 def lm_shard_check_rank(spec_path: str) -> None:
     """Under torchrun, each rank of ``lm_shard_phase`` (see LM_SHARD): the
-    gloo probe; ``serve_llm.main`` and ``train.main`` in bf16 at full
-    depth, in this process (they join its group), rank 0 keeping what they
-    print; then the float32 checks: rank 0 runs the one-card model first
-    (the others wait), then every rank the sharded one. Rank 0 writes the
-    figures to ``spec["out"]``."""
+    gloo probe; ``serve_llm.run`` and ``train.run`` in bf16 at full depth,
+    in this process (they join its group), rank 0 keeping what they print,
+    every rank its collective bytes; then the float32 checks of each of
+    ``spec["check_archs"]`` (:func:`lm_shard_check_arch`). Rank 0 writes
+    the figures to ``spec["out"]``."""
     import contextlib
-    import dataclasses
     import io
 
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
     from repro_torch.kernels import ops
     from repro_torch.launch import dist as launch_dist
     from repro_torch.launch import serve_llm, train
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import build_model, make_train_step
-    from repro_torch.models.parallel import collective_bytes, gather_full, reset_collectives
-    from repro_torch.optim import adamw
 
     with open(spec_path) as f:
         spec = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
     ops.reset_kernel_counters()
     ctx = launch_dist.join("gloo", spec["device"])
-    dev = ctx.device
     gloo = probe_collectives(spec["device"])
-    clis = {}
+    clis, moved = {}, {}
     for name, cli in (("serve", serve_llm), ("train", train)):
         _fresh(spec["device"])
         printed = io.StringIO()
         t0 = time.time()
         with contextlib.redirect_stdout(printed):
-            cli.main(lm_shard_argv(spec, name))
+            done = cli.run(lm_shard_argv(spec, name))
         clis[name] = {"printed": printed.getvalue(), "seconds": time.time() - t0}
+        moved[name] = done.collective_bytes
+        del done
     _fresh(spec["device"])
     mesh = make_host_mesh(data=spec["data"], model=spec["model"], device=spec["device"])
-    cfg = get_arch(spec["arch"])
+    archs = {arch: lm_shard_check_arch(spec, arch, ctx, mesh) for arch in spec["check_archs"]}
+    gathered = [None] * ctx.world
+    dist.all_gather_object(gathered, {"archs": {a: {k: v for k, v in f.items() if k in (
+        "loss", "serve_moved", "train_moved")} for a, f in archs.items()},
+        "cli_moved": moved, "launches": ops.kernel_call_counts(),
+        "peak": _peak(spec["device"])})
+    if ctx.rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump({"clis": clis, "gloo": gloo, "archs": archs, "ranks": gathered,
+                       "lr": spec["check_lr"]}, f)
+    ctx.close()
+
+
+def lm_shard_check_arch(spec: dict, arch: str, ctx, mesh) -> dict:
+    """One arch's float32 check in ``lm_shard_check_rank``: the model cut to
+    ``spec["check_layers"]`` layers at full width (TF32 off); rank 0 runs
+    it on one card first (the others wait), then every rank on the mesh.
+    A MoE's capacity and aux loss are per data shard (as the reference's),
+    so its one-card run takes each data shard's rows alone: serving a shard
+    at a time, training a microbatch a shard. Returns rank 0's figures
+    (logit errors against the one-ulp floor; the step's gradients, loss,
+    grad norm and parameters against one card) and every rank's: the leaves
+    that stay
+    local on the model axis, and ``COLLECTIVES`` by kind for serving (the
+    cast, prefill and decode) and for the train step."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from repro_torch.launch.steps import build_model, make_train_step
+    from repro_torch.models.parallel import COLLECTIVES, gather_full, reset_collectives
+    from repro_torch.optim import adamw
+
+    dev = ctx.device
+    cfg = get_arch(arch)
     cfg = dataclasses.replace(cfg.reduced() if spec["reduced"] else cfg, dtype="float32",
                               n_layers=spec["check_layers"])
     B, P, G, seed = spec["batch"], spec["prompt"], spec["check_gen"], spec["seed"]
+    shards = spec["data"] if cfg.is_moe else 1
+    rows = [slice(i * B // shards, (i + 1) * B // shards) for i in range(shards)]
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.Generator().manual_seed(
         seed), dtype=torch.int32).to(dev)
     opt = adamw.AdamWConfig(lr=spec["check_lr"], warmup_steps=0, moment_dtype="float32")
@@ -4051,36 +4107,65 @@ def lm_shard_check_rank(spec_path: str) -> None:
     def weights():
         return torch.Generator(device=dev).manual_seed(seed)
 
+    def by_kind():
+        return {k: list(v) for k, v in COLLECTIVES.items()}
+
+    def grads(model, parts):
+        """Each parameter's gradient of the loss: the mean over ``parts``
+        (each data shard's rows on one card; the global batch on the mesh)."""
+        pp = dict(model.named_parameters())
+        acc = None
+        for r in parts:
+            loss, _ = model.loss({k: v[r] for k, v in batch.items()})
+            g = torch.autograd.grad(loss, list(pp.values()), allow_unused=True,
+                                    materialize_grads=True)
+            acc = list(g) if acc is None else [a + b for a, b in zip(acc, g)]
+            del loss, g
+        return {k: a / len(parts) for k, a in zip(pp, acc)}
+
     out = {}
     ref = {}
     if ctx.rank == 0:
         one = build_model(cfg, dev, weights(), remat=False)
         params = one.cast_params()
-        logits, cache = one.prefill(prompts, cache_len=P + G, params=params)
         with torch.no_grad():
             emb = params["embed"]
             sign = torch.randint(0, 2, emb.shape, generator=weights(), device=dev,
                                  dtype=torch.int8)
             moved = dict(params, embed=emb * (1 + (2 * sign - 1) * 2.0**-24))
-            base = one.forward(prompts, params=params)[0][:, -1]
-            pert = one.forward(prompts, params=moved)[0][:, -1]
-        out["floor"] = float((pert - base).abs().max())
-        del sign, moved, pert, base
-        steps_l = [logits]
-        toks = [torch.argmax(logits, -1)[:, None]]
-        for _ in range(G - 1):
-            logits, cache = one.decode_step(toks[-1], cache, params=params)
-            steps_l.append(logits)
-            toks.append(torch.argmax(logits, -1)[:, None])
-        ref["logits"], ref["tokens"] = steps_l, torch.cat(toks, 1)
-        del one, params, cache
+            base = torch.cat([one.forward(prompts[r], params=params)[0][:, -1] for r in rows])
+            pert = torch.cat([one.forward(prompts[r], params=moved)[0][:, -1] for r in rows])
+            # the card's own rounding on other GEMM shapes: each row alone (a
+            # MoE's rows keep their shards: its capacity is per batch)
+            alone = torch.cat([one.forward(prompts[i:i + 1], params=params)[0][:, -1]
+                               for i in range(B)]) if shards == 1 else base
+        out["ulp_floor"] = float((pert - base).abs().max())
+        out["row_floor"] = float((alone - base).abs().max())
+        out["floor"] = max(out["ulp_floor"], out["row_floor"])
+        del moved, pert, base, alone
+        steps_l, toks = [], []
+        for r in rows:  # each data shard's rows alone (one shard off a MoE)
+            logits, cache = one.prefill(prompts[r], cache_len=P + G, params=params)
+            got, tok = [logits], [torch.argmax(logits, -1)[:, None]]
+            for _ in range(G - 1):
+                logits, cache = one.decode_step(tok[-1], cache, params=params)
+                got.append(logits)
+                tok.append(torch.argmax(logits, -1)[:, None])
+            steps_l.append(got)
+            toks.append(torch.cat(tok, 1))
+            del cache
+        ref["logits"] = [torch.cat(s) for s in zip(*steps_l)]
+        ref["tokens"] = torch.cat(toks)
+        del one, params
         _fresh(spec["device"])
+        # the gradients, then the step (a microbatch a data shard)
         one = build_model(cfg, dev, weights())
+        ref["grads"] = {k: g.detach() for k, g in grads(one, rows).items()}
         pp = dict(one.named_parameters())
-        pp, _, m = make_train_step(one, opt)(pp, adamw.init(opt, pp), batch)
+        pp, _, m = make_train_step(one, opt, microbatches=shards)(pp, adamw.init(opt, pp), batch)
         ref["loss"], ref["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
         ref["params"] = {k: v.detach() for k, v in pp.items()}
-        del one, pp, m
+        del one, pp, m, sign
         _fresh(spec["device"])
         held = [ref["tokens"].cpu()]
     else:
@@ -4089,44 +4174,113 @@ def lm_shard_check_rank(spec_path: str) -> None:
     tokens = held[0].to(dev)
 
     sharded = build_model(cfg, dev, weights(), remat=False, mesh=mesh)
+    out["local"] = sorted(k for k, _ in sharded.named_parameters()
+                          if sharded.par.local_on_model(k))
+    reset_collectives()
     params = sharded.cast_params()
+    out["serve_moved"] = {"weights": by_kind()}
     reset_collectives()
     logits, cache = sharded.prefill(prompts, cache_len=P + G, params=params)
+    out["serve_moved"]["prefill"] = by_kind()
     got = [logits]
+    reset_collectives()
     for i in range(G - 1):
         logits, cache = sharded.decode_step(tokens[:, i:i + 1], cache, params=params)
         got.append(logits)
-    out["serve_collective_bytes"] = collective_bytes()
+    out["serve_moved"]["decode"] = by_kind()
     if ctx.rank == 0:
-        scale = float(ref["logits"][0].abs().max())
-        out["scale"] = scale
+        out["scale"] = float(ref["logits"][0].abs().max())
         out["serve_err"] = [float((a - b).abs().max()) for a, b in zip(got, ref["logits"])]
     del sharded, params, cache, got
     _fresh(spec["device"])
 
     sharded = build_model(cfg, dev, weights(), mesh=mesh)
+    # each leaf's gradient within 1e-4 of its largest one-card entry; the
+    # step's parameters within 0.5 lr where the one-card gradient is above
+    # twice the leaf's largest difference (the mesh's sign is then its), as
+    # AdamW's first step turns a gradient's sign into a whole step of lr
+    grad_err, held, total = 0.0, 0, 0
+    keep = {}
+    for k, g in grads(sharded, [slice(None)]).items():
+        whole = gather_full(g)
+        if ctx.rank == 0:
+            want = ref["grads"].pop(k)
+            scale = max(float(want.abs().max()), 1e-30)
+            diff = float((whole - want).abs().max())
+            grad_err = max(grad_err, diff / scale)
+            keep[k] = want.abs() > 2 * diff
+            held, total = held + int(keep[k].sum()), total + keep[k].numel()
+            del want
+        del whole, g
     pp = dict(sharded.named_parameters())
     reset_collectives()
     pp, _, m = make_train_step(sharded, opt)(pp, adamw.init(opt, pp), batch)
-    out["train_collective_bytes"] = collective_bytes()
-    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    out["train_moved"] = by_kind()
+    out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
     worst = 0.0
     for k, p in pp.items():
         whole = gather_full(p)
         if ctx.rank == 0:
-            worst = max(worst, float((whole - ref["params"][k]).abs().max()))
+            d = (whole - ref["params"][k]).abs()[keep.pop(k)]
+            worst = max([worst] + ([float(d.max())] if d.numel() else []))
+            del d
         del whole
-    gathered = [None] * ctx.world
-    dist.all_gather_object(gathered, {"loss": loss, "grad_norm": gnorm,
-                                      "launches": ops.kernel_call_counts(),
-                                      "peak": _peak(spec["device"])})
     if ctx.rank == 0:
-        out.update(clis=clis, gloo=gloo, loss=loss, grad_norm=gnorm, ref_loss=ref["loss"],
-                   ref_grad_norm=ref["grad_norm"], param_err=worst, ranks=gathered,
-                   lr=spec["check_lr"])
-        with open(spec["out"], "w") as f:
-            json.dump(out, f)
-    ctx.close()
+        out.update(ref_loss=ref["loss"], ref_grad_norm=ref["grad_norm"], param_err=worst,
+                   grad_err=grad_err, param_held=[held, total], shards=shards)
+    del sharded, pp, m, ref
+    _fresh(spec["device"])
+    return out
+
+
+def lm_shard_census(out_path: str) -> None:
+    """``chip_smoke.py --lm-shard-census OUT``, with no card visible: the
+    census (``launch/hlo_analysis.Census``, on ``meta`` tensors over a fake
+    group of 4 ranks as data 2 x model 2) of the steps ``lm_shard_phase``'s
+    bf16 CLIs run: a train step (``train_batch`` x ``seq``, remat, one
+    microbatch) and serving (the weights' cast, the prefill, a decode step
+    of the ``gen - 1``): each one's collective bytes a rank."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun, hlo_analysis as ha
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import abstract_state, build_model, make_decode_step, \
+        make_train_step
+    from repro_torch.optim import adamw
+
+    spec = LM_SHARD
+    torch.set_num_threads(1)
+    cfg = get_arch(spec["arch"])
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    out = {}
+    with dryrun.fake_group(spec["ranks"]):
+        mesh = make_host_mesh(data=spec["data"], model=spec["model"], device="cpu")
+        model = build_model(cfg, "meta", mesh=mesh)
+        params, opt_state = abstract_state(model, adamw.AdamWConfig())
+        batch = {k: meta(spec["train_batch"], spec["seq"]) for k in ("tokens", "labels")}
+        with ha.Census() as c:
+            make_train_step(model, adamw.AdamWConfig())(params, opt_state, batch)
+        out["train"] = c.step.moved
+        del model, params, opt_state
+        model = build_model(cfg, "meta", remat=False, mesh=mesh)
+        B, P, G = spec["batch"], spec["prompt"], spec["gen"]
+        with ha.Census() as c:
+            with ha.section("weights"):
+                weights = model.cast_params()
+            with ha.section("prefill"):
+                logits, cache = model.prefill(meta(B, P), cache_len=P + G, params=weights)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            step = make_decode_step(model)
+            with ha.section("decode"):
+                for _ in range(G - 1):
+                    tok, cache = step(weights, tok, cache)
+        out["serve"] = {"weights": c["weights"].moved, "prefill": c["prefill"].moved,
+                        "decode": c["decode"].moved // (G - 1)}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
 
 
 def _printed_peaks(out: str, device: str) -> list:
@@ -4141,29 +4295,47 @@ def _printed_peaks(out: str, device: str) -> list:
 
 
 def lm_shard_phase(ops, card: str, spec: dict = LM_SHARD) -> dict:
-    """See ``LM_SHARD``: one ``torchrun`` of ``lm_shard_check_rank``.
+    """See ``LM_SHARD``: one ``torchrun`` of ``lm_shard_check_rank``, beside
+    ``chip_smoke.py --lm-shard-census`` in a process with no card visible.
     ``spec=dict(LM_SHARD, device="cpu", reduced=True)`` dry-runs it on the
-    host."""
+    host (its census is the full-width one: the phase then holds the
+    ranks' bytes against it only on the card)."""
     import re
+    import signal
     import statistics
 
     world = spec["ranks"]
     os.makedirs(RESULTS_DIR, exist_ok=True)
     spec_path = os.path.join(RESULTS_DIR, f"lm-shard-{os.getpid()}.json")
     res_path = os.path.join(RESULTS_DIR, f"lm-shard-{os.getpid()}-out.json")
+    census_path = os.path.join(RESULTS_DIR, f"lm-shard-{os.getpid()}-census.json")
     with open(spec_path, "w") as f:
         json.dump(dict(spec, out=res_path), f)
-    _, seconds = torchrun_launch(world, [os.path.join(HERE, "chip_smoke.py"),
-                                         "--lm-shard-check", spec_path], spec["timeout"])
+    census = subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--lm-shard-census", census_path], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    try:
+        _, seconds = torchrun_launch(world, [os.path.join(HERE, "chip_smoke.py"),
+                                             "--lm-shard-check", spec_path], spec["timeout"])
+        _, err = census.communicate(timeout=spec["timeout"])
+    finally:
+        if census.poll() is None:
+            os.killpg(census.pid, signal.SIGKILL)
+            census.communicate()
+    require(census.returncode == 0, f"the census of the sharded steps failed:\n{err[-3000:]}")
     with open(res_path) as f:
         chk = json.load(f)
-    os.remove(spec_path)
-    os.remove(res_path)
+    with open(census_path) as f:
+        counted = json.load(f)
+    for path in (spec_path, res_path, census_path):
+        os.remove(path)
     clis = chk.pop("clis")
-    figures = {"seconds": seconds}
+    figures = {"seconds": seconds, "census": counted}
     log(f"  gloo on {spec['device']} tensors, {world} ranks: "
         + ", ".join(f"{k} {v}" for k, v in chk["gloo"].items()))
-    for name in ("all_gather", "all_reduce", "reduce_scatter_tensor"):
+    for name in ("all_gather", "all_reduce", "all_reduce_max", "reduce_scatter_tensor"):
         require(chk["gloo"][name] == "works", f"gloo's {name}: {chk['gloo'][name]} (the sharded "
                 "LM path uses it)")
 
@@ -4210,26 +4382,59 @@ def lm_shard_phase(ops, card: str, spec: dict = LM_SHARD) -> dict:
         f"{ms[0]:.0f} ms), {figures['train']['tok_s']:.0f} tok/s; losses {losses}; collective "
         f"bytes per rank a step {moved}; peaks {peaks} bytes; {took:.1f}s in main ({card})")
 
+    # every rank's bytes against the census of the same steps on a fake group
+    log(f"  the census of the same steps on a fake {spec['data']} x {spec['model']} group (meta "
+        f"tensors, no card): a train step {counted['train']}, serving {counted['serve']} bytes a "
+        f"rank")
+    full_width = not spec["reduced"]
+    for r, rank in enumerate(chk["ranks"]):
+        got = {"train": rank["cli_moved"]["train"], "serve": rank["cli_moved"]["serve"]}
+        require(len(set(got["train"])) == 1, f"rank {r}'s train steps moved {got['train']}")
+        require(not full_width or (got["train"][0] == counted["train"]
+                                   and got["serve"] == counted["serve"]),
+                f"rank {r} moved {got}, the census counts {counted}")
+
     # float32 at full width, cut depth: ranks against rank 0's one-card run
-    bound = 2 * chk["floor"]
-    figures["float32"] = dict(chk, bound=bound)
-    log(f"  float32, {spec['check_layers']} layers at full width, {world} ranks against rank 0's "
-        f"one-card run: prefill and {spec['check_gen'] - 1} decode steps max |d| "
-        + ", ".join(f"{e:.2e}" for e in chk["serve_err"])
-        + f" on logits up to {chk['scale']:.3f} (bound {bound:.3e}: twice the one-ulp floor "
-        f"{chk['floor']:.3e}); train step loss "
-        f"{chk['loss']:.6f} against {chk['ref_loss']:.6f}, grad norm {chk['grad_norm']:.6f} "
-        f"against {chk['ref_grad_norm']:.6f}, parameters max |d| {chk['param_err']:.2e} "
-        f"({chk['param_err'] / chk['lr']:.3f} lr); collective bytes per rank: serving "
-        f"{chk['serve_collective_bytes']}, the step {chk['train_collective_bytes']}; "
-        f"{seconds:.1f}s launch to exit")
-    require(max(chk["serve_err"]) <= bound, "float32 on the mesh: logits differ from one card")
-    require(abs(chk["loss"] - chk["ref_loss"]) <= 1e-5 * abs(chk["ref_loss"]),
-            "float32 on the mesh: the step's loss differs from one card")
-    require(abs(chk["grad_norm"] - chk["ref_grad_norm"]) <= 1e-5 * chk["ref_grad_norm"],
-            "float32 on the mesh: the grad norm differs from one card")
-    require(chk["param_err"] <= 0.5 * chk["lr"], "float32 on the mesh: parameters differ")
-    require(all(r["loss"] == chk["loss"] for r in chk["ranks"]), "the ranks' losses differ")
+    figures["float32"] = {}
+    for arch, a in chk["archs"].items():
+        bound = 2 * a["floor"]
+        p_bound = 0.5 * chk["lr"]
+        figures["float32"][arch] = dict(a, bound=bound, param_bound=p_bound)
+        log(f"  {arch} float32, {spec['check_layers']} layers at full width: model-axis-local "
+            f"leaves {a['local']}")
+        log(f"  {arch} collectives a rank by kind [calls, bytes]: the cast "
+            f"{a['serve_moved']['weights']}, prefill {a['serve_moved']['prefill']}, "
+            f"{spec['check_gen'] - 1} decode steps {a['serve_moved']['decode']}, the train step "
+            f"{a['train_moved']}")
+        log(f"  {arch} float32, {world} ranks against rank 0's one-card run"
+            + (f" (a data shard at a time: {a['shards']} shards, the MoE's capacity and aux "
+               "per shard)" if a["shards"] > 1 else "")
+            + ": prefill and "
+            f"{spec['check_gen'] - 1} decode steps max |d| "
+            + ", ".join(f"{e:.2e}" for e in a["serve_err"])
+            + f" on logits up to {a['scale']:.3f} (bound {bound:.3e}: twice the one-card floor, "
+            f"the larger of one ulp of the embedding's move {a['ulp_floor']:.3e} and each row "
+            f"alone's {a['row_floor']:.3e}); gradients max |d| {a['grad_err']:.2e} of each "
+            f"leaf's largest (bound 1e-4); train step loss {a['loss']:.6f} against "
+            f"{a['ref_loss']:.6f}, grad norm {a['grad_norm']:.6f} against "
+            f"{a['ref_grad_norm']:.6f}, parameters max |d| {a['param_err']:.2e} "
+            f"({a['param_err'] / chk['lr']:.3f} lr; bound 0.5 lr) on the "
+            f"{a['param_held'][0]} of {a['param_held'][1]} entries whose one-card gradient "
+            f"exceeds twice its leaf's largest difference")
+        require(max(a["serve_err"]) <= bound, f"{arch} float32 on the mesh: logits differ from "
+                "one card")
+        require(abs(a["loss"] - a["ref_loss"]) <= 1e-5 * abs(a["ref_loss"]),
+                f"{arch} float32 on the mesh: the step's loss differs from one card")
+        require(abs(a["grad_norm"] - a["ref_grad_norm"]) <= 1e-5 * a["ref_grad_norm"],
+                f"{arch} float32 on the mesh: the grad norm differs from one card")
+        require(a["grad_err"] <= 1e-4, f"{arch} float32 on the mesh: gradients differ")
+        require(a["param_err"] <= p_bound, f"{arch} float32 on the mesh: parameters differ")
+        require(all(r["archs"][arch]["loss"] == a["loss"] for r in chk["ranks"]),
+                f"{arch}: the ranks' losses differ")
+        require(all(r["archs"][arch]["train_moved"] == a["train_moved"] for r in chk["ranks"]),
+                f"{arch}: the ranks' collectives differ")
+        require(a["local"], f"{arch}: no leaf stays local on the model axis")
+    log(f"  {seconds:.1f}s launch to exit")
     launched = {k: sum(r["launches"][k] for r in chk["ranks"]) for k in ("fused", "shm")}
     require(not any(launched.values()) and not any(ops.kernel_call_counts().values()),
             f"the sharded LM path launched a hand kernel: ranks {launched}, this process "
@@ -4724,8 +4929,9 @@ def main() -> None:
     log(f"  the LM training phase took {time.time() - t_train:.1f}s")
     t_shard = time.time()
     log("== LM sharding: {arch} at full width on {ranks} gloo ranks of the one card as data "
-        "{data} x model {model}: serve_llm and train under torchrun (bf16), then float32 at "
-        "{check_layers} layers against one card".format(**LM_SHARD))
+        "{data} x model {model}: serve_llm and train under torchrun (bf16), their collective "
+        "bytes against the census, then float32 at {check_layers} layers against one card: "
+        .format(**LM_SHARD) + ", ".join(LM_SHARD["check_archs"]))
     ops.reset_kernel_counters()
     sharded = lm_shard_phase(ops, card)
     paths["lm_sharded"] = sharded["launches"]
@@ -4770,5 +4976,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lm-shard-check"]:
         lm_shard_check_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--lm-shard-census"]:
+        lm_shard_census(sys.argv[2])
     else:
         main()

@@ -28,6 +28,8 @@ import argparse
 import contextlib
 import io
 import time
+from dataclasses import dataclass, field
+from typing import Dict
 
 import torch
 
@@ -43,9 +45,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@dataclass
+class ServeRun:
+    """What :func:`run` leaves: the generated tokens, [B, G] int32 (the
+    prefill's token and G - 1 decode steps; on a mesh, the whole batch on
+    every rank), and this rank's collective bytes (``weights``: the cast,
+    ``prefill``, ``decode``: a step's; empty off a mesh)."""
+
+    tokens: torch.Tensor
+    collective_bytes: Dict[str, int] = field(default_factory=dict)
+
+
 def main(argv=None) -> torch.Tensor:
-    """Returns the generated tokens, [B, G] int32 (the prefill's token and
-    G - 1 decode steps; on a mesh, the whole batch on every rank)."""
+    """Returns the generated tokens (:attr:`ServeRun.tokens`)."""
+    return run(argv).tokens
+
+
+def run(argv=None) -> ServeRun:
+    """Parse ``argv`` and serve; returns the :class:`ServeRun`."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -77,7 +94,7 @@ def main(argv=None) -> torch.Tensor:
             ctx.close()
 
 
-def _serve(args, ctx, mesh) -> torch.Tensor:
+def _serve(args, ctx, mesh) -> ServeRun:
     device = resolve_device(args.device) if ctx is None else ctx.device
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -119,7 +136,7 @@ def _serve(args, ctx, mesh) -> torch.Tensor:
         out.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t0
-    moved["decode"] = collective_bytes()
+    moved["decode"] = collective_bytes() // max(G - 1, 1)
     tokens = torch.cat(out, dim=1)
     print(f"prefill: {B}x{P} tokens in {t_prefill:.3f}s "
           f"({B*P/max(t_prefill, 1e-9):,.0f} tok/s)")
@@ -128,11 +145,12 @@ def _serve(args, ctx, mesh) -> torch.Tensor:
     print("sample generations (token ids):")
     for row in tokens[: min(B, 3)].cpu():
         print("  ", row[:16].tolist())
-    if mesh is not None:
-        print(f"collective bytes per rank: weights {moved['weights']}, prefill "
-              f"{moved['prefill']}, decode {moved['decode'] // max(G - 1, 1)} a step")
-        print_peaks(device)
-    return tokens
+    if mesh is None:
+        return ServeRun(tokens)
+    print(f"collective bytes per rank: weights {moved['weights']}, prefill "
+          f"{moved['prefill']}, decode {moved['decode']} a step")
+    print_peaks(device)
+    return ServeRun(tokens, moved)
 
 
 if __name__ == "__main__":

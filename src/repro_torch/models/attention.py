@@ -10,6 +10,15 @@ fused attention library call stands in for it.
 
 Caches are written in place (the reference's serving loop donates them):
 prefill writes its k/v at offset 0, a decode step at ``cache["len"]``.
+
+On a mesh (``par``, a :class:`~repro_torch.models.parallel.MeshPlan`)
+whose model axis divides the query heads, each rank computes its query
+heads and the kv heads they read (MLA: its heads of the up-projections)
+with its slice of the weights, and ``wo`` is row-parallel: one all-reduce
+sums the ranks' outputs. Caches stay whole over the model axis, as the
+reference places them: a step's new k/v heads are all-gathered before they
+are written, and each rank attends over its own heads of the cache; MLA's
+latent cache holds no heads and is computed alike on every rank.
 """
 
 from __future__ import annotations
@@ -157,9 +166,21 @@ def gqa_apply(
     kv_input: Optional[torch.Tensor] = None,  # cross-attention source
     mode: str = "train",
     causal: bool = True,
+    par=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """``par``: the model's mesh plan; where it runs attention head
+    parallel (``par.attn_tp``), ``p`` holds this rank's slices of the
+    weights (``MeshPlan``'s takes) and the result is summed over the model
+    axis."""
     inv, rot = rope_freqs(cfg.hd, cfg.rope_theta, cfg.partial_rotary, x.device)
-    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    tp = par is not None and par.attn_tp
+    if tp:
+        hq, hkv = par.q_heads[1], par.kv_heads[1]
+        x = par.enter_tp(x)
+        if kv_input is not None:
+            kv_input = par.enter_tp(kv_input)
+    else:
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
     dt = x.dtype
     proj = "bsd,dhk->bshk"
     src = x if kv_input is None else kv_input
@@ -191,26 +212,33 @@ def gqa_apply(
         q = apply_rope(q, positions, inv, rot)
         k = apply_rope(k, positions, inv, rot)
     n_rep = q.shape[2] // k.shape[2]
+
+    def whole(t):  # a step's new heads as the cache holds them
+        return par.gather_kv(t) if tp else t
+
+    def own(t):  # this rank's heads of the cache
+        return t.narrow(2, par.kv_heads[0], hkv) if tp else t
+
     if cache is None or is_cross:
         out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
                                 causal=causal and not is_cross)
         new_cache = None
     elif mode == "prefill":
         # write fresh k/v at the start of the cache; attend within the prompt
-        kc = _write(cache["k"], k, 0)
-        vc = _write(cache["v"], v, 0)
+        kc = _write(cache["k"], whole(k), 0)
+        vc = _write(cache["v"], whole(v), 0)
         out = chunked_attention(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), causal=True)
         new_cache = {"k": kc, "v": vc}
     else:
         # decode: insert k/v at position cache["len"]
         idx = cache["len"]
-        kc = _write(cache["k"], k, idx)
-        vc = _write(cache["v"], v, idx)
-        out = decode_attention(q, _repeat_kv(kc, n_rep), _repeat_kv(vc, n_rep),
+        kc = _write(cache["k"], whole(k), idx)
+        vc = _write(cache["v"], whole(v), idx)
+        out = decode_attention(q, _repeat_kv(own(kc), n_rep), _repeat_kv(own(vc), n_rep),
                                idx + q.shape[1])
         new_cache = {"k": kc, "v": vc}
     y = einsum_as("bshk,hkd->bsd", out, p["wo"], dt)
-    return y, new_cache
+    return (par.exit_tp(y) if tp else y), new_cache
 
 
 # --------------------------------------------------------------------- MLA
@@ -240,19 +268,26 @@ def mla_apply(
     p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     cache: Optional[Dict] = None,  # {"ckv": [B, C, r], "kr": [B, C, dr], "len"}
     mode: str = "train",
+    par=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The cache holds the compressed ``ckv`` and the shared rope key ``kr``;
-    a decode step expands the whole cache through ``wuk``/``wuv``."""
+    a decode step expands the whole cache through ``wuk``/``wuv``. Where
+    ``par`` runs MLA head parallel (``par.mla_tp``), ``wuq``/``wuk``/``wuv``/
+    ``wo`` are this rank's heads: the down-projections and the cache are
+    computed alike on every rank, each rank expands its own heads, and the
+    result is summed over the model axis."""
     s = x.shape[1]
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     dt = x.dtype
     inv, rot = rope_freqs(dr, cfg.rope_theta, 1.0, x.device)
+    tp = par is not None and par.mla_tp
+    enter = par.enter_tp if tp else (lambda t: t)
 
     if cfg.q_lora_rank:
         cq = rms_norm(pdot(x, p["wdq"]), p["q_norm"])
-        q = einsum_as("bsr,rhk->bshk", cq, p["wuq"], dt)
+        q = einsum_as("bsr,rhk->bshk", enter(cq), p["wuq"], dt)
     else:
-        q = einsum_as("bsd,dhk->bshk", x, p["wuq"], dt)
+        q = einsum_as("bsd,dhk->bshk", enter(x), p["wuq"], dt)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, inv, rot)
     qf = torch.cat([q_nope, q_rope], dim=-1)
@@ -261,9 +296,10 @@ def mla_apply(
     kr = apply_rope(pdot(x, p["wkr"])[:, :, None, :], positions, inv, rot)  # [B,S,1,dr]
 
     def expand(ckv_src, kr_src):
-        k_nope = einsum_as("bsr,rhk->bshk", ckv_src.to(dt), p["wuk"], dt)
-        v = einsum_as("bsr,rhk->bshk", ckv_src.to(dt), p["wuv"], dt)
-        k_full = torch.cat([k_nope, kr_src.to(dt).expand(*k_nope.shape[:3], dr)], dim=-1)
+        c = enter(ckv_src.to(dt))
+        k_nope = einsum_as("bsr,rhk->bshk", c, p["wuk"], dt)
+        v = einsum_as("bsr,rhk->bshk", c, p["wuv"], dt)
+        k_full = torch.cat([k_nope, enter(kr_src.to(dt)).expand(*k_nope.shape[:3], dr)], dim=-1)
         return k_full, v
 
     if cache is None:
@@ -284,4 +320,4 @@ def mla_apply(
         out = decode_attention(qf, k_full, v, idx + s)
         new_cache = {"ckv": ckv_c, "kr": kr_c}
     y = einsum_as("bshk,hkd->bsd", out, p["wo"], dt)
-    return y, new_cache
+    return (par.exit_tp(y) if tp else y), new_cache

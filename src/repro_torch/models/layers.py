@@ -54,11 +54,15 @@ def pdot(x: torch.Tensor, w: torch.Tensor, sub: Optional[str] = None) -> torch.T
     return einsum_as(sub or "...a,ab->...b", x, w, x.dtype)
 
 
-def rms_norm(x, w, eps: float = 1e-6):
+def rms_norm(x, w, eps: float = 1e-6, reduce=None, width: int = 0):
     dt = x.dtype
     # statistics in fp32; x is consumed in its own dtype and the fp32 master
     # scale is cast at use, so the residual stream never upcasts
-    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    sq = torch.square(x.to(torch.float32))
+    if reduce is None:
+        var = torch.mean(sq, dim=-1, keepdim=True)
+    else:  # x is this rank's channels of ``width``: ``reduce`` sums over the ranks
+        var = reduce(torch.sum(sq, dim=-1, keepdim=True)) / width
     scale = torch.rsqrt(var + eps).to(dt)
     return x * scale * w.to(dt)
 
@@ -175,10 +179,38 @@ def mlp_apply(p: Dict, x, act: str) -> torch.Tensor:
 
 
 def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
-    """logits: [..., V] (computed in fp32); labels int. Returns mean loss."""
+    """logits: [..., V] (computed in fp32); labels int. Returns mean loss.
+    On a vocabulary-parallel mesh: :func:`vocab_parallel_cross_entropy`."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse**2
+    if mask is not None:
+        return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(loss)
+
+
+def vocab_parallel_cross_entropy(logits, labels, start: int, par, mask=None,
+                                 z_loss: float = 1e-4):
+    """:func:`softmax_cross_entropy` of logits split over the vocabulary:
+    ``logits`` [..., V / tp] are this rank's columns, from column ``start``
+    of the (padded) vocabulary, and ``par`` sums over the ranks (a
+    :class:`~repro_torch.models.parallel.MeshPlan`: ``max_tp``, ``exit_tp``).
+    The max, the sum of exponentials and the label's logit are one
+    all-reduce each; no rank holds the whole ``[..., V]``. The z-loss comes
+    from the same log-sum-exp, over every column (the padded ones too), as
+    the reference's. Float32 sums in another order than
+    :func:`softmax_cross_entropy`'s, so the result differs by rounding."""
+    logits = logits.to(torch.float32)
+    n = logits.shape[-1]
+    m = par.max_tp(torch.amax(logits, dim=-1))
+    lse = m + torch.log(par.exit_tp(torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+    ids = labels.to(torch.int64) - start
+    inside = (ids >= 0) & (ids < n)
+    ll = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    ll = par.exit_tp(torch.where(inside, ll, torch.zeros((), device=ll.device)))
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse**2

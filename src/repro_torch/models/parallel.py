@@ -13,15 +13,33 @@ are, and runs each layer on plain local tensors with explicit collectives:
   backward pass its gradient is averaged over the data shards and each rank
   keeps its own slice. Each rank's objective is its rows' loss, and the
   mean over the data shards is the reference's.
-* **Model axis.** An MLP whose ``d_ff`` the model axis divides runs
-  Megatron-style tensor parallel: each rank holds its ``d_ff / tp``
-  columns, and one all-reduce sums the partial outputs. MoE experts run
-  expert parallel: each rank holds ``E / ep`` experts, runs its share of
-  the tokens' assignments (``moe.moe_slice``) and one all-reduce sums the
-  shares, the reference's ``psum``. Every other weight sharded over the
-  model axis (attention heads, the vocabulary, Mamba-2's channels) is
-  gathered at use, and that layer's compute is repeated on each rank of the
-  model axis.
+* **Model axis.** A layer runs tensor parallel when the model axis divides
+  its heads, its channels or its padded vocabulary; each rank holds and
+  computes only its share (the reference's ``sanitize`` replicates the
+  leaf otherwise, and the layer is gathered whole and repeated on every
+  rank of the model axis, as for qwen2's 12 heads on 16 ranks):
+
+  - an MLP's ``d_ff`` columns (Megatron, no bias), closed by one
+    all-reduce; MoE experts, ``E / ep`` a rank (``moe.moe_slice``), summed
+    by one all-reduce, the reference's ``psum``;
+  - attention's query heads (GQA, cross-attention, the whisper encoder,
+    MLA's up-projections) and the kv heads they read, with ``wo``
+    row-parallel; a step's new k/v (and Mamba-2 state) is all-gathered
+    over the model axis before it is cached, so caches keep the
+    reference's placement, whole over the model axis;
+  - Mamba-2's heads of ``ssm_headdim`` channels, its gated norm's sum of
+    squares all-reduced over the model axis;
+  - the vocabulary: the embedding's rows (a lookup outside a rank's rows
+    gives zeros, then one all-reduce), the head's columns, and a
+    vocabulary-parallel cross-entropy.
+
+  A leaf whose stored chunk is not the slice its rank computes (a fused
+  ``wqkv`` stored as chunks of ``[q | k | v]``, ``wkv`` as ``[k | v]``, a
+  replicated bias or Mamba-2 vector, kv heads fewer than the ranks) is
+  gathered over the model axis at use and the rank takes its slice
+  (:class:`_GatherTake`); its backward sums the ranks' partial gradients
+  and keeps the rank's chunk by one reduce-scatter (one all-reduce for a
+  replicated leaf).
 
 Gradient convention: outside a tensor- or expert-parallel region every rank
 of a model axis computes the same values and holds the same gradients.
@@ -71,8 +89,8 @@ def all_gather_cat(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
-def all_reduce_(x: torch.Tensor, group, size: int) -> torch.Tensor:
-    dist.all_reduce(x, group=group)
+def all_reduce_(x: torch.Tensor, group, size: int, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(x, op=op, group=group)
     COLLECTIVES["all_reduce"][0] += 1
     COLLECTIVES["all_reduce"][1] += 2 * (size - 1) * _nbytes(x) // size
     return x
@@ -110,6 +128,43 @@ class _GatherDim(torch.autograd.Function):
         else:
             g = g.chunk(ctx.size, ctx.dim)[ctx.index].contiguous()
         return g, None, None, None, None, None
+
+
+def _narrowed(x: torch.Tensor, dim: int, ranges) -> torch.Tensor:
+    """The ``ranges`` of ``dim`` joined, in a tensor of their own (no view
+    keeps the whole alive)."""
+    return torch.cat([x.narrow(dim, lo, hi - lo) for lo, hi in ranges], dim)
+
+
+class _GatherTake(torch.autograd.Function):
+    """Forward: this rank's compute slice of a leaf, ``take = (dim,
+    ranges)`` (the ranges of ``dim`` joined), from the leaf stored split on
+    ``gdim`` over ``group`` (all-gathered first) or replicated over it
+    (``gdim`` None). Backward: the slice's gradient placed in a zero leaf,
+    the ranks' partial gradients summed and this rank's stored chunk kept,
+    by one reduce-scatter (one all-reduce for a replicated leaf): the ranks
+    computed different slices, so no rank's gradient is whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, gdim, take):
+        whole = x if gdim is None else all_gather_cat(x, group, size, gdim)
+        ctx.group, ctx.size, ctx.gdim, ctx.take = group, size, gdim, take
+        ctx.shape = whole.shape
+        return _narrowed(whole, *take)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, ranges = ctx.take
+        whole = g.new_zeros(ctx.shape)
+        at = 0
+        for lo, hi in ranges:
+            whole.narrow(dim, lo, hi - lo).copy_(g.narrow(dim, at, hi - lo))
+            at += hi - lo
+        if ctx.gdim is None:
+            g = all_reduce_(whole, ctx.group, ctx.size)
+        else:
+            g = reduce_scatter(whole, ctx.group, ctx.size, ctx.gdim)
+        return g, None, None, None, None
 
 
 class _AvgGrad(torch.autograd.Function):
@@ -169,11 +224,14 @@ class _Mean(torch.autograd.Function):
 
 
 class Sharded:
-    """A parameter's local shard and how to make it whole for compute:
-    ``steps`` are ``(axis, dim)`` pairs in the order they run: gather
+    """A parameter's local shard and how to make it ready for compute:
+    ``steps`` are ``(axis, dim, take)`` in the order they run: gather
     ``dim`` over ``axis`` (``dim`` None: the axis replicates the leaf, and
-    only its gradient is averaged, on data axes). Casts and the unbinding
-    of a stacked leaf act on the local shard."""
+    only its gradient is averaged, on data axes); on the model axis,
+    ``take = (dim, ranges)`` is the slice this rank computes
+    (:class:`_GatherTake`). A model-axis shard that is the rank's slice
+    has no step: it stays local. Casts and the unbinding of a stacked leaf
+    act on the local shard."""
 
     def __init__(self, local: torch.Tensor, steps: Tuple, plan: "MeshPlan"):
         self.local, self.steps, self.plan = local, steps, plan
@@ -189,17 +247,22 @@ class Sharded:
         return Sharded(self.local.to(dtype), self.steps, self.plan)
 
     def unbind(self) -> List["Sharded"]:
-        steps = tuple((a, None if d is None else d - 1) for a, d in self.steps)
-        if any(d is not None and d < 0 for _, d in steps):
+        steps = tuple((a, None if d is None else d - 1, t and (t[0] - 1, t[1]))
+                      for a, d, t in self.steps)
+        if any(d is not None and d < 0 for _, d, _ in steps):
             raise ValueError("a stacked leaf sharded on its reps dim")
         return [Sharded(t, steps, self.plan) for t in torch.unbind(self.local)]
 
     def full(self) -> torch.Tensor:
+        """The leaf as the rank computes with it: whole, or its slice on the
+        model axis."""
         x = self.local
         p = self.plan
-        for axis, dim in self.steps:
+        for axis, dim, take in self.steps:
             avg = axis in p.data_axes
-            if dim is None:
+            if take is not None:
+                x = _GatherTake.apply(x, p.groups[axis], p.sizes[axis], dim, take)
+            elif dim is None:
                 if avg and p.sizes[axis] > 1:
                     x = _AvgGrad.apply(x, p.groups[axis], p.sizes[axis])
             else:
@@ -208,8 +271,8 @@ class Sharded:
 
 
 def full(tree):
-    """``tree`` with every :class:`Sharded` leaf made whole (the identity on
-    a one-device tree)."""
+    """``tree`` with every :class:`Sharded` leaf made ready for compute
+    (:meth:`Sharded.full`; the identity on a one-device tree)."""
     if isinstance(tree, dict):
         return {k: full(v) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -228,12 +291,19 @@ def _mlp_leaf(parts: Sequence[str], ndim: int, stacked: bool) -> bool:
     return "ffn" in parts and parts[-1] in ("wi", "wg", "wo") and ndim - stacked == 2
 
 
+_GQA_LEAVES = ("wq", "bq", "wkv", "bkv", "wqkv", "bqkv", "wo")
+_MLA_LEAVES = ("wuq", "wuk", "wuv", "wo")
+_SSM_CHANNELS = {"wz": 1, "wx": 1, "conv_x": 1, "w_out": 0, "conv_bx": 0, "norm_w": 0}
+_SSM_HEADS = ("dt_bias", "A_log", "D")
+
+
 class MeshPlan:
     """A model's mesh: the axes (the batch's,
     :func:`~repro_torch.models.sharding.data_axes_for`, and ``"model"``),
     this rank's coordinates and groups, each parameter's placements and how
-    it is made whole, and the row rule for batches. Every rank builds it at
-    the same time (it may create process groups)."""
+    it is made ready for compute, which layer families run tensor parallel
+    over the model axis, and the row rule for batches. Every rank builds it
+    at the same time (it may create process groups)."""
 
     def __init__(self, mesh, cfg):
         self.mesh = mesh
@@ -252,14 +322,40 @@ class MeshPlan:
             self.ndp *= self.sizes[a]
             self.dp_index = self.dp_index * self.sizes[a] + self.coord[a]
         self.dp_group = self._dp_group()
-        # an MLP runs tensor parallel when the model axis divides its d_ff
-        # (and it has no bias: a replicated d_ff bias would need slicing)
-        tp = self.tp
+        # one flag a layer family, each where the model axis divides what it
+        # splits: an MLP's d_ff (and no bias: a replicated d_ff bias would
+        # need slicing), the shared experts' columns, the query heads (GQA:
+        # and each rank's query heads read whole kv heads of their own or
+        # one kv head alone), Mamba-2's heads, the padded vocabulary
+        tp, r = self.tp, self.tp_index
         self.mlp_tp = tp > 1 and cfg.d_ff % tp == 0 and not cfg.mlp_bias
         fs = cfg.d_ff_expert * cfg.n_shared_experts
         self.shared_tp = tp > 1 and fs > 0 and fs % tp == 0
         if cfg.n_experts and cfg.n_experts % tp:
             raise ValueError(f"{cfg.n_experts} experts do not split over a model axis of {tp}")
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        heads = tp > 1 and h > 0 and h % tp == 0
+        self.mla_tp = heads and cfg.mla
+        self.attn_tp = heads and not cfg.mla and hkv > 0 and (hkv % tp == 0 or tp % hkv == 0)
+        d_in = cfg.ssm_expand * cfg.d_model
+        ssm_heads = d_in // cfg.ssm_headdim
+        self.ssm_tp = (tp > 1 and ssm_heads % tp == 0
+                       and any(k.startswith("ssm") for k in cfg.layer_kinds()))
+        self.vocab_tp = tp > 1 and cfg.padded_vocab % tp == 0
+        # this rank's slices: (first, count)
+        self._h, self._hkv, self._mla = h, hkv, cfg.mla
+        if heads:
+            hl = h // tp
+            self.q_heads = (r * hl, hl)
+            if hkv:
+                self.kv_heads = ((r * hl) // (h // hkv), max(hkv // tp, 1))
+        if self.ssm_tp:
+            nl = ssm_heads // tp
+            self.ssm_heads = (r * nl, nl)
+            self.ssm_channels = (r * nl * cfg.ssm_headdim, nl * cfg.ssm_headdim)
+        if self.vocab_tp:
+            vl = cfg.padded_vocab // tp
+            self.vocab = (r * vl, vl)
         self.placements: Dict[str, Tuple] = {}
         self.steps: Dict[str, Tuple] = {}
 
@@ -282,8 +378,42 @@ class MeshPlan:
         return mine
 
     # ------------------------------------------------------------- params
+    def _take(self, parts: Sequence[str], ndim: int, stacked: bool) -> Optional[Tuple]:
+        """The slice of leaf ``parts`` this rank computes on, ``(dim,
+        ranges)``, where its layer runs tensor parallel over the model axis;
+        None where it computes with the whole leaf (or an MLP's or the
+        experts' stored chunk)."""
+        leaf, nd = parts[-1], ndim - stacked
+
+        def at(dim, *spans):
+            return dim + stacked, tuple((lo, lo + n) for lo, n in spans)
+
+        if leaf == "embed" and self.vocab_tp:
+            return at(0, self.vocab)
+        if leaf == "lm_head" and self.vocab_tp:
+            return at(1, self.vocab)
+        if "mixer" not in parts and "cross" not in parts:
+            return None
+        if self.ssm_tp and leaf in _SSM_CHANNELS:
+            return at(_SSM_CHANNELS[leaf], self.ssm_channels)
+        if self.ssm_tp and leaf in _SSM_HEADS:
+            return at(0, self.ssm_heads)
+        if self._mla and "mixer" in parts:
+            if self.mla_tp and leaf in _MLA_LEAVES and nd == 3:
+                return at(0 if leaf == "wo" else 1, self.q_heads)
+            return None
+        if not self.attn_tp or leaf not in _GQA_LEAVES or (leaf == "wo" and nd != 3):
+            return None
+        q, (k0, kl), h, hkv = self.q_heads, self.kv_heads, self._h, self._hkv
+        dim = 0 if leaf in ("bq", "bkv", "bqkv", "wo") else 1
+        if leaf in ("wq", "bq", "wo"):
+            return at(dim, q)
+        if leaf in ("wkv", "bkv"):
+            return at(dim, (k0, kl), (hkv + k0, kl))
+        return at(dim, q, (h + k0, kl), (h + hkv + k0, kl))
+
     def add(self, name: str, shape: Sequence[int]) -> Tuple:
-        """Record parameter ``name``'s placements and gather steps; returns
+        """Record parameter ``name``'s placements and compute steps; returns
         the placements."""
         spec = sharding.param_spec(name, tuple(shape), self.sizes, self.data_axes)
         pl = sharding.placements(spec, self.names)
@@ -292,6 +422,7 @@ class MeshPlan:
         keep_model = (_expert_leaf(parts, len(shape), stacked)
                       or (_mlp_leaf(parts, len(shape), stacked) and "encoder" not in parts
                           and (self.shared_tp if "shared" in parts else self.mlp_tp)))
+        take = self._take(parts, len(shape), stacked)
         # the data axes first (innermost first: a dim split over pod and data
         # is data's chunks within pod's), the model axis last, so the
         # backward's average over the data shards runs on a tensor the model
@@ -300,13 +431,26 @@ class MeshPlan:
             [a for a in reversed(self.names) if a not in self.data_axes]
         steps = []
         for axis in order:
-            if axis == self.model_axis and keep_model:
-                continue
             p = pl[self.names.index(axis)]
-            steps.append((axis, p.dim if isinstance(p, Shard) else None))
+            dim = p.dim if isinstance(p, Shard) else None
+            if axis == self.model_axis and (keep_model or take is not None):
+                n = shape[dim] // self.tp if dim is not None else 0
+                chunk = (dim, ((self.tp_index * n, (self.tp_index + 1) * n),))
+                if keep_model or take == chunk:
+                    continue  # the stored chunk is the rank's slice: it stays local
+                steps.append((axis, dim, take))
+                continue
+            steps.append((axis, dim, None))
         self.placements[name] = pl
         self.steps[name] = tuple(steps)
         return pl
+
+    def local_on_model(self, name: str) -> bool:
+        """Whether parameter ``name`` computes with the rank's own model-axis
+        chunk (no model-axis gather)."""
+        pl = self.placements[name][self.names.index(self.model_axis)] \
+            if self.model_axis in self.names else Replicate()
+        return isinstance(pl, Shard) and all(a != self.model_axis for a, _, _ in self.steps[name])
 
     def distribute(self, name: str, full_tensor: torch.Tensor) -> DTensor:
         """``full_tensor`` (the same on every rank) as a DTensor with
@@ -358,6 +502,25 @@ class MeshPlan:
         if self.tp == 1:
             return x
         return _ExitTP.apply(x, self.groups[self.model_axis], self.tp)
+
+    def max_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the model axis (no gradient)."""
+        return all_reduce_(x.detach().contiguous().clone(), self.groups[self.model_axis],
+                           self.tp, dist.ReduceOp.MAX)
+
+    def gather_tp(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` joined on ``dim`` in model-axis order, on every
+        rank; the backward takes the rank's own part (what follows is
+        computed alike on every rank)."""
+        g = self.groups[self.model_axis]
+        return _GatherDim.apply(x, g, self.tp, self.tp_index, dim % x.dim(), False)
+
+    def gather_kv(self, x: torch.Tensor) -> torch.Tensor:
+        """A step's new k or v, ``[B, s, kv heads of this rank, hd]``, made
+        whole over the model axis for the cache (no gradient; ranks that
+        share a kv head gave the same one)."""
+        whole = all_gather_cat(x, self.groups[self.model_axis], self.tp, 2)
+        return whole[:, :, ::self.tp // self._hkv] if self.tp > self._hkv else whole
 
 
 # ------------------------------------------------------- whole DTensors

@@ -6,6 +6,16 @@ quadratic form, the inter-chunk term carries the [H, P, N] state from chunk
 to chunk (the reference's ``lax.scan``, here a loop that emits the state
 *entering* each chunk). Decode keeps an O(1) recurrent state (conv window +
 SSM state). ``dt``, ``A_log``, ``D`` and the scan run in fp32.
+
+On a mesh whose model axis divides the heads (``par.ssm_tp``, a
+:class:`~repro_torch.models.parallel.MeshPlan`), each rank holds and runs
+its heads of ``ssm_headdim`` channels: its columns of ``wz``/``wx``/
+``conv_x``, its rows of ``w_out`` (one all-reduce sums the outputs) and its
+slices of the per-channel and per-head vectors. ``B``, ``C`` and ``dt`` are
+computed whole (their weights are not split over the model axis); the gated
+norm's sum of squares over all of ``d_in`` is one all-reduce. The caches
+stay whole over the model axis: a step's new ``conv_x`` window and SSM
+state are all-gathered before they are kept.
 """
 
 from __future__ import annotations
@@ -135,45 +145,59 @@ def mamba2_apply(
     x: torch.Tensor,  # [B, S, D]
     cfg,
     cache: Optional[Dict] = None,
+    par=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     b, s, d = x.shape
     d_in = cfg.ssm_expand * d
     hd = cfg.ssm_headdim
     nheads = d_in // hd
+    tp = par is not None and par.ssm_tp
+    # this rank's heads and channels (all of them off a mesh)
+    h0_, nh = par.ssm_heads if tp else (0, nheads)
+    c0, dl = par.ssm_channels if tp else (0, d_in)
 
-    z = pdot(x, p["wz"])
-    xin = pdot(x, p["wx"])
+    xt = par.enter_tp(x) if tp else x
+    z = pdot(xt, p["wz"])
+    xin = pdot(xt, p["wx"])
     B_ = pdot(x, p["wB"])
     C_ = pdot(x, p["wC"])
     dt = pdot(x, p["wdt"])
 
-    cx = cache["conv_x"] if cache is not None else None
+    cx = cache["conv_x"].narrow(2, c0, dl) if cache is not None else None
     cB = cache["conv_B"] if cache is not None else None
     cC = cache["conv_C"] if cache is not None else None
     xin, ncx = _causal_conv(xin, p["conv_x"], p["conv_bx"], cx)
     B_, ncB = _causal_conv(B_, p["conv_B"], p["conv_bB"], cB)
     C_, ncC = _causal_conv(C_, p["conv_C"], p["conv_bC"], cC)
+    if tp:
+        B_, C_ = par.enter_tp(B_), par.enter_tp(C_)
+        dt = par.enter_tp(dt).narrow(2, h0_, nh)
 
     f32 = torch.float32
     dt = F.softplus(dt.to(f32) + p["dt_bias"])  # [B, S, H]
     A = -torch.exp(p["A_log"])  # [H]
     a_log = dt * A
-    xh = xin.reshape(b, s, nheads, hd)
+    xh = xin.reshape(b, s, nh, hd)
     xdt = xh.to(f32) * dt[..., None]
 
-    h0 = cache["ssm"] if cache is not None else None
+    h0 = cache["ssm"].narrow(1, h0_, nh) if cache is not None else None
     # a decode step (s=1) pads to a chunk of 16, as the reference does
     y, hN = ssd_chunked(xdt, a_log, B_.to(f32), C_.to(f32), chunk=min(128, max(16, s)), h0=h0)
     y = y + xh.to(f32) * p["D"][None, None, :, None]
-    y = y.reshape(b, s, d_in).to(x.dtype)
-    y = rms_norm(y * silu(z), p["norm_w"])
+    y = y.reshape(b, s, dl).to(x.dtype)
+    # over all of d_in: the fp32 sum of squares all-reduced (and its gradient)
+    reduce = (lambda ss: par.enter_tp(par.exit_tp(ss))) if tp else None
+    y = rms_norm(y * silu(z), p["norm_w"], reduce=reduce, width=d_in)
     out = pdot(y, p["w_out"])
     new_cache = None
     if cache is not None:
+        if tp:  # the caches are whole over the model axis
+            ncx = par.gather_tp(ncx, 2)
+            hN = par.gather_tp(hN, 1)
         new_cache = {
             "conv_x": ncx.to(cache["conv_x"].dtype),
             "conv_B": ncB.to(cache["conv_B"].dtype),
             "conv_C": ncC.to(cache["conv_C"].dtype),
             "ssm": hN.to(cache["ssm"].dtype),
         }
-    return out, new_cache
+    return (par.exit_tp(out) if tp else out), new_cache

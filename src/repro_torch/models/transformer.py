@@ -21,9 +21,13 @@ pass, as the reference's ``jax.checkpoint`` recomputes them.
 
 On a mesh (:meth:`Model.shard`, ``build_model(..., mesh=...)``) each
 parameter is a DTensor with the reference's placements, and a forward makes
-each layer's weights whole at its use (``models/parallel.py``): the data
-shards take their rows of the batch, MLPs run tensor parallel and MoE
-experts expert parallel over the model axis.
+each layer's weights ready at its use (``models/parallel.py``): the data
+shards take their rows of the batch and gather FSDP shards; over the model
+axis MLPs, attention heads, Mamba-2's heads and the vocabulary run tensor
+parallel and MoE experts expert parallel, where the axis divides them. The
+logits stay split over the vocabulary inside (the loss is a
+vocabulary-parallel cross-entropy); :meth:`Model.forward`,
+:meth:`Model.prefill` and :meth:`Model.decode_step` gather what they return.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from .layers import (
     mlp_params,
     norm_params,
     softmax_cross_entropy,
+    vocab_parallel_cross_entropy,
 )
 from .moe import moe_apply, moe_params
 from .parallel import MeshPlan, Sharded, full
@@ -223,29 +228,29 @@ def block_apply(
     par: Optional[MeshPlan] = None,
 ):
     """One layer. ``par``: the mesh plan of a sharded model (``lp``'s
-    weights made whole, except the model axis's shards of a tensor-parallel
-    MLP and of the experts)."""
+    weights made ready for compute: whole, or this rank's slice where the
+    layer runs tensor parallel)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = None
     h = apply_norm(cfg.norm, x, lp["norm1"])
     if kind.startswith("ssm"):
-        h, new_cache = mamba2_apply(lp["mixer"], h, cfg, cache)
+        h, new_cache = mamba2_apply(lp["mixer"], h, cfg, cache, par)
     else:
         attn_cache = None
         if cache is not None:
             attn_cache = dict(cache)
             attn_cache["len"] = cache_len_now
         if cfg.mla:
-            h, nc = mla_apply(lp["mixer"], h, cfg, positions, attn_cache, mode=mode)
+            h, nc = mla_apply(lp["mixer"], h, cfg, positions, attn_cache, mode=mode, par=par)
         else:
-            h, nc = gqa_apply(lp["mixer"], h, cfg, positions, attn_cache, mode=mode)
+            h, nc = gqa_apply(lp["mixer"], h, cfg, positions, attn_cache, mode=mode, par=par)
         if nc is not None:
             nc.pop("len", None)
             new_cache = nc
     x = x + h
     if "+cross" in kind:
         h = apply_norm(cfg.norm, x, lp["norm_c"])
-        h, _ = gqa_apply(lp["cross"], h, cfg, positions, None, kv_input=cross_kv)
+        h, _ = gqa_apply(lp["cross"], h, cfg, positions, None, kv_input=cross_kv, par=par)
         x = x + h
     if "ffn" in lp:
         h = apply_norm(cfg.norm, x, lp["norm2"])
@@ -340,6 +345,41 @@ class Model(nn.Module):
     def _gathered(self, x: torch.Tensor, b: int) -> torch.Tensor:
         return x if self.par is None else self.par.gather_rows(x, b)
 
+    # ------------------------------------------------------ vocabulary
+    @property
+    def _vocab_tp(self) -> bool:
+        return self.par is not None and self.par.vocab_tp
+
+    def _lookup(self, embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of ``embed``. Vocabulary parallel, each rank holds
+        its rows: an id outside them gives zeros, and one all-reduce over
+        the model axis sums the ranks' rows (exact: one is not zero)."""
+        ids = ids.to(torch.int64)
+        if not self._vocab_tp:
+            return embed[ids]
+        lo, n = self.par.vocab
+        ids = ids - lo
+        inside = (ids >= 0) & (ids < n)
+        x = embed[ids.clamp(0, n - 1)]
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        return self.par.exit_tp(x)
+
+    def _head(self, x: torch.Tensor, head: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The logits of ``x``; vocabulary parallel, this rank's columns."""
+        if self._vocab_tp:
+            x = self.par.enter_tp(x)
+        return einsum_as("bsd,dv->bsv", x, head, dtype)
+
+    def _cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if not self._vocab_tp:
+            return softmax_cross_entropy(logits, labels)
+        return vocab_parallel_cross_entropy(logits, labels, self.par.vocab[0], self.par)
+
+    def _whole(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary (gathered over the model axis
+        where the head is vocabulary parallel)."""
+        return self.par.gather_tp(logits, -1) if self._vocab_tp else logits
+
     # ------------------------------------------------------------- params
     def _param_tree(self, generator, device) -> Dict:
         cfg = self.cfg
@@ -387,9 +427,12 @@ class Model(nn.Module):
     def cast_params(self, named: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
         """The tree as a forward sees it after the cast rule: computed once
         for serving, the same bits a forward casts to. On a mesh, each
-        weight made whole once (the model axis's shards of a tensor- or
-        expert-parallel layer stay this rank's). ``named``: tensors to cast
-        in place of the parameters, by name (as :meth:`tree`)."""
+        weight made ready once: gathered over the data axes, and over the
+        model axis only where a layer computes with the whole leaf or with
+        a slice other than its stored chunk (``MeshPlan``'s steps); the
+        model axis's shards of a tensor- or expert-parallel layer stay this
+        rank's. ``named``: tensors to cast in place of the parameters, by
+        name (as :meth:`tree`)."""
         return full(_cast_params(self._local(self.tree(named)), self.compute_dtype))
 
     # ------------------------------------------------------------- caches
@@ -417,7 +460,7 @@ class Model(nn.Module):
         for lp in _unstacked(params["encoder"], cfg.encoder_layers):
             lp = full(lp)
             h = apply_norm(cfg.norm, x, lp["norm1"])
-            h, _ = gqa_apply(lp["mixer"], h, cfg, pos)
+            h, _ = gqa_apply(lp["mixer"], h, cfg, pos, par=self.par)
             x = x + h
             h = apply_norm(cfg.norm, x, lp["norm2"])
             x = x + mlp_apply(lp["ffn"], h, cfg.act)
@@ -440,9 +483,13 @@ class Model(nn.Module):
         does. On a mesh ``tokens`` and ``extras`` are the global batch, and
         the logits, hidden state and cache are this data shard's rows
         (``MeshPlan.rows``)."""
-        return self._forward(self._rows(tokens), self._rows_of(extras), cache, mode, params)
+        logits, aux, new_cache, h = self._forward(self._rows(tokens), self._rows_of(extras), cache,
+                                                  mode, params)
+        return self._whole(logits), aux, new_cache, h
 
     def _forward(self, tokens, extras, cache, mode, params):
+        """:meth:`forward` on this data shard's rows, its logits this rank's
+        columns where the head is vocabulary parallel."""
         cfg = self.cfg
         par = self.par
         params = _cast_params(self._local(self.tree() if params is None else params),
@@ -450,7 +497,7 @@ class Model(nn.Module):
         s = tokens.shape[1]
         dev = tokens.device
         embed = full(params["embed"])  # once: a tied head reuses it
-        x = embed[tokens.to(torch.int64)]  # [B, S, D]
+        x = self._lookup(embed, tokens)  # [B, S, D]
         cache_len_now = cache["len"] if cache is not None else None
         positions = torch.arange(s, device=dev)[None, :]
         if cache is not None:
@@ -510,7 +557,7 @@ class Model(nn.Module):
 
         x = apply_norm(cfg.norm, x, full(params["final_norm"]))
         head = embed.T if cfg.tie_embeddings else full(params["lm_head"])
-        logits = einsum_as("bsd,dv->bsv", x, head.to(self.compute_dtype), x.dtype)
+        logits = self._head(x, head.to(self.compute_dtype), x.dtype)
         return logits, aux_total, (new_cache if cache is not None else None), x
 
     # --------------------------------------------------------------- loss
@@ -525,7 +572,7 @@ class Model(nn.Module):
         batch = {k: self._rows(v) for k, v in batch.items()}
         extras = {k: v for k, v in batch.items() if k in ("frames", "patches")}
         logits, aux, _, h = self._forward(batch["tokens"], extras or None, None, "train", params)
-        loss = mean(softmax_cross_entropy(logits, batch["labels"]))
+        loss = mean(self._cross_entropy(logits, batch["labels"]))
         metrics = {"ce_loss": loss, "aux_loss": aux}
         total = loss + 0.01 * aux
         if cfg.mtp:
@@ -534,17 +581,16 @@ class Model(nn.Module):
             mtp = full(params_c["mtp"])
             embed = full(params_c["embed"])
             labels = batch["labels"].to(torch.int64)
-            emb_next = embed[labels]
+            emb_next = self._lookup(embed, labels)
             hm = einsum_as("bsd,de->bse", torch.cat([h, emb_next], dim=-1), mtp["proj"], h.dtype)
             pos = torch.arange(hm.shape[1], device=hm.device)[None, :]
             hm = block_apply("attn", mtp["block"], hm, cfg, pos, "train", None, None, None,
                              self.par)[0]
             hm = apply_norm(cfg.norm, hm, mtp["norm"])
             head = embed.T if cfg.tie_embeddings else full(params_c["lm_head"])
-            mtp_logits = einsum_as("bsd,dv->bsv", hm, head,
-                                   torch.promote_types(hm.dtype, head.dtype))
+            mtp_logits = self._head(hm, head, torch.promote_types(hm.dtype, head.dtype))
             labels2 = torch.roll(labels, -1, dims=1)
-            mtp_loss = mean(softmax_cross_entropy(mtp_logits[:, :-1], labels2[:, :-1]))
+            mtp_loss = mean(self._cross_entropy(mtp_logits[:, :-1], labels2[:, :-1]))
             metrics["mtp_loss"] = mtp_loss
             total = total + 0.3 * mtp_loss
         metrics["loss"] = total
@@ -562,7 +608,7 @@ class Model(nn.Module):
         cache = self.init_cache(tokens.shape[0], cache_len or s)
         logits, _, new_cache, _ = self._forward(tokens, self._rows_of(extras), cache, "prefill",
                                                 params)
-        return self._gathered(logits[:, -1], b), new_cache
+        return self._gathered(self._whole(logits[:, -1]), b), new_cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, extras=None, params: Optional[Dict] = None):
@@ -571,4 +617,4 @@ class Model(nn.Module):
         b = tokens.shape[0]
         logits, _, new_cache, _ = self._forward(self._rows(tokens), self._rows_of(extras), cache,
                                                 "decode", params)
-        return self._gathered(logits[:, -1], b), new_cache
+        return self._gathered(self._whole(logits[:, -1]), b), new_cache

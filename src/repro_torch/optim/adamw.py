@@ -34,6 +34,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
+from ..models.parallel import all_reduce_
+
 Params = Union[torch.Tensor, Sequence[torch.Tensor], Mapping[str, torch.Tensor]]
 Moments = Union[List[torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -116,7 +118,7 @@ def global_norm(tensors: Params) -> torch.Tensor:
         sq = sum(sum(torch.sum(torch.square(c.to(torch.float32))) for c in _chunks(_local(x)))
                  / _replication(x) for x in tensors.values())
         if any(isinstance(x, DTensor) for x in tensors.values()):
-            dist.all_reduce(sq)  # the mesh spans the job
+            all_reduce_(sq, None, dist.get_world_size())  # the mesh spans the job
         return torch.sqrt(sq)
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in _as_list(tensors)))

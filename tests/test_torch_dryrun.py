@@ -7,8 +7,9 @@ so the port is held to the reference functions that do run (the model-FLOP
 formulas, ``abstract_state`` through ``jax.eval_shape``, ``params_shardings``
 on an ``AbstractMesh``), to the contracts of the reference's own tests
 (``tests/test_system.py``, ``tests/test_launch.py``), and to the collective
-bytes a rank that PR 27's ranks counted on an NVIDIA H100 80GB HBM3 at
-700 W. The cases that join a fake process group run in one subprocess
+bytes a rank that ``models/parallel.COLLECTIVES`` counts for the same steps
+(reckoned below; the ranks count the same on the card, ``chip_smoke.py``'s
+``lm_shard_phase``). The cases that join a fake process group run in one subprocess
 (``tests/_torch_dryrun_cases.py``) with a hard timeout; the rest here, on
 ``meta`` tensors."""
 
@@ -43,10 +44,32 @@ from repro_torch.optim import adamw
 ROOT = Path(__file__).resolve().parents[1]
 CASES_TIMEOUT_S = 240
 
-# collective bytes a rank that PR 27's ranks counted on the card (qwen2-1.5b,
-# 4 gloo ranks as data 2 x model 2; PERF.md section 6)
-PR27_TRAIN_STEP = 2829088776
-PR27_SERVE = {"weights": 1159593984, "prefill": 22628352, "decode": 780288}
+# Collective bytes a rank, qwen2-1.5b on data 2 x model 2 with attention,
+# the MLPs and the vocabulary tensor parallel (d 1536, 28 layers, 12 + 2 + 2
+# fused heads of 128, d_ff 8960, tied vocabulary 152064; bf16). A ring
+# all-gather of b bytes a rank moves b, an all-reduce of b bytes 2 (n - 1)
+# b / n (b on 2 ranks), a reduce-scatter of b bytes (n - 1) b / n.
+# The cast gathers over data the rank's halves of embed (116785152), wqkv
+# (44040192), wo (33030144) and wi/wg/wo (3 x 192675840), and over model the
+# whole wqkv, whose q/k/v heads the rank slices (88080384): 859963392.
+# A train step (8 x 128, 4 rows a data shard, remat) gathers the body twice
+# (forward and recompute: 2 x 743178240) and embed once: 1603141632;
+# reduce-scatters each gather's gradient once: 859963392; all-reduces per
+# layer five [4, 128, 1536] activations (attention's and the MLP's exits,
+# the attention exit recomputed, both entries' backward: 5 x 1572864) and
+# 14336 bytes of replicated leaves' gradients (norm1, norm2, bqkv over data
+# and bqkv's slices over model), then the embedding's exit and the head's
+# entry (2 x 1572864), the cross-entropy's max, sum and label logit (3 x
+# 2048), final_norm's float32 gradient (6144), the loss's mean (2 x 4) and
+# AdamW's grad norm over the 4 ranks (6): 223760398. Serving (4 prompts of
+# 128, 2 rows a data shard): prefill all-reduces two [2, 128, 1536]
+# activations a layer and all-gathers its new k and v (one kv head a rank:
+# 2 x 65536), 28 x 1703936, plus the embedding's exit (786432), the last
+# logits over model (304128) and over data (608256): 49409024; a decode
+# step the same at one token: 28 x 13312 + 6144 + 304128 + 608256 =
+# 1291264.
+PR29_TRAIN_STEP = 1603141632 + 859963392 + 223760398
+PR29_SERVE = {"weights": 859963392, "prefill": 49409024, "decode": 1291264}
 
 
 @pytest.fixture(scope="module")
@@ -324,22 +347,19 @@ def test_census_counts_each_collective(cases, name):
 
 def test_census_train_step_is_pr27s(cases):
     """The census of a full-width qwen2-1.5b bf16 train step on a 2x2 fake
-    group against the bytes PR 27's ranks moved on the card. The census
-    sees one collective more than ``parallel.COLLECTIVES``: AdamW's
-    gradient-norm all-reduce of one float32 over the job's 4 ranks
-    (``optim/adamw.global_norm``), which that counter does not count."""
+    group against ``parallel.COLLECTIVES`` of the same step and the bytes
+    reckoned above, exactly: every collective, AdamW's gradient-norm
+    all-reduce (``optim/adamw.global_norm``) too."""
     train = cases["pr27"]["train"]
     counter, census = train["counter"], train["census"]
-    norm = 2 * (4 - 1) * 4 // 4
-    assert sum(v[1] for v in counter.values()) == PR27_TRAIN_STEP
-    assert census["moved"] - norm == PR27_TRAIN_STEP
+    assert sum(v[1] for v in counter.values()) == PR29_TRAIN_STEP
+    assert census["moved"] == PR29_TRAIN_STEP
     colls = census["collectives"]
-    assert colls["all-gather"]["count"] == counter["all_gather"][0]
-    assert colls["all-gather"]["moved"] == counter["all_gather"][1]
-    assert colls["reduce-scatter"]["count"] == counter["reduce_scatter"][0]
-    assert colls["reduce-scatter"]["moved"] == counter["reduce_scatter"][1]
-    assert colls["all-reduce"]["count"] == counter["all_reduce"][0] + 1
-    assert colls["all-reduce"]["moved"] == counter["all_reduce"][1] + norm
+    for kind, name in (("all-gather", "all_gather"), ("reduce-scatter", "reduce_scatter"),
+                       ("all-reduce", "all_reduce")):
+        assert (colls[kind]["count"], colls[kind]["moved"]) == tuple(counter[name]), kind
+    assert colls["all-gather"]["moved"] == 1603141632
+    assert colls["reduce-scatter"]["moved"] == 859963392
     assert census["dtensor_ops"] == 0
     mem = train["memory"]
     assert mem["alias"] > 0 and mem["peak"] == mem["argument"] + mem["temp"]
@@ -352,7 +372,7 @@ def test_census_serving_is_pr27s(cases, phase):
     if phase == "decode":
         assert census % serve["decode_steps"] == 0
         census //= serve["decode_steps"]
-    assert census == serve["counter"][phase] == PR27_SERVE[phase]
+    assert census == serve["counter"][phase] == PR29_SERVE[phase]
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])

@@ -1,12 +1,14 @@
 """The LM entry points on a mesh: ``repro_torch.launch.serve_llm`` and
 ``repro_torch.launch.train`` with ``--data-par``/``--model-par`` under real
 ``torchrun`` launches of 4 CPU ranks (gloo, under ``nice``), against the
-same CLI on one rank: the served tokens equal, the training history within
-bf16's bound (the reduced configs compute in bf16, where the mesh's
-partial sums round otherwise: ``tests/test_torch_lm_bf16.py``'s 2e-2); only
-rank 0 prints and writes; and the refusals: a world of another size (on
-every rank), NCCL on the CPU, no launcher and ``--dist-backend`` without
-a mesh."""
+same CLI on one rank: every served token a greedy choice of the one-rank
+model within bf16's bound (the one token wherever one alone lies within
+it), the training history within that bound
+(the reduced configs compute in bf16, where the mesh's tensor-parallel
+partial sums round otherwise: ``tests/test_torch_lm_bf16.py``'s 2e-2);
+only rank 0 prints and writes; and the refusals: a world of another size
+(on every rank), NCCL on the CPU, no launcher and ``--dist-backend``
+without a mesh."""
 
 import json
 import os
@@ -18,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_arch
 from repro_torch.launch import serve_llm, train
+from repro_torch.launch.steps import build_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
@@ -53,7 +57,31 @@ def _generations(stdout: str):
     return [json.loads(line.strip()) for line in lines[i + 1:i + 4]]
 
 
+def _one_rank_logits(tokens: torch.Tensor) -> torch.Tensor:
+    """The one-rank CLI's model and prompts, teacher-forced with ``tokens``
+    ([B, G]): the float32 logits [B, G, V] of each greedy decision, the
+    one that chose ``tokens[:, i]`` after the prompts and ``tokens[:, :i]``."""
+    cfg = get_arch("qwen2-1.5b").reduced()
+    model = build_model(cfg, "cpu", torch.Generator().manual_seed(0), remat=False)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 8), generator=torch.Generator().manual_seed(0),
+                            dtype=torch.int32)
+    params = model.cast_params()
+    logits, cache = model.prefill(prompts, cache_len=8 + tokens.shape[1], params=params)
+    steps = []
+    for i in range(tokens.shape[1]):
+        steps.append(logits.float())
+        if i + 1 < tokens.shape[1]:
+            logits, cache = model.decode_step(tokens[:, i:i + 1], cache, params=params)
+    return torch.stack(steps, 1)
+
+
 def test_serve_llm_on_2x2_serves_the_one_rank_tokens(capsys):
+    """Every token the mesh serves is a greedy choice of the one-rank model
+    fed the mesh's own tokens: its logit lies within bf16's bound of that
+    decision's largest. Where one token alone lies there, the mesh must
+    serve it; only where the one-rank model's two best lie within bf16
+    rounding of each other may the mesh's partial sums, rounded in another
+    order, pick the other (the generations part after it)."""
     one = serve_llm.main(SERVE)
     one_out = capsys.readouterr().out
     proc = _torchrun(4, "repro_torch.launch.serve_llm", *SERVE, "--data-par", "2",
@@ -62,7 +90,17 @@ def test_serve_llm_on_2x2_serves_the_one_rank_tokens(capsys):
     # rank 0 alone prints: one copy of each line
     assert proc.stdout.count("prefill: 4x8 tokens") == 1
     assert proc.stdout.count("mesh: data 2 x model 2 on 4 ranks (gloo)") == 1
-    assert _generations(proc.stdout) == _generations(one_out) == one[:3, :16].tolist()
+    assert _generations(one_out) == one[:3, :16].tolist()
+    mesh = one.clone()  # rows 3.. are not printed: they stand in at the one rank's
+    mesh[:3] = torch.tensor(_generations(proc.stdout), dtype=mesh.dtype)
+    logits = _one_rank_logits(mesh)[:3]
+    best = logits.max(-1).values
+    chosen = logits.gather(-1, mesh[:3, :, None].long())[..., 0]
+    gap = ((best - chosen) / best.abs()).numpy()
+    assert (gap <= BF16_RTOL).all(), (mesh[:3].tolist(), one[:3].tolist(), gap)
+    # the check binds: most decisions admit one token alone
+    admitted = (logits >= best[..., None] - BF16_RTOL * best.abs()[..., None]).sum(-1)
+    assert (admitted == 1).float().mean() >= 0.5, admitted.tolist()
 
 
 def test_train_on_2x2_follows_the_one_rank_history(tmp_path):

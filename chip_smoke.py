@@ -340,24 +340,27 @@ SHARDMAP = {"ranks": 4, "stride": 1 << 8, "marginal": (0, 1, 2),
             "observable": "Z0 Z1 + 0.5*X29", "atol": 1e-6, "timeout": 600}
 SHARDMAP_NCCL = {"n": 28, "L": 28}
 RENDEZVOUS_DIR = os.path.join(HERE, "build", "rendezvous")
-# the multi-process entry point: the CLI under torchrun. The main path's
-# ising(30) plan on 4 gloo ranks on the one card (no shots: the shardmap
-# phase holds the sharded shots), held to the in-card plan and TorchMeasurer
-# on the in-card state; then isingparam(28) at world size 1 over NCCL, held
-# bit for bit to a CudaBackend engine of the same plan. Both run before the
-# calibration phase, so every rank plans on the analytic constants.
+# the multi-process entry point: the CLI under torchrun, one launch of 4
+# gloo ranks on the one card whose ranks call the CLI's entry point in
+# process (each launch costs 20-26 s of fixed time on the card's host, so
+# the three runs share one). The main path's ising(30) plan (no shots: the
+# shardmap phase holds the sharded shots), held to the in-card plan and
+# TorchMeasurer on the in-card state; then the gradients below; then, on
+# rank 0 alone, isingparam(28) at world size 1 over NCCL, held bit for bit
+# to a CudaBackend engine of the same plan. All run before the calibration
+# phase, so every rank plans on the analytic constants. "timeout": the
+# launch's.
 SHARDMAP_CLI = {"ranks": 4, "marginal": (0, 1, 2), "observable": "Z0 Z1 + 0.5*X29 + 0.25*X0",
                 "atol": 1e-6, "timeout": 600}
 SHARDMAP_CLI_PATH = ["--circuit", "ising", "--qubits", "30", "--L", "28", "--R", "2", "--executor",
                      "shardmap", "--dist-backend", "gloo", "--marginal", "0,1,2",
                      "--observable", SHARDMAP_CLI["observable"]]
-SHARDMAP_CLI_NCCL = {"n": 28, "bind": {"J": 0.35, "h": 0.8}, "marginal": (0, 1, 2),
-                     "timeout": 300}
+SHARDMAP_CLI_NCCL = {"n": 28, "bind": {"J": 0.35, "h": 0.8}, "marginal": (0, 1, 2)}
 SHARDMAP_CLI_NCCL_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "28", "--engine",
                           "--bind", "J=0.35", "--bind", "h=0.8", "--marginal", "0,1,2",
                           "--executor", "shardmap"]
 RESULTS_DIR = os.path.join(HERE, "build", "results")
-# gradients on the shardmap backend: the CLI's --vqe under torchrun on 4
+# gradients on the shardmap backend: the CLI's --vqe in the same launch's 4
 # gloo ranks of the one card, isingparam(28) at L=26 R=2 (one 512 MiB shard
 # a rank), one Adam step (two value_and_grad calls), held to one CudaBackend
 # value_and_grad of the same plan at the first angles. The observable is
@@ -368,7 +371,7 @@ RESULTS_DIR = os.path.join(HERE, "build", "results")
 # 3 against the plain version.
 # (n=29 L=27 and a sample at n=28 L=26 until the LM sharding phase took
 # its time)
-SHARDMAP_VQE = {"ranks": 4, "n": 28, "L": 26, "R": 2, "timeout": 600, "value_atol": 1e-5,
+SHARDMAP_VQE = {"ranks": 4, "n": 28, "L": 26, "R": 2, "value_atol": 1e-5,
                 "grad_atol": 1e-4, "sample_n": 27, "sample_L": 25, "sample_seed": 43}
 SHARDMAP_VQE_PATH = ["--circuit", "isingparam", "--qubits", "28", "--L", "26", "--R", "2",
                      "--executor", "shardmap", "--dist-backend", "gloo", "--vqe-steps", "1"]
@@ -1057,22 +1060,91 @@ def torchrun_launch(nproc: int, target: list, timeout: float) -> tuple:
     return out, seconds
 
 
-def torchrun(nproc: int, argv: list, timeout: float, device: str = "cuda") -> tuple:
-    """``torchrun_launch`` of ``-m repro_torch.launch.simulate argv --result-json
-    ...``: ``(stdout, the JSON rank 0 wrote, seconds)``; raises unless
-    every rank exited 0. Only rank 0 prints, so stdout is its lines. The
-    argv spells ``--n`` as ``--qubits``: the card's Python takes ``--n``
-    after the script name for an abbreviation of torchrun's options."""
+def shardmap_cli_rank(spec_path: str) -> None:
+    """Under torchrun, each rank of ``shardmap_cli_phases``: it joins the
+    gloo group and calls ``repro_torch.launch.simulate``'s entry point in
+    this process once for each argv of ``spec["gloo"]`` (the CLI uses the
+    group it finds), the device's peak reset before each run so each run's
+    ranks report their own; then it leaves the group, and rank 0 alone
+    runs ``spec["solo"]`` at world size 1: the CLI joins a group of its own
+    from a launcher's environment of one rank on a fresh port, as under
+    ``torchrun --nproc-per-node 1``. Rank 0 writes what each run printed,
+    and its seconds, to ``spec["out"]``."""
+    import contextlib
+    import io
+    import socket
+
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.launch import dist as launch_dist
+    from repro_torch.launch import simulate
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    printed = []
+
+    def call(argv):
+        _fresh(device)
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            simulate.main(argv)
+        printed.append({"out": buf.getvalue(), "seconds": time.time() - t0})
+        gc.collect()
+
+    ctx = launch_dist.join("gloo", device)
+    rank = ctx.rank
+    for argv in spec["gloo"]:
+        call(argv)
+    ctx.close()
+    if rank != 0:
+        return
+    if spec["solo"]:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                          MASTER_PORT=str(port))
+        os.environ.pop("TORCHELASTIC_USE_AGENT_STORE", None)  # rank 0 hosts its store
+        call(spec["solo"])
+    with open(spec["out"], "w") as f:
+        json.dump(printed, f)
+
+
+def torchrun_cli_runs(world: int, gloo: list, solo: list, timeout: float,
+                      device: str = "cuda") -> tuple:
+    """One ``torchrun_launch`` of ``chip_smoke.py --shardmap-cli-check`` on
+    ``world`` ranks (:func:`shardmap_cli_rank`): each argv of ``gloo`` on
+    every rank, then ``solo`` (None: nothing) at world size 1, each with
+    ``--result-json`` (and ``--device cpu`` on the CPU). Returns ``([(what
+    rank 0 printed, the JSON it wrote, the run's seconds), ...], the
+    launch's seconds)``, the runs in that order; raises unless every rank
+    exited 0. The argvs spell ``--n`` as ``--qubits``: the card's Python
+    takes ``--n`` after the script name for an abbreviation of torchrun's
+    options."""
     os.makedirs(RESULTS_DIR, exist_ok=True)
-    out_json = os.path.join(RESULTS_DIR, f"cli-{nproc}-{os.getpid()}-{time.time_ns()}.json")
-    target = ["-m", "repro_torch.launch.simulate", *argv, "--result-json", out_json]
-    if device == "cpu":
-        target += ["--device", "cpu"]
-    out, seconds = torchrun_launch(nproc, target, timeout)
-    with open(out_json) as f:
-        doc = json.load(f)
-    os.remove(out_json)
-    return out, doc, seconds
+    tag = f"cli-{os.getpid()}-{time.time_ns()}"
+    argvs = gloo + ([solo] if solo else [])
+    docs = [os.path.join(RESULTS_DIR, f"{tag}-{i}.json") for i in range(len(argvs))]
+    extra = ["--device", "cpu"] if device == "cpu" else []
+    argvs = [list(a) + ["--result-json", d] + extra for a, d in zip(argvs, docs)]
+    spec_path = os.path.join(RESULTS_DIR, f"{tag}.json")
+    out_path = os.path.join(RESULTS_DIR, f"{tag}-out.json")
+    with open(spec_path, "w") as f:
+        json.dump({"device": device, "gloo": argvs[:len(gloo)],
+                   "solo": argvs[len(gloo)] if solo else None, "out": out_path}, f)
+    _, seconds = torchrun_launch(world, [os.path.join(HERE, "chip_smoke.py"),
+                                         "--shardmap-cli-check", spec_path], timeout)
+    with open(out_path) as f:
+        printed = json.load(f)
+    require(len(printed) == len(docs), f"rank 0 finished {len(printed)} of {len(docs)} runs")
+    runs = []
+    for p, path in zip(printed, docs):
+        with open(path) as f:
+            runs.append((p["out"], json.load(f), p["seconds"]))
+    for path in docs + [spec_path, out_path]:
+        os.remove(path)
+    return runs, seconds
 
 
 def cli_launches(doc: dict, what: str) -> dict:
@@ -1092,21 +1164,53 @@ def cli_launches(doc: dict, what: str) -> dict:
             "shm": sum(c["shm"] for c in doc["launches"]), "by_k": by_k}
 
 
-def shardmap_cli_phase(card: str, circuit, plan, device: str = "cuda",
-                       observable: str = SHARDMAP_CLI["observable"]) -> dict:
-    """The CLI under ``torchrun`` on 4 gloo ranks of the one card:
-    ``SHARDMAP_CLI_PATH``, the main path's plan (``ising(30)``, L=28, R=2).
-    Held: the printed program to the in-card plan's op counts; each rank's
-    launches to them; one printed line per remap, each m=2 remap sending
-    Eq. 2's bytes on every rank; each rank's peak device memory to two
-    shards and 1 GiB; the marginal and the expectation to
-    ``TorchMeasurer``'s on the in-card state within SHARDMAP_CLI["atol"].
-    ``device="cpu"`` dry-runs it on the host at a small plan of ``ising``
-    with R=2 (n and L taken from the plan; ``observable`` on its qubits)."""
+def shardmap_cli_phases(ops, ref, probe, card: str, circuit, plan, device: str = "cuda",
+                        observable: str = SHARDMAP_CLI["observable"],
+                        nccl_n: int = SHARDMAP_CLI_NCCL["n"], vqe_n: int = SHARDMAP_VQE["n"],
+                        vqe_L: int = SHARDMAP_VQE["L"]) -> dict:
+    """The CLI under ``torchrun``: one launch of 4 gloo ranks of the one card
+    (:func:`torchrun_cli_runs`) whose ranks call the CLI's entry point in
+    process, twice (the launch's fixed cost, 20-26 s on the card's host,
+    paid once), then once more on rank 0 alone at world size 1:
+
+    * ``SHARDMAP_CLI_PATH``, the main path's plan (``ising(30)``, L=28, R=2),
+      held by :func:`_hold_cli` to the in-card plan and ``TorchMeasurer``;
+    * ``SHARDMAP_VQE_PATH`` (``isingparam(vqe_n)`` at ``vqe_L``, R=2, one
+      Adam step), held by :func:`_hold_cli_vqe` to one ``CudaBackend``
+      ``value_and_grad`` of the same plan;
+    * ``SHARDMAP_CLI_NCCL_PATH`` at world size 1 over NCCL
+      (``isingparam(nccl_n)``, no collective runs), held by
+      :func:`_hold_cli_nccl` to a ``CudaBackend`` engine bit for bit.
+
+    Each target is computed in this process first, and the card's memory
+    freed for the ranks. Returns each run's figures (``"cli"``, ``"vqe"``,
+    ``"nccl"``) and the launch's seconds. ``device="cpu"`` dry-runs it on
+    the host at a small plan of ``ising`` with R=2 (n and L taken from the
+    plan; ``observable`` on its qubits), ``nccl_n`` and ``vqe_n``/``vqe_L``
+    (gloo at world size 1)."""
+    cli = _cli_target(circuit, plan, device, observable)
+    nccl = _cli_nccl_target(device, nccl_n)
+    vqe = _cli_vqe_target(device, vqe_n, vqe_L)
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the ranks need the card's memory
+    world = SHARDMAP_CLI["ranks"]
+    runs, seconds = torchrun_cli_runs(world, [cli["argv"], vqe["argv"]], nccl["argv"],
+                                      SHARDMAP_CLI["timeout"], device)
+    log(f"  one torchrun launch, {world} gloo ranks calling the CLI in process twice, then "
+        f"world size 1: {seconds:.1f} s launch to exit ({card})")
+    return {"cli": _hold_cli(card, cli, *runs[0], device),
+            "vqe": _hold_cli_vqe(ops, ref, probe, card, vqe, *runs[1], device),
+            "nccl": _hold_cli_nccl(card, nccl, *runs[2], device), "seconds": seconds}
+
+
+def _cli_target(circuit, plan, device: str, observable: str) -> dict:
+    """The main path's plan run in this process: its op counts, and the
+    marginal and expectation ``TorchMeasurer`` gives on the in-card state;
+    the CLI's argv for the same plan."""
     from repro_torch.sim.engine import ExecutionEngine
     from repro_torch.sim.measure import measurer_for
 
-    spec, world, L = SHARDMAP_CLI, SHARDMAP_CLI["ranks"], plan.L
+    spec = SHARDMAP_CLI
     eng = ExecutionEngine(circuit, plan, device=device)
     counts = eng.op_counts()
     state = eng.run_packed()
@@ -1115,13 +1219,21 @@ def shardmap_cli_phase(card: str, circuit, plan, device: str = "cuda",
     value = tm.expectation(observable)
     del tm, state, eng
     gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()  # the ranks need the card's memory
     argv = list(SHARDMAP_CLI_PATH)
     argv[argv.index("--qubits") + 1] = str(circuit.n_qubits)
-    argv[argv.index("--L") + 1] = str(L)
+    argv[argv.index("--L") + 1] = str(plan.L)
     argv[argv.index("--observable") + 1] = observable
-    out, doc, seconds = torchrun(world, argv, spec["timeout"], device)
+    return {"argv": argv, "counts": counts, "marg": marg, "value": value, "L": plan.L}
+
+
+def _hold_cli(card: str, t: dict, out: str, doc: dict, seconds: float, device: str) -> dict:
+    """``SHARDMAP_CLI_PATH`` on 4 gloo ranks against its target: the printed
+    program to the in-card plan's op counts; each rank's launches to them;
+    one printed line per remap, each m=2 remap sending Eq. 2's bytes on
+    every rank; each rank's peak device memory to two shards and 1 GiB; the
+    marginal and the expectation to ``TorchMeasurer``'s on the in-card
+    state within SHARDMAP_CLI["atol"]."""
+    spec, world, L, counts = SHARDMAP_CLI, SHARDMAP_CLI["ranks"], t["L"], t["counts"]
     printed = [ln for ln in out.splitlines() if "program:" in ln]
     want_program = ", ".join(f"{v} {k}" for k, v in sorted(counts.items()))
     require(len(printed) == 1 and printed[0].endswith("program: " + want_program)
@@ -1144,11 +1256,11 @@ def shardmap_cli_phase(card: str, circuit, plan, device: str = "cuda",
     res = doc["results"][0]
     got_marg = np.asarray(res["marginals"][",".join(map(str, spec["marginal"]))])
     (key, got_value), = res["expectations"].items()
-    marg_err = float(np.abs(got_marg - marg).max())
-    value_err = abs(got_value - value)
-    log(f"  {world} ranks through the CLI in {seconds:.1f} s (torchrun, imports, planning, "
-        f"build, run, measurement); run_packed {doc['seconds']:.3f} s; {want_program}; launches "
-        f"per rank {doc['launches'][0]}")
+    marg_err = float(np.abs(got_marg - t["marg"]).max())
+    value_err = abs(got_value - t["value"])
+    log(f"  {world} ranks through the CLI in {seconds:.1f} s (imports done; planning, build, "
+        f"run, measurement); run_packed {doc['seconds']:.3f} s; {want_program}; launches per "
+        f"rank {doc['launches'][0]}")
     for line in lines:
         log("  " + line.strip())
     log("  peak device memory per rank to the end of the run: "
@@ -1157,19 +1269,16 @@ def shardmap_cli_phase(card: str, circuit, plan, device: str = "cuda",
         require(all(p <= 2 * shard_bytes + (1 << 30) for p in doc["peaks"]),
                 "a rank held more than two shards during the CLI's run")
     log(f"  marginal {spec['marginal']} max |d| {marg_err:.3e}; <{key}> = {got_value:.9f} "
-        f"(TorchMeasurer on the in-card state {value:.9f}, |d| {value_err:.3e}) ({card})")
+        f"(TorchMeasurer on the in-card state {t['value']:.9f}, |d| {value_err:.3e}) ({card})")
     require(marg_err <= spec["atol"] and value_err <= spec["atol"],
             "the CLI's marginal or expectation differs from TorchMeasurer's on the in-card state")
     return {"launches": launches, "seconds": seconds}
 
 
-def shardmap_cli_nccl_phase(card: str, device: str = "cuda",
-                            n: int = SHARDMAP_CLI_NCCL["n"]) -> dict:
-    """The CLI under ``torchrun`` at world size 1 over NCCL
-    (``SHARDMAP_CLI_NCCL_PATH``: ``isingparam(28)`` at L=28, no collective
-    runs), held to a ``CudaBackend`` engine of the same plan in this
-    process: the op counts, one launch per op, and the marginal bit for
-    bit. ``device="cpu"`` dry-runs it over gloo at a small ``n``."""
+def _cli_nccl_target(device: str, n: int) -> dict:
+    """``isingparam(n)`` at L=n bound to SHARDMAP_CLI_NCCL["bind"] on a
+    ``CudaBackend`` engine in this process: its op counts and marginal; the
+    CLI's argv for it."""
     from repro_torch.core.generators import PARAM_FAMILIES
     from repro_torch.sim.engine import engine_for
     from repro_torch.sim.measure import measurer_for
@@ -1183,16 +1292,23 @@ def shardmap_cli_nccl_phase(card: str, device: str = "cuda",
     counts = eng.op_counts()
     del eng
     gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    out, doc, seconds = torchrun(1, argv, spec["timeout"], device)
+    return {"argv": argv, "counts": counts, "marg": marg}
+
+
+def _hold_cli_nccl(card: str, t: dict, out: str, doc: dict, seconds: float,
+                   device: str) -> dict:
+    """``SHARDMAP_CLI_NCCL_PATH`` at world size 1 over NCCL (gloo on the CPU)
+    against its target: the op counts, one launch per op, no remap, and the
+    marginal bit for bit."""
+    spec = SHARDMAP_CLI_NCCL
     backend = "nccl" if device == "cuda" else "gloo"
     require(f"torch.distributed {backend}, world size 1;" in out,
             f"the CLI did not run at world size 1 over {backend}:\n{out[-2000:]}")
-    require(doc["op_counts"] == counts, f"the CLI's program {doc['op_counts']} is not {counts}")
+    require(doc["op_counts"] == t["counts"],
+            f"the CLI's program {doc['op_counts']} is not {t['counts']}")
     launches = cli_launches(doc, "shardmap CLI over NCCL")
     got = np.asarray(doc["results"][0]["marginals"][",".join(map(str, spec["marginal"]))])
-    bitwise = bool(np.array_equal(got, marg))
+    bitwise = bool(np.array_equal(got, t["marg"]))
     log(f"  world size 1 through the CLI in {seconds:.1f} s; run_packed {doc['seconds']:.4f} s; "
         f"launches {doc['launches'][0]}; remaps {len(doc['remaps'])}; marginal "
         f"{spec['marginal']} bit for bit CudaBackend's: {bitwise} ({card})")
@@ -1201,77 +1317,80 @@ def shardmap_cli_nccl_phase(card: str, device: str = "cuda",
     return {"launches": launches, "seconds": seconds}
 
 
-def shardmap_vqe_phase(ops, ref, probe, card: str, device: str = "cuda",
-                       n: int = SHARDMAP_VQE["n"], L: int = SHARDMAP_VQE["L"]) -> dict:
-    """Gradients on the shardmap backend through the CLI under ``torchrun``:
-    ``SHARDMAP_VQE_PATH`` (``isingparam(n)`` at L, R=2, one Adam step) on 4
-    gloo ranks of the one card. First, in this process, the target: one
-    ``CudaBackend`` ``value_and_grad`` of the same plan at the first angles.
-    Held from rank 0's ``--result-json``: the first value and gradient to
-    it; each rank's launches to the forward plan's ops plus the sweep's (two
-    ``fused_apply`` per gate, one per slot and per local Pauli op); each
-    rank's sweep bytes within its bound, and each inverse remap's to Eq. 2;
-    each rank's peak within four shards and 1 GiB; one adjoint program
-    built in two calls. Then ``fused_apply`` at k=1 and k=2 on one 2^L
-    shard (the sweep's launches, padded), timed beside its plain version
-    and one torch.matmul: the returned ``rows`` (for ``fused["by_k"]``).
-    ``device="cpu"`` dry-runs it on the host at a small ``n`` and ``L``."""
+def _cli_vqe_target(device: str, n: int, L: int) -> dict:
+    """One ``CudaBackend`` ``value_and_grad`` of ``isingparam(n)``'s plan at
+    L, R=2, at the first angles, with an observable that adds an X/Y term on
+    the last stage's two device qubits; what the hold needs of the plan;
+    the CLI's argv for it."""
     from repro_torch.core.generators import PARAM_FAMILIES
     from repro_torch.sim.engine import engine_for
 
-    spec, world = SHARDMAP_VQE, SHARDMAP_VQE["ranks"]
-    sym = PARAM_FAMILIES["isingparam"](n)
-    eng = engine_for(sym, L, spec["R"], 0, device=device, cache=None)
+    spec = SHARDMAP_VQE
+    eng = engine_for(PARAM_FAMILIES["isingparam"](n), L, spec["R"], 0, device=device,
+                     cache=None)
     dev = eng.cc.programs[-1].layout[L:]
     obs = f"{VQE_OBS} + 0.25*X{dev[1]} Y{dev[0]}"
     theta0 = np.random.default_rng(VQE_SEED).uniform(0.0, 2 * np.pi, 2).astype(np.float32)
-    counts = eng.op_counts()
-    n_gates = len(eng.circuit.gates)
-    n_slots = sum(len(g.param_slots) for g in eng.circuit.gates)
+    t = {"n": n, "L": L, "obs": obs, "counts": eng.op_counts(),
+         "n_gates": len(eng.circuit.gates),
+         "n_slots": sum(len(g.param_slots) for g in eng.circuit.gates)}
     sync(device)
     t0 = time.perf_counter()
-    want_v, want_g = eng.value_and_grad(obs, params=theta0)
+    t["value"], t["grad"] = eng.value_and_grad(obs, params=theta0)
     sync(device)
-    card_s = time.perf_counter() - t0
-    k_gates = {}
+    t["card_s"] = time.perf_counter() - t0
+    t["k_gates"] = {}
     for g, bound in zip(eng.circuit.gates, eng.bound_circuit.gates):  # for the timings
         if g.param_slots:
-            k_gates.setdefault(len(g.qubits), bound)
-    phys_of = {q: p for p, q in enumerate(eng.cc.programs[-1].layout)}
+            t["k_gates"].setdefault(len(g.qubits), bound)
+    t["phys_of"] = {q: p for p, q in enumerate(eng.cc.programs[-1].layout)}
     del eng
     gc.collect()
-    if device == "cuda":
-        torch.cuda.empty_cache()
     argv = list(SHARDMAP_VQE_PATH)
     argv[argv.index("--qubits") + 1] = str(n)
     argv[argv.index("--L") + 1] = str(L)
-    argv += ["--vqe", obs]
-    out, doc, seconds = torchrun(world, argv, spec["timeout"], device)
+    t["argv"] = argv + ["--vqe", obs]
+    return t
+
+
+def _hold_cli_vqe(ops, ref, probe, card: str, t: dict, out: str, doc: dict, seconds: float,
+                  device: str) -> dict:
+    """``SHARDMAP_VQE_PATH`` on 4 gloo ranks against its target (rank 0's
+    ``--result-json``): the first value and gradient; each rank's launches
+    to the forward plan's ops plus the sweep's (two ``fused_apply`` per
+    gate, one per slot and per local Pauli op); each rank's sweep bytes
+    within its bound, and each inverse remap's to Eq. 2; each rank's peak
+    within four shards and 1 GiB; one adjoint program built in two calls.
+    Then ``fused_apply`` at k=1 and k=2 on one 2^L shard (the sweep's
+    launches, padded), timed beside its plain version and one torch.matmul:
+    the returned ``rows`` (for ``fused["by_k"]``)."""
+    spec, world, n, L, counts = SHARDMAP_VQE, SHARDMAP_VQE["ranks"], t["n"], t["L"], t["counts"]
     require(doc["op_counts"] == counts,
             f"the CLI's program {doc['op_counts']} is not the in-card plan's {counts}")
     v0, g0 = doc["energies"][0], np.asarray(doc["first_grad"])
+    want_v, want_g = t["value"], t["grad"]
     dv, dg = abs(v0 - want_v), float(np.abs(g0 - want_g).max())
     shard = 8 << L
     sweeps = doc["sweeps"]
-    log(f"  {world} ranks through the CLI in {seconds:.1f} s (torchrun, imports, planning, "
-        f"build, two value_and_grad calls); observable {obs}; program {counts}")
+    log(f"  {world} ranks through the CLI in {seconds:.1f} s (imports done; planning, build, "
+        f"two value_and_grad calls); observable {t['obs']}; program {counts}")
     log(f"  first value {v0:+.9f} and gradient {g0} against CudaBackend's {want_v:+.9f} and "
-        f"{want_g} ({card_s:.3f} s): |d| {dv:.3e}, {dg:.3e}")
+        f"{want_g} ({t['card_s']:.3f} s): |d| {dv:.3e}, {dg:.3e}")
     require(dv <= spec["value_atol"] and dg <= spec["grad_atol"],
             "the sharded value_and_grad differs from CudaBackend's")
     log(f"  value_and_grad seconds {doc['grad_seconds']} (the first builds the adjoint "
-        f"program) on {world} gloo ranks, against {card_s:.3f} s on CudaBackend ({card})")
+        f"program) on {world} gloo ranks, against {t['card_s']:.3f} s on CudaBackend ({card})")
     for d, w in enumerate(sweeps):
         log(f"  rank {d}: forward {w['forward_s']:.3f} s, λ {w['lambda_s']:.3f} s, sweep kernels "
             f"{w['kernels_s']:.3f} s, sweep remaps {w['remaps_s']:.3f} s; sweep bytes sent "
             f"{w['bytes_sent']}, received {w['bytes_received']} (bound {w['bound']}); launches "
             f"{doc['launches'][d]}; peak {gib(doc['peaks'][d])}")
     for d, (c, w) in enumerate(zip(doc["launches"], sweeps)):
-        want_f = counts.get("fused", 0) + 2 * n_gates + n_slots + w["pauli_launches"]
+        want_f = counts.get("fused", 0) + 2 * t["n_gates"] + t["n_slots"] + w["pauli_launches"]
         require(c["fused"] == want_f and c["shm"] == counts.get("shm", 0)
                 and sum(c["by_k"].values()) == c["fused"],
-                f"rank {d} launched {c}: forward {counts} + sweep {2 * n_gates + n_slots} + "
-                f"{w['pauli_launches']} Pauli ops")
+                f"rank {d} launched {c}: forward {counts} + sweep "
+                f"{2 * t['n_gates'] + t['n_slots']} + {w['pauli_launches']} Pauli ops")
         require(0 < w["bytes_sent"] <= w["bound"] and w["bytes_received"] <= w["bound"],
                 f"rank {d}: the sweep moved {w['bytes_sent']}/{w['bytes_received']} bytes, "
                 f"bound {w['bound']}")
@@ -1305,8 +1424,8 @@ def shardmap_vqe_phase(ops, ref, probe, card: str, device: str = "cuda",
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             for k in (1, 2):
-                g = k_gates[k]
-                bits = tuple(phys_of[q] for q in g.qubits)
+                g = t["k_gates"][k]
+                bits = tuple(t["phys_of"][q] for q in g.qubits)
                 if max(bits) >= L:
                     bits = tuple(range(k))
                 u = torch.from_numpy(np.ascontiguousarray(g.inverse_matrix, dtype=np.complex64))
@@ -3930,12 +4049,19 @@ def train_phase(ops, card: str, device: str = "cuda", spec: dict = TRAIN) -> dic
 # runs on CUDA tensors (each in turn: gloo aborts the process on CUDA
 # send/recv; the path uses all-gather, all-reduce with SUM and MAX, and
 # reduce-scatter), then call the two CLIs' run in process, bf16 at full
-# depth: serve_llm (4 prompts of 128, `gen` generated: decode ms a step) and
-# train (`train_steps` steps of 8 x 128, remat: step ms, the second step's),
-# each with its collective bytes per rank and every rank's peak; every
-# rank's bytes (the cast, the prefill, a decode step, each train step) must
+# depth: serve_llm (4 prompts of 128, `gen` generated: decode ms a step;
+# each rank's shards of the weights at rest, every layer gathered at its
+# use) and train (`train_steps` steps of 8 x 128, remat: step ms, the
+# second step's), each with its collective bytes per rank and every rank's
+# peak (serving's from a reset after the build); every rank's bytes (the
+# cast: none at rest; the prefill, a decode step, each train step) must
 # equal the census of the same steps on a fake group of the same mesh
-# (`--lm-shard-census`, run beside the torchrun with no card visible). Then
+# (`--lm-shard-census`, run beside the torchrun with no card visible). The
+# same serving again by hand, at rest and from the gathered tree
+# (`parallel.full` of the cast, held through the run): every decision's
+# logits and tokens (and the CLI's tokens) equal bit for bit on every rank
+# (a gather copies; the arithmetic is the same), and each rank's serving
+# peak at rest below the gathered tree's. Then
 # the float32 checks of each of `check_archs` (dense GQA; Mamba-2's heads;
 # MLA and MoE), the model cut to `check_layers` layers at full width (TF32
 # off), ranks against rank 0's one-card run of the same weights (a MoE's a
@@ -4024,7 +4150,9 @@ def lm_shard_check_rank(spec_path: str) -> None:
     """Under torchrun, each rank of ``lm_shard_phase`` (see LM_SHARD): the
     gloo probe; ``serve_llm.run`` and ``train.run`` in bf16 at full depth,
     in this process (they join its group), rank 0 keeping what they print,
-    every rank its collective bytes; then the float32 checks of each of
+    every rank its collective bytes and the served tokens; the same
+    serving by hand at rest and from the gathered tree
+    (:func:`lm_shard_serve_twice`); then the float32 checks of each of
     ``spec["check_archs"]`` (:func:`lm_shard_check_arch`). Rank 0 writes
     the figures to ``spec["out"]``."""
     import contextlib
@@ -4052,21 +4180,76 @@ def lm_shard_check_rank(spec_path: str) -> None:
         with contextlib.redirect_stdout(printed):
             done = cli.run(lm_shard_argv(spec, name))
         clis[name] = {"printed": printed.getvalue(), "seconds": time.time() - t0}
+        if name == "serve":
+            clis[name]["tokens"] = done.tokens.cpu()
         moved[name] = done.collective_bytes
         del done
     _fresh(spec["device"])
     mesh = make_host_mesh(data=spec["data"], model=spec["model"], device=spec["device"])
+    twice = lm_shard_serve_twice(spec, ctx, mesh)
+    served = clis["serve"].pop("tokens")
+    _fresh(spec["device"])
     archs = {arch: lm_shard_check_arch(spec, arch, ctx, mesh) for arch in spec["check_archs"]}
+    rest, whole = twice["rest"], twice["gathered"]
     gathered = [None] * ctx.world
     dist.all_gather_object(gathered, {"archs": {a: {k: v for k, v in f.items() if k in (
         "loss", "serve_moved", "train_moved")} for a, f in archs.items()},
         "cli_moved": moved, "launches": ops.kernel_call_counts(),
-        "peak": _peak(spec["device"])})
+        "peak": _peak(spec["device"]),
+        "serve_peaks": {"rest": rest["peak"], "gathered": whole["peak"]},
+        "bitwise": {"logits": bool(torch.equal(rest["logits"], whole["logits"])),
+                    "tokens": bool(torch.equal(rest["tokens"], whole["tokens"])),
+                    "cli_tokens": bool(torch.equal(served, whole["tokens"]))}})
     if ctx.rank == 0:
+        twice = {"seconds": twice["seconds"], "steps": rest["logits"].shape[0],
+                 "max_abs_diff": float((rest["logits"] - whole["logits"]).abs().max()),
+                 "scale": float(whole["logits"].abs().max())}
         with open(spec["out"], "w") as f:
             json.dump({"clis": clis, "gloo": gloo, "archs": archs, "ranks": gathered,
-                       "lr": spec["check_lr"]}, f)
+                       "twice": twice, "lr": spec["check_lr"]}, f)
     ctx.close()
+
+
+def lm_shard_serve_twice(spec: dict, ctx, mesh) -> dict:
+    """``lm_shard_check_rank``'s bf16 serving again by hand, on the CLI's
+    weights and prompts: at rest (``Model.cast_params``: each rank's cast
+    shards, every layer gathered at its use, as the CLI serves) and from
+    the gathered tree (``parallel.full`` of the same cast, made ready once
+    and held through the run). Each run: its greedy tokens, every decision's
+    logits (float32 on the host: exact for bf16) and this rank's serving
+    peak (``max_memory_allocated`` from a reset after the build to the end
+    of decode)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_model
+    from repro_torch.models import parallel
+
+    dev, B, P, G = ctx.device, spec["batch"], spec["prompt"], spec["gen"]
+    cfg = get_arch(spec["arch"])
+    cfg = cfg.reduced() if spec["reduced"] else cfg
+    model = build_model(cfg, dev, torch.Generator(device=dev).manual_seed(spec["seed"]),
+                        remat=False, mesh=mesh)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(spec["seed"])).to(dev)
+    out = {}
+    t0 = time.time()
+    for how in ("rest", "gathered"):
+        _fresh(spec["device"])
+        params = model.cast_params()
+        if how == "gathered":
+            params = parallel.full(params)
+        logits, cache = model.prefill(prompts, cache_len=P + G, params=params)
+        got, toks = [], []
+        for i in range(G):
+            if i:
+                logits, cache = model.decode_step(toks[-1], cache, params=params)
+            got.append(logits.float().cpu())
+            toks.append(torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+        sync(spec["device"])
+        out[how] = {"logits": torch.stack(got), "tokens": torch.cat(toks, 1).cpu(),
+                    "peak": _peak(spec["device"])}
+        del params, cache, logits, toks
+    out["seconds"] = time.time() - t0
+    return out
 
 
 def lm_shard_check_arch(spec: dict, arch: str, ctx, mesh) -> dict:
@@ -4239,13 +4422,17 @@ def lm_shard_census(out_path: str) -> None:
     group of 4 ranks as data 2 x model 2) of the steps ``lm_shard_phase``'s
     bf16 CLIs run: a train step (``train_batch`` x ``seq``, remat, one
     microbatch) and serving (the weights' cast, the prefill, a decode step
-    of the ``gen - 1``): each one's collective bytes a rank."""
+    of the ``gen - 1``): each one's collective bytes a rank; and the
+    census's peak live bytes a rank of that serving at rest and from the
+    gathered tree (``parallel.full`` of the cast), with the live and peak
+    bytes once the weights are ready (the parameters: ``argument``)."""
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import dryrun, hlo_analysis as ha
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import abstract_state, build_model, make_decode_step, \
         make_train_step
+    from repro_torch.models import parallel
     from repro_torch.optim import adamw
 
     spec = LM_SHARD
@@ -4267,18 +4454,28 @@ def lm_shard_census(out_path: str) -> None:
         del model, params, opt_state
         model = build_model(cfg, "meta", remat=False, mesh=mesh)
         B, P, G = spec["batch"], spec["prompt"], spec["gen"]
-        with ha.Census() as c:
-            with ha.section("weights"):
-                weights = model.cast_params()
-            with ha.section("prefill"):
-                logits, cache = model.prefill(meta(B, P), cache_len=P + G, params=weights)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            step = make_decode_step(model)
-            with ha.section("decode"):
-                for _ in range(G - 1):
-                    tok, cache = step(weights, tok, cache)
-        out["serve"] = {"weights": c["weights"].moved, "prefill": c["prefill"].moved,
-                        "decode": c["decode"].moved // (G - 1)}
+        peaks, ready = {}, {}
+        for how in ("rest", "gathered"):
+            with ha.Census() as c:
+                with ha.section("weights"):
+                    weights = model.cast_params()
+                    if how == "gathered":
+                        weights = parallel.full(weights)
+                ready[how] = [c.live, c.peak]
+                with ha.section("prefill"):
+                    logits, cache = model.prefill(meta(B, P), cache_len=P + G, params=weights)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                step = make_decode_step(model)
+                with ha.section("decode"):
+                    for _ in range(G - 1):
+                        tok, cache = step(weights, tok, cache)
+                del weights, logits, cache, tok
+            peaks[how] = c.memory["peak"]
+            if how == "rest":
+                out["serve"] = {"weights": c["weights"].moved, "prefill": c["prefill"].moved,
+                                "decode": c["decode"].moved // (G - 1)}
+        out["serve_peaks"] = peaks
+        out["serve_weights_ready"] = dict(ready, argument=c.argument)
     with open(out_path, "w") as f:
         json.dump(out, f)
 
@@ -4361,6 +4558,33 @@ def lm_shard_phase(ops, card: str, spec: dict = LM_SHARD) -> dict:
     for line in out.splitlines():
         if line.startswith("   ["):
             log("  " + line)
+
+    # the same serving by hand: at rest against the gathered tree
+    tw = chk["twice"]
+    rest = [r["serve_peaks"]["rest"] for r in chk["ranks"]]
+    whole = [r["serve_peaks"]["gathered"] for r in chk["ranks"]]
+    figures["serve"].update(rest_peaks=rest, gathered_peaks=whole, twice_s=tw["seconds"])
+    log(f"  the same weights and prompts served again by hand ({tw['seconds']:.1f}s), at rest "
+        f"and from the gathered tree (parallel.full of the cast): prefill and {tw['steps'] - 1} "
+        f"decode steps' logits max |d| {tw['max_abs_diff']:.3e} on logits up to "
+        f"{tw['scale']:.3f}; per rank bit for bit (logits, tokens, the CLI's tokens): "
+        + "; ".join(f"{r['bitwise']}" for r in chk["ranks"]))
+    log(f"  each rank's serving peak (from a reset after the build to the end of decode): at "
+        f"rest {rest} bytes (the CLI's {peaks}), the gathered tree {whole} bytes: "
+        + ", ".join(str(w - r) for r, w in zip(rest, whole)) + f" bytes less at rest ({card}); "
+        f"the census's peaks of the same serving on the fake group (meta tensors: the "
+        f"parameters, weights, caches and activations it sees live): at rest "
+        f"{counted['serve_peaks']['rest']}, the gathered tree "
+        f"{counted['serve_peaks']['gathered']} bytes; [live, peak] once the weights are ready: "
+        f"at rest {counted['serve_weights_ready']['rest']}, the gathered tree "
+        f"{counted['serve_weights_ready']['gathered']} (the parameters "
+        f"{counted['serve_weights_ready']['argument']})")
+    figures["serve"]["census_peaks"] = counted["serve_peaks"]
+    for r, rank in enumerate(chk["ranks"]):
+        require(all(rank["bitwise"].values()), f"rank {r}: serving at rest is not the gathered "
+                f"tree's bit for bit: {rank['bitwise']}")
+    require(spec["device"] != "cuda" or all(r < w for r, w in zip(rest, whole)),
+            f"a rank's serving peak at rest {rest} is not below the gathered tree's {whole}")
 
     out, took = clis["train"]["printed"], clis["train"]["seconds"]
     steps = re.findall(r"^step +(\d+) loss +([\d.]+) gnorm +([\d.]+) lr \S+ +(\d+) ms$", out,
@@ -4805,17 +5029,16 @@ def main() -> None:
     log("== shardmap over NCCL, world size 1: qft({n}) L={L}".format(**SHARDMAP_NCCL))
     paths["qft28_shardmap_nccl1"] = shardmap_nccl_phase(ops, card, **SHARDMAP_NCCL)["launches"]
     torch.cuda.empty_cache()
-    log("== shardmap CLI under torchrun: {ranks} gloo ranks on the one card, ".format(
-        **SHARDMAP_CLI) + " ".join(SHARDMAP_CLI_PATH))
-    paths["ising30_shardmap4_cli"] = shardmap_cli_phase(card, *main_plan)["launches"]
-    log("== shardmap CLI under torchrun, world size 1 over NCCL: "
-        + " ".join(SHARDMAP_CLI_NCCL_PATH))
-    paths["isingparam28_shardmap1_cli"] = shardmap_cli_nccl_phase(card)["launches"]
-    torch.cuda.empty_cache()
-    log("== shardmap gradients under torchrun: {ranks} gloo ranks on the one card, ".format(
-        **SHARDMAP_VQE) + " ".join(SHARDMAP_VQE_PATH) + " --vqe <VQE_OBS + X/Y on device qubits>")
-    shardmap_vqe = shardmap_vqe_phase(ops, ref, probe, card)
+    log("== shardmap CLI under one torchrun launch: {ranks} gloo ranks on the one card call "
+        "the CLI in process: ".format(**SHARDMAP_CLI) + " ".join(SHARDMAP_CLI_PATH) + "; then "
+        + " ".join(SHARDMAP_VQE_PATH) + " --vqe <VQE_OBS + X/Y on device qubits>; then rank 0 "
+        "at world size 1 over NCCL: " + " ".join(SHARDMAP_CLI_NCCL_PATH))
+    cli_runs = shardmap_cli_phases(ops, ref, probe, card, *main_plan)
+    paths["ising30_shardmap4_cli"] = cli_runs["cli"]["launches"]
+    paths["isingparam28_shardmap1_cli"] = cli_runs["nccl"]["launches"]
+    shardmap_vqe = cli_runs["vqe"]
     paths["isingparam{n}_shardmap4_vqe".format(**SHARDMAP_VQE)] = shardmap_vqe["launches"]
+    del cli_runs
     torch.cuda.empty_cache()
     log(f"  the shardmap phases took {time.time() - t_shardmap:.1f}s")
 
@@ -4974,7 +5197,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--lm-shard-check"]:
+    if sys.argv[1:2] == ["--shardmap-cli-check"]:
+        shardmap_cli_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--lm-shard-check"]:
         lm_shard_check_rank(sys.argv[2])
     elif sys.argv[1:2] == ["--lm-shard-census"]:
         lm_shard_census(sys.argv[2])

@@ -17,7 +17,8 @@ Per cell this records into ``<results-dir>/<arch>__<shape>__<mesh>.json``:
   * ``cost_flops``, ``cost_bytes`` (the step's FLOPs and fused-tier bytes);
   * ``census``      (each section's flops, byte tiers, op count and
                      collectives: ``step``, and a serving cell's
-                     ``weights``, the parameters cast and gathered once);
+                     ``weights``, each rank's shards cast at rest: the
+                     step gathers each layer at its use);
   * ``roofline``    (the three-term roofline against one H100's data-sheet
                      peaks, and whether the peak fits in its 80 GB);
   * ``trace_s``     (the traced step's seconds on the host; the reference's

@@ -12,8 +12,11 @@ With ``--data-par``/``--model-par`` above 1 it runs under ``torchrun``, one
 process per device of the ``data x model`` mesh (``--dist-backend``:
 ``nccl``, one rank per card, the default on CUDA; ``gloo``, the default on
 the CPU and the way to run several ranks on one card): the model is
-sharded with the reference's rules, each data shard decodes its rows, and
-only rank 0 prints.
+sharded with the reference's rules, each rank keeps its shards of the
+weights at rest (cast, never gathered whole) and every step gathers each
+layer's at its use, as the reference's jitted step does; each data shard
+decodes its rows, and only rank 0 prints (on the card, with each rank's
+serving peak: the most device memory it held after the build).
 
 Example (CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve_llm --arch qwen2-1.5b --reduced \\
@@ -50,7 +53,8 @@ class ServeRun:
     """What :func:`run` leaves: the generated tokens, [B, G] int32 (the
     prefill's token and G - 1 decode steps; on a mesh, the whole batch on
     every rank), and this rank's collective bytes (``weights``: the cast,
-    ``prefill``, ``decode``: a step's; empty off a mesh)."""
+    none with the shards at rest; ``prefill``, ``decode``: a step's, each
+    with its gathers of the weights; empty off a mesh)."""
 
     tokens: torch.Tensor
     collective_bytes: Dict[str, int] = field(default_factory=dict)
@@ -104,8 +108,13 @@ def _serve(args, ctx, mesh) -> ServeRun:
               f"({ctx.backend})")
     model = build_model(cfg, device, torch.Generator(device=device).manual_seed(args.seed),
                         remat=False, mesh=mesh)
+    if mesh is not None and device.type == "cuda":  # the printed peaks: serving's
+        torch.cuda.reset_peak_memory_stats(device)
     reset_collectives()
-    params = model.cast_params()  # cast once: the bits each forward would cast to
+    # cast once: the bits each forward would cast to. On a mesh each rank's
+    # shards stay at rest (no collective here): prefill and every decode
+    # step gather each layer's weights at its use
+    params = model.cast_params()
     moved = {"weights": collective_bytes()}
 
     B, P, G = args.batch, args.prompt_len, args.gen_len

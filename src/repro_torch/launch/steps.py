@@ -182,8 +182,11 @@ def jitted_train_step(
 def jitted_serve_step(model: Model, mesh, shape: ShapeConfig, multi_pod: bool):
     """Prefill (``shape.kind == "prefill"``) or one decode step (``"decode"``)
     on ``meta``, as ``launch/serve_llm.py`` runs them: ``fn`` casts the
-    parameters once (``Model.cast_params``, counted under the census section
-    ``"weights"``), then steps. Prefill's ``args`` are ``(params, batch)``;
+    parameters (``Model.cast_params``, counted under the census section
+    ``"weights"``; on a mesh each rank's local shards, no collective), then
+    steps, and the step gathers each layer's weights at its use, as the
+    reference's jitted step casts inside it and keeps the FSDP shards at
+    rest. Prefill's ``args`` are ``(params, batch)``;
     decode's ``(params, tokens [B, 1], cache[, extras])`` with the cache of
     ``shape.seq_len`` made for the data shard's rows where the data axes
     divide the batch (else the whole batch), as ``cache_shardings`` says."""

@@ -427,13 +427,14 @@ class Model(nn.Module):
     def cast_params(self, named: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
         """The tree as a forward sees it after the cast rule: computed once
         for serving, the same bits a forward casts to. On a mesh, each
-        weight made ready once: gathered over the data axes, and over the
-        model axis only where a layer computes with the whole leaf or with
-        a slice other than its stored chunk (``MeshPlan``'s steps); the
-        model axis's shards of a tensor- or expert-parallel layer stay this
-        rank's. ``named``: tensors to cast in place of the parameters, by
-        name (as :meth:`tree`)."""
-        return full(_cast_params(self._local(self.tree(named)), self.compute_dtype))
+        rank's local shards cast, as :class:`~repro_torch.models.parallel.Sharded`
+        leaves, and no collective: the FSDP shards stay at rest, and
+        prefill and decode make each layer's weights ready at its use (the
+        reference's jitted serve step casts inside the step and XLA gathers
+        a layer at a time). ``parallel.full`` of the result is the tree
+        made ready whole, once. ``named``: tensors to cast in place of the
+        parameters, by name (as :meth:`tree`)."""
+        return _cast_params(self._local(self.tree(named)), self.compute_dtype)
 
     # ------------------------------------------------------------- caches
     def init_cache(self, batch: int, cache_len: int) -> Dict:

@@ -10,10 +10,12 @@ import sys
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch import dryrun, hlo_analysis as ha
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-from repro_torch.launch.steps import abstract_state, build_model, make_decode_step, make_train_step
+from repro_torch.launch.steps import abstract_state, build_model, jitted_serve_step, \
+    make_decode_step, make_train_step
 from repro_torch.models import parallel
 from repro_torch.optim import adamw
 
@@ -118,8 +120,9 @@ def per_device():
 
 
 def cli(results_dir):
-    """One cell of the CLI end to end, its resume, a skipped cell, and the
-    refusals."""
+    """One cell of the CLI end to end, its resume, a skipped cell, the same
+    cell's step split into its weights made ready whole and the step on
+    them, and the refusals."""
     from io import StringIO
     from contextlib import redirect_stdout
 
@@ -133,6 +136,19 @@ def cli(results_dir):
         runs.append({"counts": counts, "out": buf.getvalue()})
     with open(dryrun.cell_path(results_dir, "qwen2-1.5b", "decode_32k", True)) as f:
         cell = json.load(f)
+    # the same cell's step split in two: its weights made ready whole once
+    # (``parallel.full`` of the cast at rest), then the decode step on them
+    split = {}
+    with dryrun.fake_group(512):
+        mesh = make_production_mesh(multi_pod=True, device="cpu")
+        model = build_model(get_arch("qwen2-1.5b"), "meta", mesh=mesh, pad_heads=False)
+        _, args = jitted_serve_step(model, mesh, SHAPES["decode_32k"], True)
+        with ha.Census() as c:
+            weights = parallel.full(model.cast_params(args[0]))
+        split["gathered_tree"] = c.step.collectives
+        with ha.Census() as c:
+            make_decode_step(model)(weights, *args[1:])
+        split["step_on_tree"] = c.step.collectives
     refused = {}
     with dryrun.fake_group(4):
         try:
@@ -144,7 +160,7 @@ def cli(results_dir):
             make_production_mesh(device="cpu")
         except ValueError as e:
             refused["mesh"] = str(e)
-    return {"runs": runs, "cell": cell, "refused": refused}
+    return {"runs": runs, "cell": cell, "split": split, "refused": refused}
 
 
 def main(out_path: str, results_dir: str) -> None:

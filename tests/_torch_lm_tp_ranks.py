@@ -22,8 +22,9 @@ def _placement(model, name: str) -> str:
 
 def leaves(mesh, name: str, params, over: dict, pad: bool = False):
     """Which parameters compute with the rank's own model-axis chunk, each
-    parameter's model-axis placement, the cast's collectives (calls and
-    bytes by kind) and each cast leaf's shape beside its whole shape.
+    parameter's model-axis placement, the collectives (calls and bytes by
+    kind) of the cast tree made ready whole (``parallel.full``) and each of
+    its leaves' shape beside its whole shape.
     ``pad``: build with ``build_model``'s head policy."""
     from repro_torch.launch.steps import build_model
     from repro_torch.models import parallel
@@ -34,8 +35,9 @@ def leaves(mesh, name: str, params, over: dict, pad: bool = False):
         cfg = build_model(cfg, "meta", mesh=mesh).cfg
     model = base._model(cfg, params, mesh)
     par = model.par
+    rest = model.cast_params()  # each rank's shards at rest, no collective
     parallel.reset_collectives()
-    cast = flatten_tree(model.cast_params())
+    cast = flatten_tree(parallel.full(rest))  # made ready whole, once
     moved = {k: list(v) for k, v in parallel.COLLECTIVES.items()}
     named = dict(model.named_parameters())
     return {"local": sorted(k for k in named if par.local_on_model(k)),

@@ -69,7 +69,11 @@ CASES_TIMEOUT_S = 240
 # step the same at one token: 28 x 13312 + 6144 + 304128 + 608256 =
 # 1291264.
 PR29_TRAIN_STEP = 1603141632 + 859963392 + 223760398
-PR29_SERVE = {"weights": 859963392, "prefill": 49409024, "decode": 1291264}
+# Serving with the shards at rest: the cast gathers nothing, and prefill and
+# each decode step gather what it gathered, each layer's at its use (the
+# body's 743178240, the embedding's 116785152): prefill 49409024 +
+# 859963392 = 909372416, a decode step 1291264 + 859963392 = 861254656.
+PR30_SERVE = {"weights": 0, "prefill": 49409024 + 859963392, "decode": 1291264 + 859963392}
 
 
 @pytest.fixture(scope="module")
@@ -367,12 +371,14 @@ def test_census_train_step_is_pr27s(cases):
 
 @pytest.mark.parametrize("phase", ["weights", "prefill", "decode"])
 def test_census_serving_is_pr27s(cases, phase):
+    """Serving as ``serve_llm`` runs it, with the shards at rest: the
+    census, ``parallel.COLLECTIVES`` and the bytes reckoned above agree."""
     serve = cases["pr27"]["serve"]
     census = serve["census"][phase]
     if phase == "decode":
         assert census % serve["decode_steps"] == 0
         census //= serve["decode_steps"]
-    assert census == serve["counter"][phase] == PR29_SERVE[phase]
+    assert census == serve["counter"][phase] == PR30_SERVE[phase]
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
@@ -411,7 +417,19 @@ def test_cli_cell_end_to_end(cases):
     assert {"arch", "shape", "kind", "trace_s", "memory", "cost_flops", "cost_bytes", "census",
             "roofline", "hardware", "wall_s"} <= set(cell)
     assert set(cell["census"]) == {"step", "weights"}
-    assert cell["census"]["weights"]["collectives"]["all-gather"]["count"] > 0
+    # the weights' cast moves nothing; the step's all-gathers carry the
+    # weights: the bytes of the tree made ready whole, then of the step on
+    # it (the tree gathers a stacked leaf in one call, the step a layer's)
+    assert cell["census"]["weights"]["ops"] > 0
+    assert cell["census"]["weights"]["collectives"] == {}
+    split = cases["cli"]["split"]
+    tree = split["gathered_tree"]["all-gather"]
+    assert tree["moved"] > 0 and set(split["gathered_tree"]) == {"all-gather"}
+    step = cell["census"]["step"]["collectives"]["all-gather"]
+    rest = split["step_on_tree"]["all-gather"]
+    for k in ("moved", "bytes"):
+        assert step[k] == tree[k] + rest[k], k
+    assert step["count"] > tree["count"] + rest["count"]
     assert cell["roofline"]["fits"] and cell["memory"]["peak"] < 80e9
     assert cell["hardware"]["power_limit_w"] == 700.0
 

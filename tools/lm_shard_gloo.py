@@ -8,10 +8,12 @@ checkouts of that phase side by side and breaks their times down.
   python tools/lm_shard_gloo.py count [--tree DIR]
       No card: the collectives a rank makes, by kind ``[calls, bytes]``,
       in the phase's bf16 train step and in one of its decode steps
-      (meta tensors on a fake 2 x 2 group), and how many of the decode
-      step's all-gathers make a step's new k/v whole for the cache
-      (``MeshPlan.gather_kv``, where the checkout has it). DIR is the
-      checkout to count (default: this one).
+      (meta tensors on a fake 2 x 2 group; the decode step as the phase
+      serves it, from ``Model.cast_params``: where the checkout keeps the
+      weights at rest, its all-gathers also make each layer's weights
+      ready), and how many of the decode step's all-gathers make a step's
+      new k/v whole for the cache (``MeshPlan.gather_kv``, where the
+      checkout has it). DIR is the checkout to count (default: this one).
 
   torchrun --standalone --nproc-per-node 4 tools/lm_shard_gloo.py probe OUT
       On the card: the median time of one gloo all_gather, all_reduce and

@@ -208,6 +208,20 @@ within 10% of ``max_memory_allocated``, its op count within 2x of the
 profiler's kernel count, its flops and bytes over the data-sheet peaks
 beside the step's ms).
 
+Then the twins of the repository's four examples (``repro_torch.examples``),
+each through its own ``python -m`` entry point in a process of its own (and
+session: killed whole on a timeout), each ending with ``OK``: ``quickstart``
+(``qft(12)`` L=9 R=2 G=1 against the dense oracle; the launches of its
+plan's ops), ``simulate_qft`` (``qft(20)`` L=17 on 8 spawned gloo ranks of
+the card, every rank's kernel launches summed; each path's fidelity and
+seconds, each backend's ``<obs>`` against the oracle's, and the seconds
+until the 8 ranks joined), ``serve_lm`` (reduced deepseek-v2-lite; tokens/s)
+and ``train_lm`` at its accelerator width (``--d-model 768 --layers 12``;
+the first and last loss, which must fall). Their launches count under
+``launches_by_path``: ``quickstart`` and ``simulate_qft`` through the
+kernels, the LM twins neither kernel. (To make room for it, the LM
+sharding phase's generation was cut from 8 tokens to 4.)
+
 Prints the card's name and power limit, the ``shm_apply`` member-count /
 window sweep on the widest group as a diagnostic line, one JSON line of
 kernel figures (``fused_apply`` per width k beside ``torch.matmul``, both
@@ -1034,15 +1048,13 @@ def shardmap_nccl_phase(ops, card: str, n: int, L: int, backend: str = "nccl",
     return {"launches": launches}
 
 
-def torchrun_launch(nproc: int, target: list, timeout: float) -> tuple:
-    """``python -m torch.distributed.run --standalone --nproc-per-node nproc
-    target`` in its own session (on a timeout the whole group, torchrun and
-    its workers, is killed): ``(stdout, seconds)``; raises unless every rank
-    exited 0."""
+def session_run(cmd: list, timeout: float, what: str) -> tuple:
+    """``python cmd`` (with ``src`` on its path) in its own session: on a
+    timeout the whole group, the process and any it started, is killed and
+    this raises. ``(stdout, stderr, exit code, seconds)``."""
     import signal
 
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           str(nproc), *target]
+    cmd = [sys.executable, *cmd]
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     log("  " + " ".join(cmd[1:]))
     t0 = time.time()
@@ -1053,10 +1065,18 @@ def torchrun_launch(nproc: int, target: list, timeout: float) -> tuple:
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        raise RuntimeError(f"torchrun overran {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
-    seconds = time.time() - t0
-    require(proc.returncode == 0,
-            f"torchrun exited {proc.returncode}:\n{out[-3000:]}\n{err[-5000:]}")
+        raise RuntimeError(f"{what} overran {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
+    return out, err, proc.returncode, time.time() - t0
+
+
+def torchrun_launch(nproc: int, target: list, timeout: float) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc-per-node nproc
+    target`` (:func:`session_run`): ``(stdout, seconds)``; raises unless
+    every rank exited 0."""
+    out, err, rc, seconds = session_run(
+        ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(nproc),
+         *target], timeout, "torchrun")
+    require(rc == 0, f"torchrun exited {rc}:\n{out[-3000:]}\n{err[-5000:]}")
     return out, seconds
 
 
@@ -4077,7 +4097,7 @@ def train_phase(ops, card: str, device: str = "cuda", spec: dict = TRAIN) -> dic
 # each arch's model-axis-local leaves and collectives by kind printed. The
 # path reaches no pallas_call: no hand kernel may launch, on any rank.
 LM_SHARD = {"arch": "qwen2-1.5b", "ranks": 4, "data": 2, "model": 2, "batch": 4, "prompt": 128,
-            "gen": 8, "train_batch": 8, "seq": 128, "train_steps": 2, "lr": 1e-3, "seed": 0,
+            "gen": 4, "train_batch": 8, "seq": 128, "train_steps": 2, "lr": 1e-3, "seed": 0,
             "check_archs": ("qwen2-1.5b", "mamba2-1.3b", "deepseek-v2-lite-16b"),
             "check_layers": 2, "check_gen": 4, "check_lr": 2e-3, "timeout": 600,
             "device": "cuda", "reduced": False}
@@ -4884,6 +4904,95 @@ def dryrun_phase(ops, card: str, spec: dict = DRYRUN) -> dict:
     return {"figures": figures, "launches": dict(launched, by_k={})}
 
 
+EXAMPLES = {"timeout": 300, "train": ["--d-model", "768", "--layers", "12", "--steps", "120"],
+            "device": "cuda"}
+
+
+def run_example(name: str, args: list, timeout: float) -> tuple:
+    """``python -m repro_torch.examples.<name> args`` (:func:`session_run`:
+    a timeout kills it with any ranks it spawned): ``(stdout lines,
+    seconds, kernel launches)``; raises unless it exited 0 with ``OK``
+    last."""
+    out, err, rc, seconds = session_run(["-m", f"repro_torch.examples.{name}", *args], timeout,
+                                        name)
+    lines = out.splitlines()
+    require(rc == 0 and lines and lines[-1] == "OK",
+            f"{name} exited {rc} without OK:\n{out[-3000:]}\n{err[-5000:]}")
+    counts = json.loads(_after(lines, "kernel launches: "))
+    counts["by_k"] = {int(k): v for k, v in counts["by_k"].items()}
+    return lines, seconds, counts
+
+
+def _after(lines: list, prefix: str) -> str:
+    """What follows ``prefix`` on the first line that starts with it."""
+    found = [line[len(prefix):] for line in lines if line.startswith(prefix)]
+    require(bool(found), f"no line starts with {prefix!r}")
+    return found[0]
+
+
+def examples_phase(card: str, spec: dict = EXAMPLES) -> dict:
+    """The four twins of ``examples/`` on the card (module docstring): each
+    one's seconds, key figures and kernel launches (``launches``, by twin)."""
+    import re
+
+    t_phase = time.time()
+    figures, launches = {}, {}
+
+    lines, sec, counts = run_example("quickstart", ["--device", spec["device"]],
+                                     spec["timeout"])
+    ops_ = json.loads(_after(lines, "compiled ops: "))
+    fid = float(_after(lines, "fidelity vs dense reference: "))
+    require(counts["shm"] == ops_.get("shm", 0) > 0 and counts["fused"] == ops_.get("fused", 0),
+            f"quickstart launched {counts} for its plan's ops {ops_}")
+    figures["quickstart"] = {"seconds": sec, "fidelity": fid, "ops": ops_}
+    launches["quickstart"] = counts
+    log(f"  quickstart: {sec:.1f}s, fidelity {fid:.8f}, ops {ops_}, launches {counts} ({card})")
+
+    lines, sec, counts = run_example("simulate_qft", ["--device", spec["device"]],
+                                     spec["timeout"])
+    fids = {m.group(1): float(m.group(2)) for m in
+            (re.match(r"  fidelity\[(.+)\] = (\S+)$", line) for line in lines) if m}
+    paths = {m.group(1).strip(): float(m.group(2)) for m in
+             (re.match(r"  (\S.{27}) +(\d+\.\d+)s$", line) for line in lines) if m}
+    obs = {m.group(1): (float(m.group(2)), float(m.group(3))) for m in
+           (re.match(r"  (\w+) +<obs>=(\S+) \(ref (\S+)\)", line) for line in lines) if m}
+    joined = float(re.match(r"(\S+)s", _after(lines, "launch: 8 ranks joined their group "))
+                   .group(1))
+    require(len(fids) == 4 and min(fids.values()) > 0.9999, f"simulate_qft fidelities {fids}")
+    require(set(obs) == {"shardmap", "cuda", "offload"}, f"simulate_qft measured {obs}")
+    require(counts["fused"] > 0 and counts["shm"] > 0,
+            f"simulate_qft must launch both kernels: {counts}")
+    figures["simulate_qft"] = {"seconds": sec, "launch_s": joined, "fidelity": fids,
+                               "path_s": paths, "obs": obs}
+    launches["simulate_qft"] = counts
+    log(f"  simulate_qft: {sec:.1f}s, of it {joined:.1f}s until the 8 ranks joined; fidelities "
+        f"{fids}; paths {paths} s; <obs> (ref) {obs}; launches {counts} ({card})")
+
+    lines, sec, counts = run_example("serve_lm", ["--device", spec["device"]],
+                                     spec["timeout"])
+    rates = {k: float(_after(lines, f"{k}: ").split("(")[1].split()[0].replace(",", ""))
+             for k in ("prefill", "decode")}
+    figures["serve_lm"] = {"seconds": sec, "tok_per_s": rates}
+    launches["serve_lm"] = counts
+    log(f"  serve_lm: {sec:.1f}s, prefill {rates['prefill']} tok/s, decode {rates['decode']} "
+        f"tok/s, launches {counts} ({card})")
+
+    lines, sec, counts = run_example("train_lm", spec["train"] + ["--device", spec["device"]],
+                                     spec["timeout"])
+    first, last = (float(v) for v in _after(lines, "loss: ").split()[:3:2])
+    done = _after(lines, "done: ")
+    require(last < first, f"train_lm's loss did not fall: {first} -> {last}")
+    figures["train_lm"] = {"seconds": sec, "first_loss": first, "last_loss": last, "done": done}
+    launches["train_lm"] = counts
+    log(f"  train_lm {' '.join(spec['train'])}: {sec:.1f}s, loss {first} -> {last}, {done}, "
+        f"launches {counts} ({card})")
+    for name in ("serve_lm", "train_lm"):
+        require(launches[name]["fused"] == launches[name]["shm"] == 0,
+                f"{name} reaches no pallas_call, yet launched {launches[name]}")
+    figures["seconds"] = time.time() - t_phase
+    return {"figures": figures, "launches": launches}
+
+
 def width_rows(ops, ref, probe, ks, n: int) -> list:
     """``fused_apply`` rows at widths ``ks`` that no plan launched (the
     profile's k on bits 0..k-1 of one shard of 2^n): against the plain
@@ -5169,6 +5278,15 @@ def main() -> None:
     paths["lm_dryrun"] = dry["launches"]
     log("  dry-run figures: " + json.dumps(dry["figures"]))
     log(f"  the LM dry-run phase took {time.time() - t_dry:.1f}s")
+    t_ex = time.time()
+    log("== the examples' twins: python -m repro_torch.examples.{quickstart, simulate_qft, "
+        "serve_lm, train_lm " + " ".join(EXAMPLES["train"]) + "}")
+    torch.cuda.empty_cache()
+    ex = examples_phase(card)
+    for name, counts in ex["launches"].items():
+        paths[f"example_{name}"] = counts
+    log("  examples figures: " + json.dumps(ex["figures"]))
+    log(f"  the examples phase took {time.time() - t_ex:.1f}s")
     for k in kernels:
         key = "fused" if k["name"] == "fused_apply" else "shm"
         k["launches_by_path"] = {path: counts[key] for path, counts in paths.items()}

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -47,6 +48,7 @@ import torch.distributed as dist
 
 from ..configs.base import SHAPES, shape_applicable
 from ..configs.registry import ARCHS, get_arch
+from ..models import layers
 from ..optim import adamw
 from . import hlo_analysis as ha
 from .mesh import MULTI_POD_SHAPE, PRODUCTION_SHAPE, make_production_mesh
@@ -83,6 +85,10 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
 
     n_chips = math.prod(MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE)
     hw = ha.HardwareSpec()
+    # every cell starts from the same state, whatever ran before it in the
+    # process: no cached RoPE table, and the collector's counts at zero
+    layers.clear_rope_cache()
+    gc.collect()
     with fake_group(n_chips):
         mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
         t0 = time.time()

@@ -228,6 +228,11 @@ class Census(TorchDispatchMode):
         st = t.untyped_storage()
         key = st._cdata
         entry = self._seen.get(key)
+        if entry is not None and self._refs[key]() is not st:
+            # an address reused before the release of the storage that had
+            # it was seen: that storage is gone, and this is a new one
+            self._died(key, entry, None)
+            entry = None
         if entry is None:
             entry = [st.nbytes(), made, False]
             self._seen[key] = entry

@@ -19,16 +19,22 @@ shards on a mesh). Calling ``fn(*args)`` under
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig, input_specs
 from ..device import DeviceLike
-from ..models.sharding import data_axes_for  # noqa: F401 (the reference's steps.data_axes_for)
+from ..models import sharding
 from ..models.transformer import Model
 from ..optim import adamw
 from .hlo_analysis import section
+
+
+def data_axes_for(mesh) -> Tuple[str, ...]:
+    """The batch axes of ``mesh`` (a ``DeviceMesh``), over which FSDP shards
+    too: ``("pod", "data")`` with a pod axis, else ``("data",)``."""
+    return sharding.data_axes_for(mesh.mesh_dim_names)
 
 
 def pad_heads_for_tp(cfg: ArchConfig, tp: int) -> ArchConfig:
@@ -151,7 +157,7 @@ def _on_meta(model: Model) -> Model:
 def _check_mesh(model: Model, mesh, multi_pod: bool) -> None:
     if mesh is not model.mesh:
         raise ValueError("the model is not on this mesh: build it with build_model(..., mesh=mesh)")
-    if mesh is not None and multi_pod != ("pod" in mesh.mesh_dim_names):
+    if mesh is not None and multi_pod != ("pod" in data_axes_for(mesh)):
         raise ValueError(f"multi_pod={multi_pod} on a mesh with axes {mesh.mesh_dim_names}")
 
 

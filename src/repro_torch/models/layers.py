@@ -120,6 +120,14 @@ def _inv_freq(rot: int, theta: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(inv, np.float32)).to(device)
 
 
+def clear_rope_cache() -> None:
+    """Drop the RoPE tables cached per ``(rot, theta, device)``. A dry run
+    clears them before each cell: a table cached by an earlier cell in the
+    process would count in the cell's census as an argument, not as its
+    output."""
+    _inv_freq.cache_clear()
+
+
 def rope_freqs(head_dim: int, theta: float, rotary_frac: float = 1.0,
                device=None) -> Tuple[torch.Tensor, int]:
     """``(inv_freq [rot/2], rot)``: ``rot = int(head_dim * frac) // 2 * 2``

@@ -34,6 +34,11 @@ import torch
 MAX_DIMS = 25
 
 
+def axis_of_bit(n: int, p: int) -> int:
+    """The axis of a ``(2,)*n`` view that holds index bit ``p``."""
+    return n - 1 - p
+
+
 def n_bits_of(size: int) -> int:
     n = int(size).bit_length() - 1
     if size != 1 << n:

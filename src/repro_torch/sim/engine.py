@@ -458,6 +458,12 @@ class Backend:
         return torch.stack([self.execute(states[b], apply_final)
                             for b in range(states.shape[0])])
 
+    def extract(self, out: torch.Tensor, batch: bool = False) -> torch.Tensor:
+        """An ``execute`` result as the engine returns it: flat ``[2^n]``
+        (the rank's ``[2^L]`` on the shardmap backend), or ``[B, 2^n]``
+        with ``batch``."""
+        return out.reshape(out.shape[0], -1) if batch else out.reshape(-1)
+
     def finalize(self, packed: torch.Tensor) -> torch.Tensor:
         """The final remap of a ``run_packed`` result (``[2^n]``, or a
         ``[B, 2^n]`` batch of them), as a new tensor."""
@@ -507,7 +513,7 @@ class CudaBackend(Backend):
     def setup(self, engine: "ExecutionEngine") -> None:
         super().setup(engine)
         G, R, L = engine.G, engine.R, engine.L
-        self.S = 1 << (G + R)
+        self.S = 1 << engine.n_nonlocal
         self._dep: Dict[int, Optional[np.ndarray]] = {}
         for prog in engine.cc.programs:
             for op in prog.ops:
@@ -1222,11 +1228,7 @@ class DenseBackend(Backend):
     name = "dense"
 
     def execute(self, state: torch.Tensor, apply_final: bool = True) -> torch.Tensor:
-        from .statevector import simulate
-
-        eng = self.engine
-        psi = simulate(eng.bound_circuit, psi0=state, dtype=eng.dtype, device=eng.device)
-        return psi if apply_final else to_frame(psi, eng.measurement_frame)
+        return self.engine.dense_reference(psi0=state, apply_final=apply_final)
 
 
 class ShardMapBackend(CudaBackend):
@@ -1265,7 +1267,7 @@ class ShardMapBackend(CudaBackend):
 
     def setup(self, engine: "ExecutionEngine") -> None:
         super().setup(engine)
-        n, L, nb = engine.n, engine.L, engine.R + engine.G
+        n, L, nb = engine.n, engine.L, engine.n_nonlocal
         if not (dist.is_available() and dist.is_initialized()):
             raise BackendBuildError("the shardmap backend needs an initialised torch.distributed "
                                     "process group, one rank per device of the bit-mesh")
@@ -1576,6 +1578,12 @@ class ExecutionEngine:
         return out
 
     # ------------------------------------------------------------- shared
+    @property
+    def n_nonlocal(self) -> int:
+        """The device bits of the packed state, ``R + G``: it has
+        ``2^(R+G)`` shards."""
+        return self.R + self.G
+
     def stage_loop(self, x, ops_fn, remap_fn, apply_final: bool = True, start: int = 0,
                    after_stage: Optional[Callable] = None):
         """The stage loop: ``ops_fn(x, prog)`` applies one stage's op list;
@@ -1606,6 +1614,21 @@ class ExecutionEngine:
         return counts
 
     # --------------------------------------------------- integrity guard
+    def dense_reference(self, bound: Optional[Circuit] = None, psi0=None,
+                        apply_final: bool = True) -> torch.Tensor:
+        """The per-gate dense oracle's state for ``bound`` (the current
+        binding by default), on the engine's device; with
+        ``apply_final=False`` re-stored in the compiled frame's physical
+        order (comparable to :meth:`run_packed`). The guard does not use it:
+        its retry runs the plan again through the kernels (:meth:`_rerun`)."""
+        from .statevector import simulate
+
+        if bound is None:
+            self._require_bound()
+            bound = self.bound_circuit
+        psi = simulate(bound, psi0=psi0, dtype=self.dtype, device=self.device).reshape(-1)
+        return psi if apply_final else to_frame(psi, self.measurement_frame)
+
     def _rerun(self, bound: Circuit, psi0, apply_final: bool) -> torch.Tensor:
         """The integrity guard's one retry: the same plan under ``bound``,
         through the engine's own backend and kernels, on the device the
@@ -1615,7 +1638,8 @@ class ExecutionEngine:
             if bound is not prev:
                 self.bind_circuit(bound)
             try:
-                out = self.backend.execute(self.backend.prepare(psi0), apply_final)
+                out = self.backend.extract(self.backend.execute(self.backend.prepare(psi0),
+                                                                apply_final))
                 _sync(self.device)
                 return out
             finally:
@@ -1698,8 +1722,8 @@ class ExecutionEngine:
             bound = self.bound_circuit
             if faults._ACTIVE is not None:
                 faults.maybe_inject("slow_stage", site="engine.run")
-            out = self._timed("run", lambda: self.backend.execute(
-                self.backend.prepare(psi0), True))
+            out = self._timed("run", lambda: self.backend.extract(self.backend.execute(
+                self.backend.prepare(psi0), True)))
         out = self._corrupt(out, "engine.run")
         return self._guard(out, psi0, True, bound) if verify else out
 
@@ -1715,8 +1739,8 @@ class ExecutionEngine:
             bound = self.bound_circuit
             if faults._ACTIVE is not None:
                 faults.maybe_inject("slow_stage", site="engine.run")
-            out = self._timed("run_packed", lambda: self.backend.execute(
-                self.backend.prepare(psi0), False))
+            out = self._timed("run_packed", lambda: self.backend.extract(self.backend.execute(
+                self.backend.prepare(psi0), False)))
         out = self._corrupt(out, "engine.run")
         return self._guard(out, psi0, False, bound) if verify else out
 
@@ -1729,8 +1753,9 @@ class ExecutionEngine:
         with :func:`repro_torch.sim.measure.measure_batch`)."""
         with self.lock:
             self._require_bound()
-            return self._timed("run_batch", lambda: self.backend.execute_batch(
-                self.backend.prepare(psi0s, batch=True), apply_final))
+            return self._timed("run_batch", lambda: self.backend.extract(
+                self.backend.execute_batch(self.backend.prepare(psi0s, batch=True), apply_final),
+                batch=True))
 
     def run_sweep(self, psi0, params_batch, apply_final: bool = True, *,
                   verify: bool = False) -> torch.Tensor:
@@ -1753,8 +1778,9 @@ class ExecutionEngine:
                 if faults._ACTIVE is not None:
                     faults.maybe_inject("slow_stage", site="engine.run_sweep")
                 stacked = self.sweep_tables(points)
-                out = self._timed("run_sweep", lambda: self.backend.execute_sweep(
-                    self.backend.prepare(psi0), stacked, len(points), apply_final))
+                out = self._timed("run_sweep", lambda: self.backend.extract(
+                    self.backend.execute_sweep(self.backend.prepare(psi0), stacked, len(points),
+                                               apply_final), batch=True))
             else:
                 t0 = time.perf_counter()
                 outs = []

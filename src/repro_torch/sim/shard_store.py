@@ -407,6 +407,12 @@ class ShardStore:
     def total_amps(self) -> int:
         return int(np.prod(self.lead_shape, dtype=np.int64)) * self.n_shards * self.shard_len
 
+    @property
+    def ndim(self) -> int:
+        """The dims of the state the store holds (``lead_shape`` + the flat
+        amplitudes), as the array it stands for has."""
+        return len(self.lead_shape) + 1
+
     def _ensure_dir(self) -> str:
         if self._dir is None:
             root = self.config.spill_dir or tempfile.gettempdir()

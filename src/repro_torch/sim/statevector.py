@@ -79,5 +79,25 @@ def fidelity(a, b, chunk: int = 1 << 24) -> float:
     return float(abs(np.vdot(a.astype(np.complex128), b.astype(np.complex128))))
 
 
+def probabilities(psi) -> np.ndarray:
+    """|psi|^2 as float64 on the host (dense oracle only: never call this on
+    a distributed state, use :mod:`repro_torch.sim.measure` instead)."""
+    psi = _host(psi).reshape(-1)
+    return psi.real.astype(np.float64) ** 2 + psi.imag.astype(np.float64) ** 2
+
+
+def measure(psi, shots: int = 0, seed: int = 0, marginals=(), observables=()):
+    """Measure a dense (logical-order) state on the host: the single-device
+    entry into the measurement subsystem. Returns a
+    :class:`repro_torch.sim.result.SimulationResult`; a seed gives the
+    reference's shots."""
+    from .measure import DenseMeasurer, measure_to_result
+
+    return measure_to_result(
+        DenseMeasurer(_host(psi)), backend="dense", shots=shots,
+        seed=seed, marginals=marginals, observables=observables,
+    )
+
+
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

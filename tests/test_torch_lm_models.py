@@ -6,6 +6,7 @@ and cache, three decode steps). The configuration's bf16 is held in
 ``tests/test_torch_lm_bf16.py``."""
 
 import dataclasses
+import types
 
 import jax
 import numpy as np
@@ -21,6 +22,7 @@ from repro.models.transformer import body_structure as r_body_structure
 from repro_torch.configs import base, registry
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.launch import steps
+from repro_torch.models import sharding
 from repro_torch.models.transformer import Model, body_structure
 
 NAMES = sorted(r_registry.ARCHS)
@@ -79,7 +81,9 @@ def test_pad_heads_for_tp_and_data_axes(tp):
         assert dataclasses.asdict(ref) == dataclasses.asdict(got)
     for names in [("data", "model"), ("pod", "data", "model")]:
         mesh = jax.sharding.AbstractMesh((1,) * len(names), names)
-        assert r_steps.data_axes_for(mesh) == steps.data_axes_for(mesh.axis_names)
+        fake = types.SimpleNamespace(mesh_dim_names=names)  # a DeviceMesh's axis names
+        assert r_steps.data_axes_for(mesh) == steps.data_axes_for(fake) == \
+            sharding.data_axes_for(names)
 
 
 @pytest.mark.parametrize("name", NAMES)
